@@ -1,0 +1,59 @@
+"""PyTorch and CUDA port of the weather-attribute detection framework, for
+one NVIDIA H100.
+
+It stands beside the JAX package
+``heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu``,
+which stays the reference: same public functions, same layouts (NHWC
+activations, stacked ``[B, T, Kmax]`` logits), same param tree.  It imports
+neither JAX nor anything of the JAX package.  Ported so far: PMG batch
+inference (``Engine.run`` on uint8 frames), with the patch-Gram and the
+uint8 stem as hand-written CUDA kernels (``ops/cuda_kernels.py``).
+
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
+
+    eng = load_engine("pmg", "best_model_PMG.pth", "tasks.json", batch_size=256)
+    out = eng.run(images_u8)          # {"preds": [N,T], "probs": [N,T,Kmax]}
+"""
+
+__version__ = "0.1.0"
+
+from . import config  # noqa: F401
+
+
+def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwargs):
+    """One call from a ``.pth`` checkpoint to an :class:`Engine` (PMG only).
+
+    - ``tasks``: registry dict ``{task: [class, ...]}`` or a JSON path;
+      defaults to the bundled 12-task weather registry.
+    - ``hparams``: dict or JSON path; when omitted, sidecar JSONs are
+      discovered next to ``model_path``.
+    - ``model_path``: a torch ``.pth`` or ``.npz`` state dict, loaded
+      strictly.  Randomly initialized params are not ported yet.
+    - ``engine_kwargs``: forwarded to :class:`Engine` (``batch_size``,
+      ``prob_threshold``, ``packed``, ``device`` ...).
+    """
+    import os
+
+    from .config import default_tasks_path, load_hparams, load_tasks
+    from .engine import checkpoint
+    from .engine.executor import Engine
+    from .models import get_family
+
+    model_path = model_path or None
+    if model_path is None:
+        raise NotImplementedError(
+            "load_engine needs a checkpoint: random init is not ported yet"
+        )
+    if tasks is None:
+        tasks = default_tasks_path()
+    if isinstance(tasks, (str, os.PathLike)):
+        tasks = load_tasks(os.fspath(tasks))
+    if hparams is None:
+        hparams = load_hparams(None, model_path)
+    elif isinstance(hparams, (str, os.PathLike)):
+        hparams = load_hparams(os.fspath(hparams), model_path)
+    else:
+        hparams = dict(hparams)
+    spec = get_family(family).build_spec(tasks, hparams)
+    params = checkpoint.load_torch_checkpoint(family, model_path, spec)
+    return Engine(family, spec, params, **engine_kwargs)

@@ -1,0 +1,223 @@
+"""Checkpoint loading: PyTorch ``.pth`` state dicts -> the port's PMG params.
+
+The params are the JAX package's tree with torch tensors at the leaves:
+conv OIHW -> HWIO, Linear [out, in] -> [in, out], the packed transformer
+``in_proj`` split into q/k/v, per-task modules stacked on a leading task
+axis and zero-padded to Kmax.  Loading is strict: a missing key raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..models import get_family
+from ..models import pmg as pmg_mod
+
+StateDict = Dict[str, np.ndarray]
+
+
+def load_state_dict(path: str) -> StateDict:
+    """Load a ``.pth`` (torch pickle) or ``.npz`` of named arrays -> numpy.
+
+    Unwraps ``{'model': ...}`` / ``{'state_dict': ...}`` containers and strips
+    ``module.`` (DataParallel) prefixes.
+    """
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            raw = {k: z[k] for k in z.files}
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict) and not all(hasattr(v, "numpy") for v in obj.values()):
+            obj = obj.get("model", obj.get("state_dict", obj))
+        raw = {
+            k: v.detach().cpu().numpy()
+            for k, v in obj.items()
+            if hasattr(v, "detach")
+        }
+    return {k[7:] if k.startswith("module.") else k: v for k, v in raw.items()}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _conv(w: np.ndarray) -> Dict[str, torch.Tensor]:
+    return {"w": _t(np.transpose(w, (2, 3, 1, 0)))}  # OIHW -> HWIO
+
+
+def _linear(w: np.ndarray, b: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    p = {"w": _t(w.T)}
+    if b is not None:
+        p["b"] = _t(b)
+    return p
+
+
+def _norm(state: StateDict, prefix: str, kind: str) -> Dict[str, torch.Tensor]:
+    p = {"scale": _t(state[f"{prefix}.weight"]), "bias": _t(state[f"{prefix}.bias"])}
+    if kind == "batch":
+        p["mean"] = _t(state[f"{prefix}.running_mean"])
+        p["var"] = _t(state[f"{prefix}.running_var"])
+    return p
+
+
+def _stack_padded(
+    ws: List[np.ndarray], bs: List[np.ndarray], kmax: int
+) -> Dict[str, torch.Tensor]:
+    """Per-task Linear [K_t, D] torch weights -> {"w": [T,D,Kmax], "b": [T,Kmax]}."""
+    nt, d = len(ws), ws[0].shape[1]
+    w = np.zeros((nt, d, kmax), np.float32)
+    b = np.zeros((nt, kmax), np.float32)
+    for i, (wi, bi) in enumerate(zip(ws, bs)):
+        if wi.shape[0] > kmax:
+            raise ValueError(
+                f"checkpoint head #{i} has {wi.shape[0]} classes but the task "
+                f"registry's widest task has {kmax}: the registry does not match "
+                f"the one this checkpoint was trained with"
+            )
+        w[i, :, : wi.shape[0]] = wi.T
+        b[i, : bi.shape[0]] = bi
+    return {"w": _t(w), "b": _t(b)}
+
+
+def convert_pmg(state: StateDict, spec: pmg_mod.Spec) -> Dict[str, Any]:
+    """Map a ``MultiTaskPatchGANGramModelNonOverlapV2`` state dict (CPU tensors)."""
+    t = spec.tasks
+    params: Dict[str, Any] = {"trunk": []}
+    for i in range(len(spec.plan)):
+        ci, ni = 3 * i, 3 * i + 1  # Sequential indices: conv, norm, LeakyReLU
+        params["trunk"].append(
+            {
+                "conv": _conv(state[f"feature_extractor.{ci}.weight"]),
+                "norm": _norm(state, f"feature_extractor.{ni}", spec.norm),
+            }
+        )
+    if spec.use_channel_attention:
+        # SEBlock.fc = Sequential(Linear, ReLU, Linear, Sigmoid), bias-free
+        params["se"] = {
+            "fc1": _linear(state["se.fc.0.weight"]),
+            "fc2": _linear(state["se.fc.2.weight"]),
+        }
+    params["chan_proj"] = _conv(state["chan_proj.weight"])
+    params["token_proj"] = _linear(state["token_proj.weight"], state["token_proj.bias"])
+    if spec.has_transformer:
+        d = spec.d_model
+        layers = []
+        for li in range(spec.transformer_layers):
+            pre = f"transformer.encoder.layers.{li}"
+            inw = state[f"{pre}.self_attn.in_proj_weight"]  # [3D, D]
+            inb = state[f"{pre}.self_attn.in_proj_bias"]  # [3D]
+            layers.append(
+                {
+                    "attn": {
+                        "wq": _t(inw[:d].T),
+                        "wk": _t(inw[d : 2 * d].T),
+                        "wv": _t(inw[2 * d :].T),
+                        "bq": _t(inb[:d]),
+                        "bk": _t(inb[d : 2 * d]),
+                        "bv": _t(inb[2 * d :]),
+                        "wo": _t(state[f"{pre}.self_attn.out_proj.weight"].T),
+                        "bo": _t(state[f"{pre}.self_attn.out_proj.bias"]),
+                    },
+                    "norm1": {
+                        "scale": _t(state[f"{pre}.norm1.weight"]),
+                        "bias": _t(state[f"{pre}.norm1.bias"]),
+                    },
+                    "norm2": {
+                        "scale": _t(state[f"{pre}.norm2.weight"]),
+                        "bias": _t(state[f"{pre}.norm2.bias"]),
+                    },
+                    "ffn1": _linear(state[f"{pre}.linear1.weight"], state[f"{pre}.linear1.bias"]),
+                    "ffn2": _linear(state[f"{pre}.linear2.weight"], state[f"{pre}.linear2.bias"]),
+                }
+            )
+        params["transformer"] = layers
+    params["queries"] = torch.stack(
+        [_t(state[f"task_pool.query.{name}"]) for name in t.names]
+    )
+    params["heads"] = _stack_padded(
+        [state[f"classifiers.{n}.weight"] for n in t.names],
+        [state[f"classifiers.{n}.bias"] for n in t.names],
+        t.max_classes,
+    )
+    return params
+
+
+def sniff_family(state: Mapping[str, Any]) -> Optional[str]:
+    """Best-effort family guess from checkpoint key roots (``module.``
+    prefixes stripped): PMG has ``feature_extractor.*``, PM ``trunk.*`` /
+    ``task_heads.*``, RTM ``truncated_encoder.`` / ``backbone.`` / bare
+    torchvision roots."""
+    roots = set()
+    for k in state:
+        if k.startswith("module."):
+            k = k[len("module."):]
+        roots.add(k.split(".", 1)[0])
+    if "feature_extractor" in roots:
+        return "pmg"
+    if {"truncated_encoder", "backbone", "conv1", "layer1"} & roots:
+        return "rtm"
+    if {"trunk", "task_heads"} & roots:
+        return "pm"
+    return None
+
+
+def convert(family: str, state: StateDict, spec) -> Dict[str, Any]:
+    """Strict state dict -> params.  A missing key raises; when the key
+    schema belongs to another family, the error names it."""
+    family = family.lower()
+    get_family(family)  # raises for the families not ported yet
+    try:
+        return convert_pmg(state, spec)
+    except KeyError as e:
+        guessed = sniff_family(state)
+        if guessed and guessed != family:
+            raise ValueError(
+                f"checkpoint does not look like a {family.upper()} checkpoint "
+                f"(missing key {e.args[0]!r}); its key schema matches "
+                f"{guessed.upper()}"
+            ) from e
+        raise
+
+
+def load_torch_checkpoint(family: str, path: str, spec) -> Dict[str, Any]:
+    """``.pth`` / ``.npz`` path -> params (CPU tensors), strict."""
+    return convert(family, load_state_dict(path), spec)
+
+
+def params_from_jax(tree: Any, spec: pmg_mod.Spec) -> Dict[str, Any]:
+    """The JAX package's PMG param tree (numpy or JAX arrays at the leaves)
+    -> the port's params (CPU float32 tensors), leaf for leaf.
+
+    Both packages share one tree layout, so this is a structural copy; it
+    checks that the tree has the entries ``spec`` implies.
+    """
+    want = {"trunk", "chan_proj", "token_proj", "queries", "heads"}
+    want |= {"se"} if spec.use_channel_attention else set()
+    want |= {"transformer"} if spec.has_transformer else set()
+    if set(tree) != want:
+        raise ValueError(f"param tree keys {sorted(tree)} do not match the spec's {sorted(want)}")
+    if len(tree["trunk"]) != len(spec.plan):
+        raise ValueError(
+            f"param tree has {len(tree['trunk'])} trunk blocks, the spec plans {len(spec.plan)}"
+        )
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return _t(node)
+
+    return conv(tree)
+
+
+def to_device(params: Any, device) -> Any:
+    """Move every tensor of a param tree to ``device``."""
+    if isinstance(params, Mapping):
+        return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [to_device(v, device) for v in params]
+    return params.to(device)

@@ -1,0 +1,55 @@
+"""PatchGAN-style conv trunk.
+
+Starting at ``ndf`` filters, add Conv(k, s, p) -> Norm -> LeakyReLU(0.2)
+blocks, doubling the filters, while the receptive-field counter (starting
+at ``patch_size``, divided by the stride each block) stays > 4 and the
+current filter count is <= 512; then one final stride-1 block.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
+
+from ..ops.nn import conv2d, leaky_relu
+from ..ops.norms import apply_norm
+
+
+class ConvBlock(NamedTuple):
+    cin: int
+    cout: int
+    kernel: int
+    stride: int
+    pad: int
+
+
+def trunk_plan(
+    ndf: int,
+    patch_size: int,
+    kernel: int,
+    stride: int,
+    pad: int,
+    final_kernel: int,
+    final_pad: int,
+    in_nc: int = 3,
+) -> Tuple[ConvBlock, ...]:
+    """Static layer plan for the doubling trunk + its final s1 block."""
+    blocks: List[ConvBlock] = []
+    cin, nf, rf = in_nc, ndf, float(patch_size)
+    while rf > 4 and nf <= 512:
+        blocks.append(ConvBlock(cin, nf, kernel, stride, pad))
+        cin, nf, rf = nf, nf * 2, rf / stride
+    blocks.append(ConvBlock(cin, nf, final_kernel, 1, final_pad))
+    return tuple(blocks)
+
+
+def apply_trunk(
+    params: List[Dict], x: torch.Tensor, plan: Tuple[ConvBlock, ...], norm: str
+) -> torch.Tensor:
+    """NHWC conv trunk: (Conv -> Norm -> LeakyReLU(0.2)) per planned block."""
+    for p, b in zip(params, plan):
+        x = conv2d(x, p["conv"], stride=b.stride, padding=b.pad)
+        x = apply_norm(x, p["norm"], norm)
+        x = leaky_relu(x, 0.2)
+    return x

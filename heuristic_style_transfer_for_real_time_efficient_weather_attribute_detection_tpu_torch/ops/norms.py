@@ -1,0 +1,66 @@
+"""Normalization layers (functional, NHWC), eps 1e-5 as in ``torch.nn``.
+
+- ``batch_norm_infer``: running statistics (BatchNorm2d in eval mode).
+- ``instance_norm``: per-sample, per-channel statistics over H, W (eval mode
+  too: InstanceNorm2d keeps no running statistics by default).
+- ``group_norm``: GroupNorm(32).
+- ``layer_norm``: over the last dim (transformer norms).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+EPS = 1e-5
+
+
+def batch_norm_affine(p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference batch norm as a per-channel affine ``x*scale + shift``."""
+    inv = p["scale"] * torch.reciprocal(torch.sqrt(p["var"] + EPS))
+    return inv, p["bias"] - p["mean"] * inv
+
+
+def batch_norm_infer(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x: [..., C]; p: {scale, bias, mean, var} each [C]."""
+    scale, shift = batch_norm_affine(p)
+    return x * scale + shift
+
+
+def instance_norm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x: [B, H, W, C]; per-(sample, channel) stats over spatial dims."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), correction=0, keepdim=True)
+    y = (x - mean) * torch.reciprocal(torch.sqrt(var + EPS))
+    return y * p["scale"] + p["bias"]
+
+
+def group_norm(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], num_groups: int = 32
+) -> torch.Tensor:
+    """x: [B, H, W, C]; stats per (sample, group) over H, W and the group's channels."""
+    b, h, w, c = x.shape
+    xg = x.reshape(b, h, w, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+    var = xg.var(dim=(1, 2, 4), correction=0, keepdim=True)
+    y = ((xg - mean) * torch.reciprocal(torch.sqrt(var + EPS))).reshape(b, h, w, c)
+    return y * p["scale"] + p["bias"]
+
+
+def layer_norm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Normalize over the trailing dim; p: {scale, bias} each [D]."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, correction=0, keepdim=True)
+    return (x - mean) * torch.reciprocal(torch.sqrt(var + EPS)) * p["scale"] + p["bias"]
+
+
+def apply_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
+    """Dispatch used by conv trunks; ``kind`` in {batch, instance, group}."""
+    if kind == "batch":
+        return batch_norm_infer(x, p)
+    if kind == "instance":
+        return instance_norm(x, p)
+    if kind == "group":
+        return group_norm(x, p)
+    raise ValueError(f"unknown norm kind {kind!r}")

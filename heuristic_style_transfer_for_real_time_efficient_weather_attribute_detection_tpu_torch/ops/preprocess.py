@@ -1,0 +1,101 @@
+"""Image preprocessing: host decode/resize, device normalize.
+
+The host side reproduces the reference transform (Resize(256, bilinear) ->
+CenterCrop(224)) with PIL.  Images cross to the device as uint8 and are
+normalized there, either by ``normalize_uint8`` or folded into the stem
+kernel's weights (``packed_affine``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from PIL import Image
+
+from ..config import DEFAULT_IMG_SIZE, DEFAULT_RESIZE, IMAGENET_MEAN, IMAGENET_STD
+
+_SCALE = (1.0 / (255.0 * np.asarray(IMAGENET_STD, np.float32))).astype(np.float32)
+_SHIFT = (
+    np.asarray(IMAGENET_MEAN, np.float32) / np.asarray(IMAGENET_STD, np.float32)
+).astype(np.float32)
+
+
+def resize_shorter(img: Image.Image, size: int = DEFAULT_RESIZE) -> Image.Image:
+    """Resize so the shorter side equals ``size`` (aspect kept, bilinear),
+    with torchvision ``Resize(int)`` rounding."""
+    w, h = img.size
+    if (w <= h and w == size) or (h <= w and h == size):
+        return img
+    if w < h:
+        new_w = size
+        new_h = int(round(size * h / w))
+    else:
+        new_h = size
+        new_w = int(round(size * w / h))
+    return img.resize((new_w, new_h), Image.BILINEAR)
+
+
+def center_crop(img: Image.Image, size: int = DEFAULT_IMG_SIZE) -> Image.Image:
+    """Center crop (torchvision ``CenterCrop`` rounding)."""
+    w, h = img.size
+    left = int(round((w - size) / 2.0))
+    top = int(round((h - size) / 2.0))
+    return img.crop((left, top, left + size, top + size))
+
+
+def load_image_uint8(
+    path_or_img, img_size: int = DEFAULT_IMG_SIZE, resize: int = DEFAULT_RESIZE
+) -> np.ndarray:
+    """Decode + resize + crop -> HWC uint8 (normalization happens on device)."""
+    img = (
+        path_or_img
+        if isinstance(path_or_img, Image.Image)
+        else Image.open(path_or_img)
+    )
+    img = img.convert("RGB")
+    img = center_crop(resize_shorter(img, resize), img_size)
+    return np.asarray(img, dtype=np.uint8)
+
+
+def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 NHWC [0,255] -> ImageNet-normalized float32 NHWC, on x's device,
+    as one multiply-add: ``x * (1/(255*std)) - mean/std``."""
+    scale = torch.as_tensor(_SCALE, device=x.device)
+    shift = torch.as_tensor(_SHIFT, device=x.device)
+    return x.to(torch.float32) * scale - shift
+
+
+def packed_affine(k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(scale, shift) of the uint8 normalize ``x*scale - shift``, tiled
+    ``k*k`` times to match the ``s2d_pack`` channel order (dy, dx, c)."""
+    return np.tile(_SCALE, k * k), np.tile(_SHIFT, k * k)
+
+
+def s2d_pack(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Space-to-depth: NHWC -> [B, H/k, W/k, k*k*C], channel order (dy, dx, c).
+
+    Trailing rows/columns beyond a multiple of ``k`` are cropped, as a
+    stride-k pad-0 convolution ignores them.
+    """
+    b, h, w, c = x.shape
+    hp, wp = h // k, w // k
+    x = x[:, : hp * k, : wp * k]
+    return (
+        x.reshape(b, hp, k, wp, k, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(b, hp, wp, k * k * c)
+    )
+
+
+def s2d_unpack(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of ``s2d_pack``: [B, Hp, Wp, k*k*C] -> contiguous NHWC."""
+    b, hp, wp, cc = z.shape
+    c = cc // (k * k)
+    return (
+        z.reshape(b, hp, wp, k, k, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(b, hp * k, wp * k, c)
+        .contiguous()
+    )

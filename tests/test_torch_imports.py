@@ -1,0 +1,76 @@
+"""The port's import boundary: it imports neither JAX nor the JAX package,
+and ``chip_smoke.py`` refuses to run without a card or without the port."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+from tests.conftest import REPO
+
+PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
+JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"
+FORBIDDEN = re.compile(rf"\bjax\b|\bwadt\b|{JAX_PKG}(?!_torch)")
+
+
+def _run(code, cwd=REPO, env_extra=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = f"""
+import importlib, pkgutil, sys
+import {PORT} as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "wadt"
+             or n == "{JAX_PKG}" or n.startswith("{JAX_PKG}."))
+assert not bad, bad
+print("ok", len([n for n in sys.modules if n.startswith("{PORT}")]))
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_import_line_names_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PORT)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    offending = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if re.match(r"\s*(import|from)\s", line) and FORBIDDEN.search(line):
+                    offending.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert len(files) > 10
+    assert not offending, offending
+
+
+def _smoke(cuda_available, cwd):
+    return _run("import runpy, sys, torch; "
+                f"torch.cuda.is_available = lambda: {cuda_available}; "
+                "sys.argv = ['chip_smoke.py']; runpy.run_path('chip_smoke.py', run_name='__main__')",
+                cwd=cwd)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _smoke(False, REPO)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory with chip_smoke.py and nothing else of the repo it
+    fails even where a card is reported: the port is not there."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    out = _smoke(True, str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "ModuleNotFoundError" in out.stderr

@@ -1,0 +1,174 @@
+"""The port's CUDA kernel module on the CPU: each kernel's plain PyTorch
+version against the JAX package's Pallas kernel (interpret mode) and its
+XLA reference, on the same numpy inputs; the wrappers' CPU routing and
+launch counts; and the failures that must raise rather than fall back.
+
+The kernels themselves run only on a CUDA card: ``test_kernel_matches_plain_on_card``
+holds them against their plain versions there and skips elsewhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import wadt  # noqa: F401
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg as tpmg
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import gram as tgram
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import norms as tnorms
+
+GRAM_SHAPES = [(14, 14, 96, 3), (8, 8, 32, 4), (7, 5, 16, 2)]
+
+
+@pytest.mark.parametrize("h,w,c,div", GRAM_SHAPES)
+def test_gram_plain_matches_pallas_and_xla(h, w, c, div):
+    import jax.numpy as jnp
+
+    from wadt.ops.gram import patch_gram_tokens
+    from wadt.ops.pallas_kernels import patch_gram_tokens_pallas
+
+    x = np.random.RandomState(h * 100 + c).randn(2, h, w, c).astype(np.float32)
+    got = ck.patch_gram_plain(torch.from_numpy(x), div).numpy()
+    want_pallas = np.asarray(patch_gram_tokens_pallas(jnp.asarray(x), div, interpret=True))
+    want_xla = np.asarray(patch_gram_tokens(jnp.asarray(x), div))
+    np.testing.assert_allclose(got, want_pallas, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, want_xla, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,c,div", GRAM_SHAPES)
+def test_split_and_pad_match_jax(h, w, c, div):
+    """Replicate pad and row-major patch order, element for element."""
+    import jax.numpy as jnp
+
+    from wadt.ops import gram as jgram
+
+    x = np.random.RandomState(7).randn(2, h, w, c).astype(np.float32)
+    got, area = tgram.split_patches(torch.from_numpy(x), div)
+    want, want_area = jgram.split_patches(jnp.asarray(x), div)
+    assert area == want_area
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _stem_case(leaky):
+    """test_pallas.py's fused_stem setup: uint8 [2,32,32,3], k 4, 16 channels."""
+    rng = np.random.RandomState(1)
+    b, h, k, cout = 2, 32, 4, 16
+    imgs = rng.randint(0, 256, (b, h, h, 3), np.uint8)
+    conv_w = rng.randn(k, k, 3, cout).astype(np.float32) * 0.1
+    bn = {
+        "scale": rng.rand(cout).astype(np.float32) + 0.5,
+        "bias": rng.randn(cout).astype(np.float32) * 0.1,
+        "mean": rng.randn(cout).astype(np.float32) * 0.1,
+        "var": rng.rand(cout).astype(np.float32) + 0.5,
+    }
+    return imgs, conv_w, bn, k
+
+
+def _port_stem_operands(conv_w, bn, k, norm="batch"):
+    """The port's own fold (pmg.fold_stem) of a one-block plan."""
+    spec = tpmg.Spec(tasks=None, ndf=conv_w.shape[-1], patch_size=8, norm=norm)
+    assert spec.plan[0].kernel == k
+    params = {"trunk": [{"conv": {"w": torch.from_numpy(conv_w)},
+                         "norm": {n: torch.from_numpy(v) for n, v in bn.items()}}]}
+    return tpmg.fold_stem(params, spec)
+
+
+def test_stem_plain_matches_fused_stem():
+    import jax.numpy as jnp
+
+    from wadt.config import IMAGENET_MEAN, IMAGENET_STD
+    from wadt.ops.pallas_kernels import fused_stem
+
+    imgs, conv_w, bn, k = _stem_case(True)
+    inv = bn["scale"] / np.sqrt(bn["var"] + 1e-5)
+    want = fused_stem(
+        jnp.asarray(imgs), jnp.asarray(conv_w), jnp.asarray(inv),
+        jnp.asarray(bn["bias"] - bn["mean"] * inv),
+        IMAGENET_MEAN, IMAGENET_STD, stride=k, interpret=True,
+    )
+    op = _port_stem_operands(conv_w, bn, k)
+    got = ck.stem_plain(torch.from_numpy(imgs), op["w"], op["scale"], op["shift"], k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+def test_stem_plain_identity_affine_matches_conv():
+    """The instance/group-norm split: no affine, no activation -> the raw
+    normalized conv of the JAX package."""
+    import jax.numpy as jnp
+
+    from wadt.ops.nn import conv2d
+    from wadt.ops.preprocess import normalize_uint8
+
+    imgs, conv_w, bn, k = _stem_case(False)
+    want = conv2d(normalize_uint8(jnp.asarray(imgs)), {"w": jnp.asarray(conv_w)}, stride=k)
+    op = _port_stem_operands(conv_w, bn, k, norm="instance")
+    got = ck.stem_plain(torch.from_numpy(imgs), op["w"], op["scale"], op["shift"], k, leaky=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+def _gram_call():
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 7, 5, 16).astype(np.float32))
+    return ck.patch_gram, (x, 2), ck.patch_gram_plain
+
+
+def _stem_call():
+    imgs, conv_w, bn, k = _stem_case(True)
+    op = _port_stem_operands(conv_w, bn, k)
+    args = (torch.from_numpy(imgs), op["w"], op["scale"], op["shift"], k)
+    return ck.stem, args, ck.stem_plain
+
+
+@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+def test_cpu_tensor_takes_plain_version(case):
+    wrapper, args, plain = case()
+    ck.reset_launches()
+    got = wrapper(*args)
+    assert ck.LAUNCHES == {"patch_gram": 0, "stem": 0}
+    torch.testing.assert_close(got, plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+def test_other_devices_raise(case):
+    """Neither CPU nor CUDA: the wrapper raises instead of picking a path."""
+    wrapper, args, _ = case()
+    meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a for a in args)
+    with pytest.raises(ValueError, match="not supported"):
+        wrapper(*meta)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(ck, "_lib", None)
+    monkeypatch.setattr(ck, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ck.build()
+
+
+def test_batch_norm_affine_matches_infer():
+    rng = np.random.RandomState(3)
+    p = {n: torch.from_numpy(rng.rand(8).astype(np.float32) + 0.5)
+         for n in ("scale", "bias", "mean", "var")}
+    x = torch.from_numpy(rng.randn(2, 3, 3, 8).astype(np.float32))
+    s, t = tnorms.batch_norm_affine(p)
+    torch.testing.assert_close(x * s + t, tnorms.batch_norm_infer(x, p))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode (run chip_smoke.py there)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+def test_kernel_matches_plain_on_card(case, cuda_device):
+    wrapper, args, plain = case()
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
+    ck.reset_launches()
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert sum(ck.LAUNCHES.values()) == 1
+    tol = 1e-5 if wrapper is ck.patch_gram else 2e-4
+    torch.testing.assert_close(got, plain(*args), atol=tol, rtol=tol)
