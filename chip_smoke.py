@@ -22,7 +22,25 @@ Phases, each of which raises on failure:
    function, beside the least time the card could take; the engine's
    images per second end to end and on device-resident batches.
    ``--profile`` adds a ``torch.profiler`` table of device time by kernel
-   over a few device-resident steps.
+   over a few device-resident steps;
+6. the camera path's kernels against their plain versions on the card: the
+   fused trunk + Gram at the shipped shapes (batch 1 and 8) and on a ragged
+   spec, the fused head for the bf16 and q8 folds (batch 1 and 8) and for a
+   spec without transformer;
+7. the golden-fixture walk of the fused head variants on the card: argmax
+   agrees on decisive samples, drift <= HEAD_FOLD_MAX_DRIFT;
+8. camera path: ``StreamPredictor`` with its default routes on the shipped
+   checkpoint over 64 seeded frames, launch counts reset just before; both
+   camera kernels must have launched, the probabilities follow the Kalman
+   recursion and match the port's CPU path on 8 frames; the packed route
+   runs at batch 1 through the stem and Gram kernels;
+9. camera times: both camera kernels at batch 1 beside their bounds and
+   plain versions, and per-frame latency of three routes: device time per
+   step back to back, one step's device span on an idle card and the host
+   time to enqueue it, and host wall time per frame from ``submit`` to the
+   probabilities on the host.  ``--profile`` adds device kernels and kernel
+   time per step of each route, and the head kernel's time with its fold
+   cut to its first 0, 1, ... layers.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
 card's nvidia-smi line, and as the last line
@@ -41,17 +59,22 @@ import subprocess
 import sys
 import time
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores.  The kernels here run on CUDA
-# cores in float32.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
+# FLOP/s outside the tensor cores, and dense bf16 FLOP/s of the tensor
+# cores.  A bound counts each operation at the peak of its operands' type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"
 FIXTURES = os.path.join("tests", "fixtures")
 BATCH = 256
 N_FRAMES = 600
+CAMERA_FRAMES = 64
+LATENCY_FRAMES = 200
+K3_TOL = 5e-3  # the JAX package's own bound for the fused trunk (tests/test_pallas.py:133)
+K4_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -86,9 +109,10 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
+    """Least time: bytes over HBM rate, or float32 and bf16 FLOPs over their peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = (flops / PEAK_F32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -103,6 +127,272 @@ def max_err(got, want, atol: float, rtol: float, what: str) -> float:
             f"atol={atol} rtol={rtol}; max abs err {float(err.max()):.3e}"
         )
     return float(err.max())
+
+
+def random_pmg_params(spec, rng):
+    """Seeded random PMG params of ``spec`` (float32 CPU tensors, the port's
+    tree layout) with non-trivial batch-norm statistics."""
+    import torch
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype("float32"))
+
+    def lin(i, o):
+        return {"w": t(i, o, scale=i ** -0.5), "b": t(o, scale=0.1)}
+
+    def norm(c, stats=True):
+        p = {"scale": t(c, scale=0.1) + 1.0, "bias": t(c, scale=0.1)}
+        if stats:
+            p.update(mean=t(c, scale=0.1), var=t(c).abs() + 0.5)
+        return p
+
+    gc, d = spec.gram_channels, spec.d_model
+    params = {
+        "trunk": [{"conv": {"w": t(b.kernel, b.kernel, b.cin, b.cout,
+                                   scale=(b.kernel * b.kernel * b.cin) ** -0.5)},
+                   "norm": norm(b.cout)} for b in spec.plan],
+        "chan_proj": {"w": t(1, 1, spec.trunk_channels, gc, scale=spec.trunk_channels ** -0.5)},
+        "token_proj": lin(gc * gc, d),
+        "queries": t(len(spec.tasks), d, scale=d ** -0.5),
+        "heads": {"w": t(len(spec.tasks), d, spec.tasks.max_classes, scale=d ** -0.5),
+                  "b": t(len(spec.tasks), spec.tasks.max_classes, scale=0.1)},
+    }
+    if spec.has_transformer:
+        params["transformer"] = [{
+            "attn": {**{n: t(d, d, scale=d ** -0.5) for n in ("wq", "wk", "wv", "wo")},
+                     **{n: t(d, scale=0.1) for n in ("bq", "bk", "bv", "bo")}},
+            "norm1": norm(d, stats=False), "norm2": norm(d, stats=False),
+            "ffn1": lin(d, 2 * d), "ffn2": lin(2 * d, d),
+        } for _ in range(spec.transformer_layers)]
+    return params
+
+
+def tree_nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def camera_phases(profile: bool, card: str, spec, params) -> list:
+    """Phases 6-9 (the camera path) on the shipped ``spec`` and ``params``
+    (on the card); returns the camera kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck, kalman,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import goldens
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(3)
+
+    # -- 6. camera kernels against their plain versions, on the card --------
+    trunk_w = ck.fold_trunk_gram_weights(params, spec)
+    x8 = torch.from_numpy(rng.randint(0, 256, (8, 224, 224, 3), np.uint8)).to(dev)
+    x1 = x8[:1]
+    k3_err = 0.0
+    for xb in (x1, x8):
+        got = ck.fused_trunk_gram(xb, trunk_w, spec)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, max_err(got, ck.fused_trunk_gram_plain(xb, trunk_w, spec), K3_TOL,
+                                     K3_TOL, f"fused_trunk_gram [{xb.shape[0]},224,224,3]"))
+    # ragged: a 7x7 final map, replicate-padded to 9x9 for div 3; 120 px
+    # wide leaves 8 columns beyond a multiple of K = 16
+    rag_spec = pmg.build_spec({"a": ["x", "y"]}, dict(
+        ndf=16, patch_size=64, patch_div=3, gram_channels=32, d_model=64,
+        transformer_layers=0, use_token_attention=False))
+    rag_w = ck.fold_trunk_gram_weights(
+        checkpoint.to_device(random_pmg_params(rag_spec, rng), dev), rag_spec)
+    xr = torch.from_numpy(rng.randint(0, 256, (2, 112, 120, 3), np.uint8)).to(dev)
+    rag_err = max_err(ck.fused_trunk_gram(xr, rag_w, rag_spec),
+                      ck.fused_trunk_gram_plain(xr, rag_w, rag_spec), K3_TOL, K3_TOL,
+                      "fused_trunk_gram ragged [2,112,120,3]")
+    torch.cuda.synchronize()
+    print(f"[6] fused_trunk_gram vs plain: max abs err {k3_err:.3e} (batch 1 and 8), "
+          f"{rag_err:.3e} (ragged), atol/rtol {K3_TOL}")
+
+    tokens8 = ck.fused_trunk_gram_plain(x8, trunk_w, spec)
+    tokens1 = tokens8[:1].contiguous()
+    folds = {v: pmg.fold_head_weights(params, spec, v) for v in ("bf16", "q8")}
+    nt_spec = pmg.build_spec(spec.tasks.as_dict(), dict(
+        ndf=32, patch_size=64, patch_div=3, gram_channels=96, d_model=192,
+        transformer_layers=0, use_token_attention=False))
+    nt_fold = pmg.fold_head_weights(
+        checkpoint.to_device(random_pmg_params(nt_spec, rng), dev), nt_spec, "q8")
+    k4_err = 0.0
+    cases = [(f"{v} batch {tb.shape[0]}", tb, f, spec)
+             for v, f in folds.items() for tb in (tokens1, tokens8)]
+    cases.append(("q8 no transformer batch 8", tokens8, nt_fold, nt_spec))
+    for what, tb, f, sp in cases:
+        got = ck.fused_head(tb, f, sp)
+        torch.cuda.synchronize()
+        want = ck.fused_head_plain(tb, f, sp)
+        k4_err = max(k4_err, max_err(got, want, K4_TOL, K4_TOL, f"fused_head {what}"))
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"fused_head {what}: argmax differs from the plain version")
+    print(f"[6] fused_head vs plain: max abs err {k4_err:.3e} (bf16 and q8 folds at batch 1 "
+          f"and 8, no-transformer spec), atol/rtol {K4_TOL}, argmax equal")
+
+    # -- 7. golden-fixture walk of the fused head, on the card ---------------
+    rows = goldens.pmg_head_fold_fixture_parity(FIXTURES, ["fused_bf16", "fused_q8"], device=dev)
+    for variant, rs in rows.items():
+        for name, agree, drift in rs:
+            if not agree or drift > goldens.HEAD_FOLD_MAX_DRIFT:
+                raise AssertionError(f"{variant} on {name}: argmax agrees {agree}, drift {drift}")
+        print(f"[7] golden walk {variant}: {len(rs)} fixtures, argmax agrees, max drift "
+              f"{max(r[2] for r in rs):.3e} (limit {goldens.HEAD_FOLD_MAX_DRIFT})")
+
+    # -- 8. camera path ---------------------------------------------------------
+    cam = np.random.RandomState(4).randint(0, 256, (CAMERA_FRAMES, 224, 224, 3), np.uint8)
+    pred = stream.StreamPredictor("pmg", spec, params, use_kalman=True)
+    if (pred.route, pred.head_fold) != ("fused", "fused_bf16"):
+        raise AssertionError(f"default camera route is {pred.route}/{pred.head_fold}")
+    ck.reset_launches()
+    handles = [pred.submit(f) for f in cam]
+    probs = np.stack([np.asarray(h) for h in handles])
+    torch.cuda.synchronize()
+    cam_launches = dict(ck.LAUNCHES)
+    for name in ("fused_trunk_gram", "fused_head"):
+        if cam_launches[name] == 0:
+            raise AssertionError(f"camera path never launched the {name} kernel")
+    # the smoothed rows sum to what the Kalman recursion makes of a constant 1
+    state, sums = kalman.init_state(1, 1), []
+    for _ in range(CAMERA_FRAMES):
+        state, m = kalman.filter_update(state, torch.ones(1, 1))
+        sums.append(float(m))
+    mask = executor.class_mask(spec.tasks)
+    if (probs.shape != (CAMERA_FRAMES, len(spec.tasks), spec.tasks.max_classes)
+            or not np.allclose(probs.sum(-1), np.asarray(sums)[:, None], atol=1e-5)
+            or np.abs(probs[:, ~mask]).max() != 0):
+        raise AssertionError("camera probability rows do not sum to 1 over the real classes")
+    cpu_params = checkpoint.to_device(params, "cpu")
+    cpu_pred = stream.StreamPredictor("pmg", spec, cpu_params, use_kalman=True, device="cpu")
+    cam_err = max_err(torch.from_numpy(probs[:8]), torch.from_numpy(np.stack(
+        [cpu_pred(f) for f in cam[:8]])), 1e-3, 1e-3, "camera probs vs the port's CPU path")
+    packed = stream.StreamPredictor("pmg", spec, params, use_kalman=True, trunk_kernel="packed")
+    ck.reset_launches()
+    pk = np.stack([packed(f) for f in cam[:8]])
+    torch.cuda.synchronize()
+    packed_launches = dict(ck.LAUNCHES)
+    for name in ("stem", "patch_gram"):
+        if packed_launches[name] == 0:
+            raise AssertionError(f"packed camera route never launched the {name} kernel")
+    cpu_packed = stream.StreamPredictor("pmg", spec, cpu_params, use_kalman=True,
+                                        trunk_kernel="packed", device="cpu")
+    packed_err = max_err(torch.from_numpy(pk[:2]), torch.from_numpy(np.stack(
+        [cpu_packed(f) for f in cam[:2]])), 2e-4, 2e-4, "packed camera probs vs the CPU path")
+    print(f"[8] camera path fused+fused_bf16: {CAMERA_FRAMES} frames, launches {cam_launches}, "
+          f"probs vs CPU max abs err {cam_err:.3e} (atol/rtol 1e-3); packed route: launches "
+          f"{packed_launches}, vs CPU {packed_err:.3e} (2e-4)")
+
+    # -- 9. camera times ---------------------------------------------------------
+    b0, b1, b2 = spec.plan
+    k1, k2, gc, div = b0.kernel, b1.kernel, spec.gram_channels, spec.patch_div
+    hf = 224 // (k1 * k2)
+    side = -(-hf // div)
+    # weights the work needs: conv1's one diagonal block, not W0bd's zeros
+    macs = (k2 * k2 * k1 * k1 * b0.cin * b0.cout + k2 * k2 * b0.cout * b1.cout
+            + b1.cout * b2.cout + b2.cout * gc)
+    weights = (k1 * k1 * b0.cin * b0.cout + k2 * k2 * b0.cout * b1.cout + b1.cout * b2.cout
+               + b2.cout * gc)
+    nbytes = x1.numel() + 2 * weights + 4 * (b0.cout + b1.cout + b2.cout + gc) + 4 * tokens1.numel()
+    b_ms, b_by = bound_ms(nbytes, 2.0 * div * div * side * side * gc * gc,
+                          bf16_flops=2.0 * hf * hf * macs)
+    entries = [{
+        "name": "fused_trunk_gram", "route": "cuda", "source": f"{PORT}/csrc/trunk_gram.cu",
+        "replaces": f"{JAX_PKG}/ops/pallas_kernels.py:309",
+        "launches": cam_launches["fused_trunk_gram"], "max_abs_err": max(k3_err, rag_err),
+        "ms": device_ms(lambda: ck.fused_trunk_gram(x1, trunk_w, spec)),
+        "plain_ms": device_ms(lambda: ck.fused_trunk_gram_plain(x1, trunk_w, spec)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a conv chain and a per-patch Gram
+        "library_ms": None,
+    }]
+    fb = folds["bf16"]
+    d, npatch, din = spec.d_model, tokens1.shape[1], tokens1.shape[2]
+    ff = fb["transformer"][0]["ffn1"]["w"].shape[1]
+    ntask, kmax = fb["heads"]["b"].shape
+    layer_flops = 2.0 * npatch * (4 * d * d + 2 * d * ff + 2 * npatch * d)
+    head_flops = (spec.transformer_layers * layer_flops
+                  + 2.0 * ntask * (2 * npatch * d + d * kmax))
+    nbytes = 4 * tokens1.numel() + tree_nbytes(fb) + 4 * ntask * kmax
+    b_ms, b_by = bound_ms(nbytes, head_flops, bf16_flops=2.0 * npatch * din * d)
+    tok_bf16 = tokens1[0].to(torch.bfloat16)
+    entries.append({
+        "name": "fused_head", "route": "cuda", "source": f"{PORT}/csrc/head.cu",
+        "replaces": f"{JAX_PKG}/ops/pallas_kernels.py:477",
+        "launches": cam_launches["fused_head"], "max_abs_err": k4_err,
+        "ms": device_ms(lambda: ck.fused_head(tokens1, fb, spec)),
+        "plain_ms": device_ms(lambda: ck.fused_head_plain(tokens1, fb, spec)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # partial yardstick: token_proj alone, bf16 [9, 9216] x [9216, 192];
+        # leaves out the transformer, the pooling and the heads
+        "library_ms": device_ms(lambda: torch.matmul(tok_bf16, fb["token_proj"]["w"])),
+    })
+    for k in entries:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
+        print(f"[9] {k['name']} at batch 1: {k['ms'] * 1e3:.1f} us (bound {k['bound_ms'] * 1e3:.2f}"
+              f" us by {k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, library {lib} | {card}")
+    if profile:  # the head kernel's time with the fold cut to its first n layers
+        for n in range(len(fb["transformer"]) + 1):
+            sub = dict(fb, transformer=fb["transformer"][:n])
+            print(f"[9] fused_head with {n} of its layers: "
+                  f"{device_ms(lambda: ck.fused_head(tokens1, sub, spec)) * 1e3:.1f} us | {card}")
+
+    for trunk_kernel, head_fold in (("fused", "fused_bf16"), ("fused", "bf16"), ("packed", None)):
+        kw = {"head_fold": head_fold} if head_fold else {}
+        p = stream.StreamPredictor("pmg", spec, params, use_kalman=True,
+                                   trunk_kernel=trunk_kernel, **kw)
+        step_ms = device_ms(lambda: p.step(x1))
+        for f in cam[:10]:
+            np.asarray(p.submit(f))
+        walls, enqueues, spans, steps = [], [], [], []
+        for i in range(LATENCY_FRAMES):
+            t0 = time.perf_counter()
+            handle = p.submit(cam[i % CAMERA_FRAMES])
+            t1 = time.perf_counter()
+            np.asarray(handle)
+            walls.append(time.perf_counter() - t0)
+            enqueues.append(t1 - t0)
+            # one step alone on an idle card: its device span, launch gaps included
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            p.step(x1)
+            steps.append(time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            spans.append(start.elapsed_time(end))
+        print(f"[9] camera step {trunk_kernel}+{head_fold}: {step_ms * 1e3:.1f} us of device "
+              f"time per step (back to back), {statistics.median(spans) * 1e3:.1f} us span of "
+              f"one step alone, enqueued by the host in {statistics.median(steps) * 1e6:.1f} us; "
+              f"host wall per frame, submit to host probs {statistics.median(walls) * 1e6:.1f} "
+              f"us, of which submit returns after {statistics.median(enqueues) * 1e6:.1f} us "
+              f"(medians of {LATENCY_FRAMES}) | {card}")
+        if profile:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    p.step(x1)
+                torch.cuda.synchronize()
+            evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+            print(f"[9] profile {trunk_kernel}+{head_fold}: {len(evs) / 10:.1f} device kernels "
+                  f"per step, {sum(e.time_range.elapsed_us() for e in evs) / 10:.1f} us of "
+                  f"kernel time per step")
+            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+    return entries
 
 
 def main() -> int:
@@ -206,8 +496,8 @@ def main() -> int:
     out = eng.run(frames, collect=("probs", "preds", "logits"))
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("patch_gram", "stem"):
+        if launches[name] == 0:
             raise AssertionError(f"main path never launched the {name} kernel")
     probs, preds = out["probs"], out["preds"]
     if probs.shape != (N_FRAMES, len(spec.tasks), spec.tasks.max_classes):
@@ -298,6 +588,7 @@ def main() -> int:
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
 
+    kernels += camera_phases(args.profile, card, eng.spec, eng.params)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

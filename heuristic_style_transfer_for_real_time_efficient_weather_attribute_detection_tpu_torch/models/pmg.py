@@ -4,7 +4,9 @@ Non-overlapping conv trunk (k4 s4 p0, doubling from ``ndf``, then a 1x1
 block) -> optional SE -> 1x1 ``chan_proj`` to ``gram_channels`` -> split into
 ``patch_div^2`` patches (replicate pad) -> per-patch Gram -> flattened
 tokens -> ``token_proj`` -> pre-norm transformer -> per-task query pooling
--> per-task linear heads.
+-> per-task linear heads.  The camera path's fused trunk+Gram kernel
+re-enters at ``head_from_gram_tokens``, on a compressed
+``fold_head_weights`` tree or the full one.
 
 Shipped config: ndf 32, patch_size 64, patch_div 3, gram_channels 96,
 d_model 192, 2 layers, 4 heads, batch norm; 224 px input -> 14x14 features
@@ -26,7 +28,7 @@ from ..config import TaskSpec
 from ..ops import cuda_kernels
 from ..ops.attention import stacked_task_heads, task_query_pool, transformer_encoder
 from ..ops.gram import patch_gram_tokens
-from ..ops.nn import conv2d, leaky_relu, linear, se_block
+from ..ops.nn import conv2d, leaky_relu, linear, se_block, upcast_bf16
 from ..ops.norms import apply_norm, batch_norm_affine
 from ..ops.preprocess import packed_affine, s2d_unpack
 from .trunk import apply_trunk, trunk_plan
@@ -143,11 +145,76 @@ def head_apply(
 def head_from_gram_tokens(
     params: Dict[str, Any], gram_tokens: torch.Tensor, spec: Spec
 ) -> torch.Tensor:
-    """Raw per-patch Gram tokens [B, Np, gc*gc] -> stacked logits."""
-    tokens = linear(gram_tokens, params["token_proj"])
+    """Raw per-patch Gram tokens [B, Np, gc*gc] -> stacked logits.
+
+    Re-entry point after the fused trunk+Gram kernel.  Takes the full param
+    tree or a :func:`fold_head_weights` tree.  As in the JAX package, the
+    float32 tokens meet the bf16 weights upcast to float32 (dtype
+    promotion), and a weight-only int8 ``token_proj`` (``w8`` key) is
+    dequantized in float32: ``float(w8) * scale``.
+    """
+    tp = params["token_proj"]
+    if "w8" in tp:
+        w = tp["w8"].to(torch.float32) * tp["scale"]
+        tokens = torch.matmul(gram_tokens, w) + tp["b"]
+    else:
+        tokens = linear(gram_tokens, upcast_bf16(tp))
     if spec.has_transformer:
-        tokens = transformer_encoder(tokens, params["transformer"], spec.transformer_heads)
+        tokens = transformer_encoder(
+            tokens, upcast_bf16(params["transformer"]), spec.transformer_heads
+        )
     return stacked_task_heads(task_query_pool(tokens, params["queries"]), params["heads"])
+
+
+def fold_head_weights(
+    params: Dict[str, Any], spec: Spec, variant: str = "bf16"
+) -> Dict[str, Any]:
+    """Compressed head weights for the batch-1 camera path.
+
+    - ``"bf16"``: ``token_proj`` and the transformer's matrix weights stored
+      bfloat16; biases, norms, queries and heads stay float32.
+    - ``"q8"``: ``token_proj`` stored weight-only int8 with symmetric
+      per-output-column scales (``w8``, ``scale``); transformer as in
+      ``"bf16"``.
+
+    The rounding is the JAX package's, leaf for leaf: round half to even
+    for both the bf16 cast and the int8 quantization.  The compressed
+    matrices come out contiguous, as the fused head kernel takes them.
+    """
+    if variant not in ("bf16", "q8"):
+        raise ValueError(f"unknown head fold variant {variant!r}")
+    out: Dict[str, Any] = {"queries": params["queries"], "heads": params["heads"]}
+    tp = params["token_proj"]
+    if variant == "q8":
+        w = tp["w"].to(torch.float32)
+        amax = w.abs().amax(dim=0)  # per output column
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        out["token_proj"] = {
+            "w8": torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8).contiguous(),
+            "scale": scale,
+            "b": tp["b"],
+        }
+    else:
+        out["token_proj"] = {"w": tp["w"].to(torch.bfloat16).contiguous(), "b": tp["b"]}
+    if spec.has_transformer:
+
+        def bf(t):
+            return t.to(torch.bfloat16).contiguous()
+
+        out["transformer"] = [
+            {
+                "attn": {
+                    **{n: bf(lp["attn"][n]) for n in ("wq", "wk", "wv", "wo")},
+                    **{n: lp["attn"][n] for n in ("bq", "bk", "bv", "bo")},
+                },
+                "norm1": lp["norm1"],
+                "norm2": lp["norm2"],
+                "ffn1": {"w": bf(lp["ffn1"]["w"]), "b": lp["ffn1"]["b"]},
+                "ffn2": {"w": bf(lp["ffn2"]["w"]), "b": lp["ffn2"]["b"]},
+            }
+            for lp in params["transformer"]
+        ]
+    return out
 
 
 def supports_packed_input(spec: Spec) -> bool:

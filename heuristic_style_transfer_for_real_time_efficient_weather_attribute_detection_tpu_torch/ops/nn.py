@@ -6,7 +6,7 @@ kernels, ``[in, out]`` linear weights.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,17 @@ def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     if p.get("b") is not None:
         y = y + p["b"]
     return y
+
+
+def upcast_bf16(tree: Any) -> Any:
+    """A param tree with its bfloat16 leaves as float32 (exact), the others
+    as they are: what JAX's dtype promotion does to a float32 activation
+    meeting a bf16 weight."""
+    if isinstance(tree, Mapping):
+        return {k: upcast_bf16(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [upcast_bf16(v) for v in tree]
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -118,16 +118,50 @@ def _stem_call():
     return ck.stem, args, ck.stem_plain
 
 
-@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+def _small_pmg():
+    import jax
+
+    from wadt.models import pmg as jpmg
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint as tckpt,
+    )
+
+    hp = dict(ndf=8, patch_size=64, patch_div=3, gram_channels=16, d_model=32,
+              transformer_layers=1, transformer_heads=2)
+    tasks = {"a": ["x", "y", "z"], "b": ["p", "q"]}
+    spec = tpmg.build_spec(tasks, hp)
+    return spec, tckpt.params_from_jax(jpmg.init(jax.random.PRNGKey(0), jpmg.build_spec(tasks, hp)), spec)
+
+
+def _trunk_gram_call():
+    spec, params = _small_pmg()
+    imgs = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 64, 64, 3), np.uint8))
+    return ck.fused_trunk_gram, (imgs, ck.fold_trunk_gram_weights(params, spec), spec), \
+        ck.fused_trunk_gram_plain
+
+
+def _head_call():
+    spec, params = _small_pmg()
+    tokens = torch.from_numpy(np.random.RandomState(3).randn(2, 9, 256).astype(np.float32))
+    return ck.fused_head, (tokens, tpmg.fold_head_weights(params, spec, "q8"), spec), \
+        ck.fused_head_plain
+
+
+CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call]
+CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_cpu_tensor_takes_plain_version(case):
     wrapper, args, plain = case()
     ck.reset_launches()
     got = wrapper(*args)
-    assert ck.LAUNCHES == {"patch_gram": 0, "stem": 0}
+    assert ck.LAUNCHES == dict.fromkeys(CASE_IDS, 0)
     torch.testing.assert_close(got, plain(*args), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_other_devices_raise(case):
     """Neither CPU nor CUDA: the wrapper raises instead of picking a path."""
     wrapper, args, _ = case()
