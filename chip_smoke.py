@@ -7,8 +7,8 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from ``<port>/csrc`` (nvcc, sm_90a);
+1. print the card's name and power limit (nvidia-smi), build the five CUDA
+   kernels from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths;
 3. golden fixture: the shipped PMG checkpoint's logits on the fixture input
@@ -38,9 +38,34 @@ Phases, each of which raises on failure:
    plain versions, and per-frame latency of three routes: device time per
    step back to back, one step's device span on an idle card and the host
    time to enqueue it, and host wall time per frame from ``submit`` to the
-   probabilities on the host.  ``--profile`` adds device kernels and kernel
-   time per step of each route, and the head kernel's time with its fold
-   cut to its first 0, 1, ... layers.
+   probabilities on the host; at the end of the run, after every host
+   timing, device kernels and kernel time per step (``torch.profiler``).
+   ``--profile`` adds each route's table of device time by kernel, and the
+   head kernel's time with its fold cut to its first 0, 1, ... layers;
+10. the RTM int8 kernel (K6, ``dequant_matvec``) against its plain version
+    on the card, at the camera path's full-width shape and on the fixtures'
+    ragged shapes, within 1e-4 x max|y|;
+11. the three RTM golden fixtures on the card: logits of the loaded
+    engine's params at 2e-4, and the ``apply_stream`` walk on the float32
+    and int8 folds (argmax agrees on every fixture; drift printed);
+12. RTM batch inference at full width (ResNet-50 through ``layer4``,
+    C = d = 2048, the 12-task registry, seeded random weights):
+    ``Engine.run`` at batch 128 over 384 frames, probabilities sum to 1,
+    logits match the port's CPU path on 2 frames; device step time and
+    end-to-end images per second.  ``--profile`` adds the step's table of
+    device time by kernel;
+13. the RTM camera path at full width: the default ``folded_q8`` route over
+    64 frames with the Kalman filter on, launch counts reset just before;
+    K6 must launch once per frame, and the probabilities match the port's
+    CPU path on 8 frames (the fold is built once, on the card, and reused
+    there).  Per route (``generic``, ``folded``, ``folded_q8``) the latency
+    of phase 9, and its device kernels per step at the end of the run; K6
+    at batch 1 with L2 out of play beside its bound, its plain version, a
+    ``torch.bmm`` yardstick and ``torch._weight_int8pack_mm`` where this
+    torch has it.
+
+Host times come from runs without ``--profile``: once a profiler session
+has run, the host's launch cost stays higher for the rest of the process.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
 card's nvidia-smi line, and as the last line
@@ -75,6 +100,9 @@ CAMERA_FRAMES = 64
 LATENCY_FRAMES = 200
 K3_TOL = 5e-3  # the JAX package's own bound for the fused trunk (tests/test_pallas.py:133)
 K4_TOL = 1e-3
+K6_TOL = 1e-4  # times max|y| of the plain version
+RTM_BATCH = 128
+RTM_FRAMES = 384
 
 
 def card_line() -> str:
@@ -89,17 +117,25 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     """Median over ``rounds`` of the mean device time of ``reps`` back-to-back
     calls, between CUDA events.  A sleep kernel queued first lets the host
     enqueue every call before the first event fires, so host launch cost
-    stays outside the interval."""
+    stays outside the interval.  The sleep lasts at least 1.5 times the
+    host's measured enqueue time of ``reps`` calls (cycles counted at 2 GHz,
+    above the card's SM clock, so the sleep is never shorter)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = max(50_000_000, int(1.5 * enqueue_s * 2e9))
     per_call = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -175,9 +211,68 @@ def tree_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def camera_phases(profile: bool, card: str, spec, params) -> list:
+def route_latency(label: str, p, x1, frames, card: str) -> None:
+    """Print one camera route's latency: device time of one step with all its
+    launches queued behind a sleep, one step's device span on an idle card
+    and the host time to enqueue it, and host wall time per frame from
+    ``submit`` to the probabilities on the host."""
+    import numpy as np
+    import torch
+
+    for f in frames[:10]:
+        np.asarray(p.submit(f))
+    step_ms = device_ms(lambda: p.step(x1), reps=1, rounds=20)
+    walls, enqueues, spans, steps = [], [], [], []
+    for i in range(LATENCY_FRAMES):
+        t0 = time.perf_counter()
+        handle = p.submit(frames[i % len(frames)])
+        t1 = time.perf_counter()
+        np.asarray(handle)
+        walls.append(time.perf_counter() - t0)
+        enqueues.append(t1 - t0)
+        # one step alone on an idle card: its device span, launch gaps included
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        p.step(x1)
+        steps.append(time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    print(f"{label}: {step_ms * 1e3:.1f} us of device time per step (launches queued ahead), "
+          f"{statistics.median(spans) * 1e3:.1f} us span of one step alone, enqueued by the host "
+          f"in {statistics.median(steps) * 1e6:.1f} us; host wall per frame, submit to host "
+          f"probs {statistics.median(walls) * 1e6:.1f} us, of which submit returns after "
+          f"{statistics.median(enqueues) * 1e6:.1f} us (medians of {LATENCY_FRAMES}) | {card}")
+
+
+def kernels_per_step(routes, profile: bool) -> None:
+    """Device kernels and kernel time per step of each (label, predictor,
+    frame), from ``torch.profiler`` over 10 steps; ``profile`` adds the table
+    of device time by kernel.  Run after every host timing: the host's
+    launch cost stays higher once a profiler session has run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    for label, p, x1 in routes:
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                p.step(x1)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+        print(f"{label}: {len(evs) / 10:.1f} device kernels per step, "
+              f"{sum(e.time_range.elapsed_us() for e in evs) / 10:.1f} us of kernel time per step")
+        if profile:
+            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+
+
+def camera_phases(profile: bool, card: str, spec, params, routes: list) -> list:
     """Phases 6-9 (the camera path) on the shipped ``spec`` and ``params``
-    (on the card); returns the camera kernels' entries of the kernels line."""
+    (on the card); returns the camera kernels' entries of the kernels line
+    and appends each timed route to ``routes``."""
     import numpy as np
     import torch
 
@@ -351,48 +446,263 @@ def camera_phases(profile: bool, card: str, spec, params) -> list:
         kw = {"head_fold": head_fold} if head_fold else {}
         p = stream.StreamPredictor("pmg", spec, params, use_kalman=True,
                                    trunk_kernel=trunk_kernel, **kw)
-        step_ms = device_ms(lambda: p.step(x1))
-        for f in cam[:10]:
-            np.asarray(p.submit(f))
-        walls, enqueues, spans, steps = [], [], [], []
-        for i in range(LATENCY_FRAMES):
-            t0 = time.perf_counter()
-            handle = p.submit(cam[i % CAMERA_FRAMES])
-            t1 = time.perf_counter()
-            np.asarray(handle)
-            walls.append(time.perf_counter() - t0)
-            enqueues.append(t1 - t0)
-            # one step alone on an idle card: its device span, launch gaps included
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            p.step(x1)
-            steps.append(time.perf_counter() - t0)
-            end.record()
-            end.synchronize()
-            spans.append(start.elapsed_time(end))
-        print(f"[9] camera step {trunk_kernel}+{head_fold}: {step_ms * 1e3:.1f} us of device "
-              f"time per step (back to back), {statistics.median(spans) * 1e3:.1f} us span of "
-              f"one step alone, enqueued by the host in {statistics.median(steps) * 1e6:.1f} us; "
-              f"host wall per frame, submit to host probs {statistics.median(walls) * 1e6:.1f} "
-              f"us, of which submit returns after {statistics.median(enqueues) * 1e6:.1f} us "
-              f"(medians of {LATENCY_FRAMES}) | {card}")
-        if profile:
-            from torch.autograd import DeviceType
-            from torch.profiler import ProfilerActivity
-            from torch.profiler import profile as tprofile
-
-            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    p.step(x1)
-                torch.cuda.synchronize()
-            evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
-            print(f"[9] profile {trunk_kernel}+{head_fold}: {len(evs) / 10:.1f} device kernels "
-                  f"per step, {sum(e.time_range.elapsed_us() for e in evs) / 10:.1f} us of "
-                  f"kernel time per step")
-            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+        label = f"[9] camera step {trunk_kernel}+{head_fold}"
+        route_latency(label, p, x1, cam, card)
+        routes.append((label, p, x1))
     return entries
+
+
+def random_rtm_params(spec, seed: int):
+    """Seeded random RTM params of ``spec`` (float32 CPU tensors in the port's
+    tree layout, drawn with numpy): He-scaled convolutions, non-trivial
+    batch-norm statistics and a small scale on each residual branch's last
+    norm, so that the 16 bottleneck blocks keep the activations finite."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import resnet
+
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0, shift=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale) + np.float32(shift)
+        return torch.from_numpy(a)
+
+    def conv(k, cin, cout):
+        return {"w": t((k, k, cin, cout), (2.0 / (k * k * cin)) ** 0.5)}
+
+    def bn(c, gain=1.0):
+        return {"scale": t(c, 0.1 * gain, gain), "bias": t(c, 0.1), "mean": t(c, 0.1),
+                "var": torch.from_numpy(rng.random(c, dtype=np.float32) + 0.5)}
+
+    bb, cin = {"conv1": conv(7, 3, 64), "bn1": bn(64)}, 64
+    for si, (nblocks, planes) in enumerate(resnet.STAGES):
+        blocks, cout = [], planes * resnet.EXPANSION
+        for bi in range(nblocks):
+            blk = {"conv1": conv(1, cin, planes), "bn1": bn(planes),
+                   "conv2": conv(3, planes, planes), "bn2": bn(planes),
+                   "conv3": conv(1, planes, cout), "bn3": bn(cout, 0.2)}
+            if bi == 0:
+                blk["downsample"] = {"conv": conv(1, cin, cout), "bn": bn(cout)}
+            blocks.append(blk)
+            cin = cout
+        bb[f"layer{si + 1}"] = blocks
+    nt, kmax = len(spec.tasks), spec.tasks.max_classes
+    c, d, dims = spec.num_features, spec.token_dim, spec.mlp_dims
+    params = {"backbone": bb, "mlp": [
+        {"w": t((nt, i, o), i ** -0.5), "b": t((nt, o), 0.1)} for i, o in zip(dims[:-1], dims[1:])]}
+    if spec.use_attention:
+        params["attn"] = {"proj_w": t((nt, c, d), c ** -0.5), "q": t((nt, d)),
+                          "out_w": t((nt, d, c), d ** -0.5)}
+    fw, fb = t((nt, dims[-1], kmax), dims[-1] ** -0.5), t((nt, kmax), 0.1)
+    for i, k in enumerate(spec.tasks.num_classes):
+        fw[i, :, k:] = 0.0
+        fb[i, k:] = 0.0
+    params["final"] = {"w": fw, "b": fb}
+    return params
+
+
+def rtm_phases(profile: bool, card: str, routes: list) -> dict:
+    """Phases 10-13 (the RTM family) at full width; returns K6's entry of
+    the kernels line and appends each timed camera route to ``routes``."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import rtm
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck, kalman,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import goldens
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(10)
+
+    # -- 10. K6 against its plain version, on the card ----------------------
+    def k6_case(b, t, c, d):
+        x = torch.from_numpy(rng.randn(b, t, c).astype(np.float32)).to(dev)
+        w8 = torch.from_numpy(rng.randint(-127, 128, (t, c, d)).astype(np.int8)).to(dev)
+        scale = torch.from_numpy((rng.rand(t, d).astype(np.float32) + 0.5) * 1e-3).to(dev)
+        return x, w8, scale
+
+    k6_err = k6_rel = 0.0
+    # full width at batch 1; the rtm_trunc5_attn fold (C 256) and its mlp_q8
+    # layer (D 32); a shape that takes the byte-wise path and 4-row groups
+    for shape in ((1, 12, 2048, 2048), (2, 3, 256, 256), (2, 3, 256, 32), (5, 3, 40, 24)):
+        x, w8, scale = k6_case(*shape)
+        got = ck.dequant_matvec(x, w8, scale)
+        torch.cuda.synchronize()
+        want = ck.dequant_matvec_plain(x, w8, scale)
+        ymax = float(want.abs().max())
+        err = max_err(got, want, K6_TOL * ymax, 0.0, f"dequant_matvec {list(shape)}")
+        k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / ymax)
+    print(f"[10] dequant_matvec vs plain: max abs err {k6_err:.3e}, {k6_rel:.3e} x max|y|, at [B,T,C,D] = "
+          f"[1,12,2048,2048], [2,3,256,256], [2,3,256,32], [5,3,40,24]; bound {K6_TOL} x max|y|")
+
+    # -- 11. RTM golden fixtures on the card ------------------------------------
+    fix_err = 0.0
+    for name in ("rtm_trunc5_attn", "rtm_trunc5_default_dim", "rtm_trunc6_gap"):
+        with open(os.path.join(FIXTURES, f"{name}.json")) as f:
+            meta = json.load(f)
+        data = np.load(os.path.join(FIXTURES, f"{name}.npz"))
+        eng = port.load_engine("rtm", os.path.join(FIXTURES, f"{name}.pth"), meta["tasks"],
+                               meta["hparams"], batch_size=2, device="cuda")
+        xf = torch.from_numpy(np.ascontiguousarray(data["input"].transpose(0, 2, 3, 1))).to(dev)
+        with torch.inference_mode():
+            logits, _ = rtm.apply(eng.params, xf, eng.spec)
+        for i, task in enumerate(eng.spec.tasks.names):
+            want = torch.from_numpy(data[f"logits/{task}"]).to(dev)
+            fix_err = max(fix_err, max_err(logits[:, i, : want.shape[1]], want, 2e-4, 2e-4,
+                                           f"{name} fixture / {task}"))
+    print(f"[11] RTM golden logits on the card (3 fixtures): max abs err {fix_err:.3e}, atol/rtol 2e-4")
+    for q8 in (False, True):
+        rows = goldens.rtm_stream_fixture_parity(FIXTURES, quantize_fold=q8, device=dev)
+        if len(rows) != 2 or not all(agree for _, agree, _ in rows):
+            raise AssertionError(f"RTM golden walk, {'q8' if q8 else 'f32'} fold: {rows}")
+        print(f"[11] RTM golden walk, {'q8' if q8 else 'f32'} fold, apply_stream on the card: "
+              f"argmax agrees on {len(rows)} fixtures, drift "
+              + ", ".join(f"{n} {d:.3e}" for n, _, d in rows))
+
+    # -- 12. RTM batch inference at full width ---------------------------------
+    spec = rtm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    params = random_rtm_params(spec, seed=12)
+    eng = executor.Engine("rtm", spec, params, batch_size=RTM_BATCH, device="cuda")
+    frames = np.random.RandomState(13).randint(0, 256, (RTM_FRAMES, 224, 224, 3), np.uint8)
+    ck.reset_launches()
+    out = eng.run(frames, collect=("probs", "preds", "logits"))
+    torch.cuda.synchronize()
+    mask = executor.class_mask(spec.tasks)
+    probs = out["probs"]
+    if (probs.shape != (RTM_FRAMES, len(spec.tasks), spec.tasks.max_classes)
+            or not np.isfinite(out["logits"]).all()
+            or not np.allclose(probs.sum(-1), 1.0, atol=1e-5) or np.abs(probs[:, ~mask]).max() != 0):
+        raise AssertionError("RTM batch probabilities are not finite rows summing to 1")
+    want = executor.Engine("rtm", spec, params, batch_size=2, device="cpu").run(
+        frames[:2], collect=("logits",))["logits"]
+    scale = float(np.abs(want).max())
+    batch_err = max_err(torch.from_numpy(out["logits"][:2]), torch.from_numpy(want),
+                        1e-3 * scale, 1e-3, "RTM batch logits vs the port's CPU path")
+    xb = torch.from_numpy(frames[:RTM_BATCH]).to(dev)
+    step_ms = device_ms(lambda: eng.step(xb), reps=5, rounds=3)
+    eng.run(frames[:RTM_BATCH])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(frames)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"[12] RTM batch (ResNet-50 through layer4, C 2048, 12 tasks, d 2048, seeded weights): "
+          f"{RTM_FRAMES} frames at batch {RTM_BATCH}, logits vs CPU on 2 frames max abs err "
+          f"{batch_err:.3e} (max |logit| {scale:.3f}; atol 1e-3 x max, rtol 1e-3), launches "
+          f"{dict(ck.LAUNCHES)} (the batch path runs no hand-written kernel), "
+          f"preds[0] {out['preds'][0].tolist()}")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                eng.step(xb)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+    print(f"[12] RTM engine step on a device-resident batch of {RTM_BATCH}: {step_ms:.3f} ms = "
+          f"{RTM_BATCH / step_ms * 1e3:,.0f} img/s (device); Engine.run end to end on {RTM_FRAMES} "
+          f"host frames: {RTM_FRAMES / wall:,.0f} img/s (median of 3: "
+          f"{[round(w, 4) for w in walls]} s) | {card}")
+    del eng
+
+    # -- 13. RTM camera path at full width -------------------------------------
+    cam = np.random.RandomState(14).randint(0, 256, (CAMERA_FRAMES, 224, 224, 3), np.uint8)
+    gparams = checkpoint.to_device(params, dev)
+    pred = stream.StreamPredictor("rtm", spec, gparams, use_kalman=True)
+    if pred.route != "folded_q8":
+        raise AssertionError(f"default RTM camera route is {pred.route}")
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    handles = [pred.submit(f) for f in cam]
+    probs = np.stack([np.asarray(h) for h in handles])
+    torch.cuda.synchronize()
+    cam_launches = dict(ck.LAUNCHES)
+    if cam_launches["dequant_matvec"] != CAMERA_FRAMES:
+        raise AssertionError(f"RTM camera path launched K6 {cam_launches['dequant_matvec']} "
+                             f"times over {CAMERA_FRAMES} frames")
+    state, sums = kalman.init_state(1, 1), []
+    for _ in range(CAMERA_FRAMES):
+        state, m = kalman.filter_update(state, torch.ones(1, 1))
+        sums.append(float(m))
+    if (probs.shape != (CAMERA_FRAMES, len(spec.tasks), spec.tasks.max_classes)
+            or not np.allclose(probs.sum(-1), np.asarray(sums)[:, None], atol=1e-5)
+            or np.abs(probs[:, ~mask]).max() != 0):
+        raise AssertionError("RTM camera probability rows do not sum to 1 over the real classes")
+    # the fold was built once, on the card; the CPU path reuses it
+    cpu_pred = stream.StreamPredictor("rtm", spec, checkpoint.to_device(pred.params, "cpu"),
+                                      use_kalman=True, trunk_kernel="folded_q8", device="cpu")
+    cam_err = max_err(torch.from_numpy(probs[:8]), torch.from_numpy(np.stack(
+        [cpu_pred(f) for f in cam[:8]])), 1e-3, 1e-3, "RTM camera probs vs the port's CPU path")
+    del cpu_pred
+    print(f"[13] RTM camera path folded_q8: {CAMERA_FRAMES} frames, launches {cam_launches}, "
+          f"probs vs CPU on 8 frames max abs err {cam_err:.3e} (atol/rtol 1e-3)")
+
+    x1 = torch.from_numpy(cam[:1]).to(dev)
+    for route in ("generic", "folded", "folded_q8"):
+        p = pred if route == "folded_q8" else stream.StreamPredictor(
+            "rtm", spec, gparams, use_kalman=True, trunk_kernel=route)
+        label = f"[13] RTM camera step {route}"
+        route_latency(label, p, x1, cam, card)
+        routes.append((label, p, x1))
+
+    # K6 at batch 1, L2 out of play: the calls rotate through 4 copies of the
+    # fold's weights (4 x 50.3 MB, four times the 50 MB L2), so each call
+    # reads weights that 150 MB of other weights have passed since
+    fold8, fscale = pred.params["attn_fold_q8"], pred.params["attn_fold_scale"]
+    t, c, d = fold8.shape
+    xq = torch.from_numpy(rng.randn(1, t, c).astype(np.float32)).to(dev)
+    copies = [(fold8.clone(), fscale.clone()) for _ in range(4)]
+    ring = itertools.cycle(copies)
+    ring_plain = itertools.cycle(copies)
+    k6_ms = device_ms(lambda: ck.dequant_matvec(xq, *next(ring)))
+    plain_ms = device_ms(lambda: ck.dequant_matvec_plain(xq, *next(ring_plain)))
+    # partial yardstick: one torch.bmm on the float32-dequantized fold, which
+    # reads 4x the bytes (201 MB, four times the L2 on its own)
+    deq = (fold8.float() * fscale[:, None, :]).contiguous()
+    xt = xq[0][:, None, :].contiguous()
+    lib_ms = device_ms(lambda: torch.bmm(xt, deq))
+    del copies, deq
+    try:  # PyTorch's int8 weight-only product, one call per task
+        w_nk = [fold8[i].t().contiguous() for i in range(t)]
+
+        def int8pack_all():
+            for i in range(t):
+                torch._weight_int8pack_mm(xq[0, i:i + 1], w_nk[i], fscale[i])
+
+        int8pack_all()
+        torch.cuda.synchronize()
+        int8pack = f"{device_ms(int8pack_all) * 1e3:.1f} us for {t} calls (L2 warm)"
+        del w_nk
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        int8pack = f"not available on this card's torch ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+    nbytes = xq.numel() * 4 + fold8.numel() + fscale.numel() * 4 + t * d * 4
+    b_ms, b_by = bound_ms(nbytes, 2.0 * t * c * d)
+    print(f"[13] dequant_matvec at batch 1 [1,{t},{c}] x [{t},{c},{d}] int8, L2 out of play "
+          f"(4 rotating weight copies): {k6_ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), "
+          f"plain {plain_ms * 1e3:.1f} us, torch.bmm on the float32-dequantized fold "
+          f"{lib_ms * 1e3:.1f} us (partial yardstick, 4x the bytes); torch._weight_int8pack_mm: "
+          f"{int8pack} | {card}")
+    return {
+        "name": "dequant_matvec", "route": "cuda", "source": f"{PORT}/csrc/int8_matvec.cu",
+        "replaces": "tools/exp_rtm_int8_stream.py:77",
+        "launches": cam_launches["dequant_matvec"], "max_abs_err": k6_err,
+        "ms": k6_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    }
 
 
 def main() -> int:
@@ -588,7 +898,11 @@ def main() -> int:
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
 
-    kernels += camera_phases(args.profile, card, eng.spec, eng.params)
+    routes: list = []
+    kernels += camera_phases(args.profile, card, eng.spec, eng.params, routes)
+    del eng
+    kernels.append(rtm_phases(args.profile, card, routes))
+    kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

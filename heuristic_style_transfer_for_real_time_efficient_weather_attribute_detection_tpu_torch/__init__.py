@@ -5,9 +5,10 @@ It stands beside the JAX package
 ``heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu``,
 which stays the reference: same public functions, same layouts (NHWC
 activations, stacked ``[B, T, Kmax]`` logits), same param tree.  It imports
-neither JAX nor anything of the JAX package.  Ported so far: PMG batch
-inference (``Engine.run`` on uint8 frames), with the patch-Gram and the
-uint8 stem as hand-written CUDA kernels (``ops/cuda_kernels.py``).
+neither JAX nor anything of the JAX package.  Ported so far: the PMG and
+RTM families, batch inference (``Engine.run`` on uint8 frames) and the
+camera path (``workloads.stream.StreamPredictor``), with five hand-written
+CUDA kernels (``ops/cuda_kernels.py``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 
@@ -21,7 +22,7 @@ from . import config  # noqa: F401
 
 
 def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwargs):
-    """One call from a ``.pth`` checkpoint to an :class:`Engine` (PMG only).
+    """One call from a ``.pth`` checkpoint to an :class:`Engine` (PMG or RTM).
 
     - ``tasks``: registry dict ``{task: [class, ...]}`` or a JSON path;
       defaults to the bundled 12-task weather registry.

@@ -1,9 +1,12 @@
-"""Checkpoint loading: PyTorch ``.pth`` state dicts -> the port's PMG params.
+"""Checkpoint loading: PyTorch ``.pth`` state dicts -> the port's PMG and
+RTM params.
 
 The params are the JAX package's tree with torch tensors at the leaves:
 conv OIHW -> HWIO, Linear [out, in] -> [in, out], the packed transformer
 ``in_proj`` split into q/k/v, per-task modules stacked on a leading task
-axis and zero-padded to Kmax.  Loading is strict: a missing key raises.
+axis and zero-padded to Kmax.  RTM backbones arrive under three key
+schemas (``truncated_encoder.<seq>.``, ``backbone.``, raw ResNet roots),
+all accepted.  Loading is strict: a missing key raises.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import torch
 
 from ..models import get_family
 from ..models import pmg as pmg_mod
+from ..models import resnet as resnet_mod
+from ..models import rtm as rtm_mod
 
 StateDict = Dict[str, np.ndarray]
 
@@ -145,6 +150,115 @@ def convert_pmg(state: StateDict, spec: pmg_mod.Spec) -> Dict[str, Any]:
     return params
 
 
+# torchvision children order inside the truncated Sequential
+# (root-name map {conv1: 0, bn1: 1, ..., layer4: 7}).
+_SEQ_TO_NAME = {0: "conv1", 1: "bn1", 4: "layer1", 5: "layer2", 6: "layer3", 7: "layer4"}
+_NAME_TO_SEQ = {v: k for k, v in _SEQ_TO_NAME.items()}
+
+
+def _canon_backbone_keys(state: StateDict) -> StateDict:
+    """Normalize the accepted RTM backbone key forms to raw ResNet root
+    names: ``truncated_encoder.<seq>.rest``, ``backbone.<root>.rest`` and
+    raw ``<root>.rest``.  Other keys are dropped."""
+    out: StateDict = {}
+    for k, v in state.items():
+        if k.startswith("truncated_encoder."):
+            seq, _, tail = k[len("truncated_encoder."):].partition(".")
+            name = _SEQ_TO_NAME.get(int(seq)) if seq.isdigit() else None
+            if name is not None:
+                out[f"{name}.{tail}"] = v
+        elif k.startswith("backbone."):
+            out[k[len("backbone."):]] = v
+        elif k.split(".")[0] in _NAME_TO_SEQ:
+            out[k] = v
+    return out
+
+
+def convert_resnet(state: StateDict) -> Dict[str, Any]:
+    """Raw torchvision-ResNet-50-named state dict -> backbone params.
+    Truncated checkpoints lack the later stages, and so does the tree."""
+    params: Dict[str, Any] = {"conv1": _conv(state["conv1.weight"]), "bn1": _norm(state, "bn1", "batch")}
+    for si, (nblocks, _) in enumerate(resnet_mod.STAGES):
+        if f"layer{si + 1}.0.conv1.weight" not in state:
+            break
+        blocks = []
+        for bi in range(nblocks):
+            pre = f"layer{si + 1}.{bi}"
+            block = {}
+            for ci in (1, 2, 3):
+                block[f"conv{ci}"] = _conv(state[f"{pre}.conv{ci}.weight"])
+                block[f"bn{ci}"] = _norm(state, f"{pre}.bn{ci}", "batch")
+            if f"{pre}.downsample.0.weight" in state:
+                block["downsample"] = {
+                    "conv": _conv(state[f"{pre}.downsample.0.weight"]),
+                    "bn": _norm(state, f"{pre}.downsample.1", "batch"),
+                }
+            blocks.append(block)
+        params[f"layer{si + 1}"] = blocks
+    return params
+
+
+def convert_rtm(state: StateDict, spec: rtm_mod.Spec, partial_copy: bool = True) -> Dict[str, Any]:
+    """Map a ``MultiHeadAttentionPerTaskModel`` state dict.
+
+    ``partial_copy=True`` copies the overlapping slice of a classifier
+    tensor whose shape disagrees with the registry and leaves the rest
+    zero, as the reference loader does; ``False`` raises instead.
+    """
+    t = spec.tasks
+    nt, kmax = len(t), t.max_classes
+    params: Dict[str, Any] = {"backbone": convert_resnet(_canon_backbone_keys(state))}
+    c, d = spec.num_features, spec.token_dim
+    if spec.use_attention:
+        proj_w = np.zeros((nt, c, d), np.float32)
+        out_w = np.zeros((nt, d, c), np.float32)
+        qs = np.zeros((nt, d), np.float32)
+        for i, name in enumerate(t.names):
+            pre = f"attentions.attention_{name.replace(' ', '_')}"
+            proj_w[i] = state[f"{pre}.proj.weight"].T
+            out_w[i] = state[f"{pre}.out.weight"].T
+            qs[i] = state[f"{pre}.q"].reshape(-1)
+        params["attn"] = {"proj_w": _t(proj_w), "q": _t(qs), "out_w": _t(out_w)}
+    # classifier Sequential: [Linear, ReLU] * n_hidden + final Linear, so the
+    # Linear modules sit at even indices 0, 2, ..., 2*n_hidden
+    dims = spec.mlp_dims
+    n_hidden = len(dims) - 1
+    mlp: List[Dict[str, torch.Tensor]] = []
+    for li in range(n_hidden):
+        w = np.zeros((nt, dims[li], dims[li + 1]), np.float32)
+        b = np.zeros((nt, dims[li + 1]), np.float32)
+        for i, name in enumerate(t.names):
+            pre = f"classifiers.classifier_{name.replace(' ', '_')}.{2 * li}"
+            w[i] = state[f"{pre}.weight"].T
+            b[i] = state[f"{pre}.bias"]
+        mlp.append({"w": _t(w), "b": _t(b)})
+    fw = np.zeros((nt, dims[-1], kmax), np.float32)
+    fb = np.zeros((nt, kmax), np.float32)
+    for i, name in enumerate(t.names):
+        key = f"classifiers.classifier_{name.replace(' ', '_')}.{2 * n_hidden}"
+        if f"{key}.weight" not in state:
+            # a bare Linear saved flat as ``classifier_<task>.weight``
+            key = f"classifiers.classifier_{name.replace(' ', '_')}"
+        wsrc, bsrc = state[f"{key}.weight"], state[f"{key}.bias"]
+        k_t, d_in = t.num_classes[i], dims[-1]
+        if wsrc.shape != (k_t, d_in):
+            if not partial_copy:
+                raise ValueError(f"shape mismatch for {key}.weight: {wsrc.shape} vs {(k_t, d_in)}")
+            rows, cols = min(k_t, wsrc.shape[0]), min(d_in, wsrc.shape[1])
+            fw[i, :cols, :rows] = wsrc[:rows, :cols].T
+            nb = min(k_t, bsrc.shape[0])
+            fb[i, :nb] = bsrc[:nb]
+        else:
+            fw[i, :, :k_t] = wsrc.T
+            fb[i, :k_t] = bsrc
+    params["mlp"] = mlp
+    params["final"] = {"w": _t(fw), "b": _t(fb)}
+    return params
+
+
+_CONVERTERS = {"pmg": convert_pmg, "rtm": convert_rtm}
+
+
 def sniff_family(state: Mapping[str, Any]) -> Optional[str]:
     """Best-effort family guess from checkpoint key roots (``module.``
     prefixes stripped): PMG has ``feature_extractor.*``, PM ``trunk.*`` /
@@ -170,7 +284,7 @@ def convert(family: str, state: StateDict, spec) -> Dict[str, Any]:
     family = family.lower()
     get_family(family)  # raises for the families not ported yet
     try:
-        return convert_pmg(state, spec)
+        return _CONVERTERS[family](state, spec)
     except KeyError as e:
         guessed = sniff_family(state)
         if guessed and guessed != family:
@@ -187,29 +301,44 @@ def load_torch_checkpoint(family: str, path: str, spec) -> Dict[str, Any]:
     return convert(family, load_state_dict(path), spec)
 
 
-def params_from_jax(tree: Any, spec: pmg_mod.Spec) -> Dict[str, Any]:
-    """The JAX package's PMG param tree (numpy or JAX arrays at the leaves)
-    -> the port's params (CPU float32 tensors), leaf for leaf.
+def params_from_jax(tree: Any, spec) -> Dict[str, Any]:
+    """The JAX package's param tree (numpy or JAX arrays at the leaves) ->
+    the port's params (CPU tensors), leaf for leaf.
 
-    Both packages share one tree layout, so this is a structural copy; it
-    checks that the tree has the entries ``spec`` implies.
+    Takes a PMG tree, an RTM tree, or an RTM ``fold_stream_weights`` tree
+    (float32 or int8-quantized).  Both packages share one tree layout, so
+    this is a structural copy: float leaves become float32 tensors, int8
+    leaves stay int8.  It checks that the tree has the entries ``spec``
+    implies.
     """
-    want = {"trunk", "chan_proj", "token_proj", "queries", "heads"}
-    want |= {"se"} if spec.use_channel_attention else set()
-    want |= {"transformer"} if spec.has_transformer else set()
-    if set(tree) != want:
+    keys = set(tree)
+    if isinstance(spec, rtm_mod.Spec):
+        if "attn_pq" in keys:  # a fold_stream_weights tree
+            q8 = "attn_fold_q8" in keys
+            want = {"backbone", "attn_pq", "final"} | (keys & {"stem_w"})
+            want |= {"attn_fold_q8", "attn_fold_scale", "mlp_q8"} if q8 else {"attn_fold", "mlp"}
+            layers = "mlp_q8" if q8 else "mlp"
+        else:
+            want = {"backbone", "mlp", "final"} | ({"attn"} if spec.use_attention else set())
+            layers = "mlp"
+        planned, what = len(spec.mlp_dims) - 1, "MLP layers"
+    else:
+        want = {"trunk", "chan_proj", "token_proj", "queries", "heads"}
+        want |= {"se"} if spec.use_channel_attention else set()
+        want |= {"transformer"} if spec.has_transformer else set()
+        layers, planned, what = "trunk", len(spec.plan), "trunk blocks"
+    if keys != want:
         raise ValueError(f"param tree keys {sorted(tree)} do not match the spec's {sorted(want)}")
-    if len(tree["trunk"]) != len(spec.plan):
-        raise ValueError(
-            f"param tree has {len(tree['trunk'])} trunk blocks, the spec plans {len(spec.plan)}"
-        )
+    if len(tree[layers]) != planned:
+        raise ValueError(f"param tree has {len(tree[layers])} {what}, the spec plans {planned}")
 
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        return _t(node)
+        a = np.asarray(node)
+        return torch.tensor(a) if a.dtype == np.int8 else _t(a)
 
     return conv(tree)
 

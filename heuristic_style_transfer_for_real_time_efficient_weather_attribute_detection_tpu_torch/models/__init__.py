@@ -1,12 +1,12 @@
-"""Model families of the port.  Only ``pmg`` is ported so far; ``pm`` and
-``rtm`` are queued in ROADMAP.md (queue A, slice 4)."""
+"""Model families of the port: ``pmg`` and ``rtm``.  ``pm`` is queued in
+ROADMAP.md (queue A)."""
 
 from __future__ import annotations
 
-from . import pmg
+from . import pmg, rtm
 
-FAMILIES = {"pmg": pmg}
-_QUEUED = {"pm": "ROADMAP.md A13 (PM family)", "rtm": "ROADMAP.md A14 (RTM family)"}
+FAMILIES = {"pmg": pmg, "rtm": rtm}
+_QUEUED = {"pm": "ROADMAP.md A13 (PM family)"}
 
 
 def get_family(name: str):

@@ -1,5 +1,6 @@
 """Attention ops (eval mode): torch-compatible MHA, the pre-norm transformer
-encoder, and the stacked per-task pooling and heads of PMG.
+encoder, the stacked per-task pooling and heads of PMG, and RTM's per-task
+query attention.
 
 Per-task computations are stacked over a task axis T into one batched
 product, as in the JAX package.
@@ -61,6 +62,23 @@ def task_query_pool(tokens: torch.Tensor, queries: torch.Tensor) -> torch.Tensor
     """
     w = torch.softmax(torch.einsum("bnd,td->btn", tokens, queries), dim=-1)
     return torch.einsum("btn,bnd->btd", w, tokens)
+
+
+def rtm_task_attention(tokens: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """RTM per-task query attention over spatial tokens, stacked over tasks.
+
+    tokens: [B, N, C]; ``proj_w`` [T, C, d], ``q`` [T, d], ``out_w`` [T, d, C].
+    Per task: Tp = tokens @ proj; attn = softmax(q.Tp^T / sqrt(d));
+    out = (attn @ Tp) @ out_w.  Computed in the JAX package's reassociated
+    order: ``pq = proj_w @ q`` first, then the scores and the pooling in
+    C-space, then ``proj_w``, then ``out_w``.  Returns [B, T, C].
+    """
+    d = p["q"].shape[-1]
+    pq = torch.einsum("tcd,td->tc", p["proj_w"], p["q"])
+    w = torch.softmax(torch.einsum("bnc,tc->btn", tokens, pq) * (1.0 / math.sqrt(d)), dim=-1)
+    pooled = torch.einsum("btn,bnc->btc", w, tokens)
+    h = torch.einsum("btc,tcd->btd", pooled, p["proj_w"])
+    return torch.einsum("btd,tdc->btc", h, p["out_w"])
 
 
 def stacked_task_heads(pooled: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -8,7 +8,10 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 - ``fused_trunk_gram`` (``csrc/trunk_gram.cu``) replaces ``fused_trunk_gram``,
   the camera path's trunk + Gram on a ``fold_trunk_gram_weights`` fold;
 - ``fused_head`` (``csrc/head.cu``) replaces ``fused_head``, the camera
-  path's head on a ``models.pmg.fold_head_weights`` tree.
+  path's head on a ``models.pmg.fold_head_weights`` tree;
+- ``dequant_matvec`` (``csrc/int8_matvec.cu``) replaces ``int8_pallas``
+  (``tools/exp_rtm_int8_stream.py:77``), the RTM camera path's per-task
+  int8 fold product and ``mlp_q8`` layers.
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -43,14 +46,16 @@ from .preprocess import s2d_pack
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
-_SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu")
+_SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first launch
 
-LAUNCHES: Dict[str, int] = {"patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0}
+LAUNCHES: Dict[str, int] = {
+    "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -138,6 +143,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.wadt_fused_head.restype = i32
+        lib.wadt_dequant_matvec.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.wadt_dequant_matvec.restype = i32
         _lib = lib
         return lib
 
@@ -512,4 +519,47 @@ def fused_head(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torch.Tens
             scale.data_ptr() if q8 else None, tp["b"].data_ptr(), table, len(layers),
             queries.data_ptr(), hw.data_ptr(), hb.data_ptr(), partial.data_ptr(), chunks,
             out.data_ptr(), b, npatch, din, d, ff, heads, ntask, kmax)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: per-task weight-only int8 matvec (the RTM camera path's fold product)
+# ---------------------------------------------------------------------------
+
+
+def dequant_matvec_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch per-task int8 product: ``(x[:, t] @ float(w8[t])) * scale[t]``."""
+    return torch.einsum("btc,tcd->btd", x, w8.to(torch.float32)) * scale
+
+
+def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x float32 [B, T, C], w8 int8 [T, C, D], scale float32 [T, D] ->
+    y float32 [B, T, D] = ``(x[:, t] @ w8[t]) * scale[t]``, summed in float32.
+
+    Replaces ``int8_pallas`` (``tools/exp_rtm_int8_stream.py:77``, body
+    ``_dequant_matvec_kernel``).  On this card it is bound by reading w8
+    once: 50.3 MB at the RTM camera shape (T 12, C = D 2048), ~15 us at
+    3.35 TB/s.  CPU tensor: the plain version.  CUDA tensor: the
+    ``dequant_matvec`` kernel, contiguous tensors only.
+    """
+    if x.device.type == "cpu":
+        return dequant_matvec_plain(x, w8, scale)
+    _require_cuda(x, "dequant_matvec")
+    if x.ndim != 3 or w8.ndim != 3:
+        raise ValueError(
+            f"dequant_matvec: expected x [B, T, C] and w8 [T, C, D], got "
+            f"{tuple(x.shape)} and {tuple(w8.shape)}"
+        )
+    b, t, c = x.shape
+    d = w8.shape[-1]
+    dev = x.device
+    _check_cuda("dequant_matvec x", x, torch.float32, dev)
+    _check_cuda("dequant_matvec w8", w8, torch.int8, dev, (t, c, d))
+    _check_cuda("dequant_matvec scale", scale, torch.float32, dev, (t, d))
+    out = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build()
+    _launch("dequant_matvec", lib.wadt_dequant_matvec, dev, x.data_ptr(), w8.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), b, t, c, d)
     return out

@@ -1,4 +1,5 @@
-"""Basic functional NN ops: conv, linear, leaky ReLU, SE channel attention.
+"""Basic functional NN ops: conv, linear, leaky ReLU, SE channel attention,
+and torch's default initializers.
 
 Layout at the boundary is the JAX package's: NHWC activations, HWIO conv
 kernels, ``[in, out]`` linear weights.
@@ -6,12 +7,38 @@ kernels, ``[in, out]`` linear weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import math
+from typing import Any, Dict, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from .preprocess import s2d_pack
+
+
+def _uniform(g: torch.Generator, shape: Sequence[int], bound: float) -> torch.Tensor:
+    return (torch.rand(tuple(shape), generator=g, dtype=torch.float32) * 2.0 - 1.0) * bound
+
+
+def init_conv(g: torch.Generator, kh: int, kw: int, cin: int, cout: int) -> Dict[str, torch.Tensor]:
+    """Bias-free HWIO conv params with torch's default init: kaiming-uniform
+    with a = sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    return {"w": _uniform(g, (kh, kw, cin, cout), 1.0 / math.sqrt(cin * kh * kw))}
+
+
+def init_linear(g: torch.Generator, cin: int, cout: int, bias: bool = True) -> Dict[str, torch.Tensor]:
+    """``[in, out]`` linear params with torch's default init."""
+    bound = 1.0 / math.sqrt(cin)
+    p = {"w": _uniform(g, (cin, cout), bound)}
+    if bias:
+        p["b"] = _uniform(g, (cout,), bound)
+    return p
+
+
+def init_batch_norm(c: int) -> Dict[str, torch.Tensor]:
+    """Identity affine, zero mean and unit variance."""
+    return {"scale": torch.ones(c), "bias": torch.zeros(c), "mean": torch.zeros(c),
+            "var": torch.ones(c)}
 
 
 def conv2d(

@@ -8,6 +8,7 @@ kernel's weights (``packed_affine``).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -62,8 +63,7 @@ def load_image_uint8(
 def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC [0,255] -> ImageNet-normalized float32 NHWC, on x's device,
     as one multiply-add: ``x * (1/(255*std)) - mean/std``."""
-    scale = torch.as_tensor(_SCALE, device=x.device)
-    shift = torch.as_tensor(_SHIFT, device=x.device)
+    scale, shift = _device_affine(x.device, 1)
     return x.to(torch.float32) * scale - shift
 
 
@@ -71,6 +71,21 @@ def packed_affine(k: int) -> Tuple[np.ndarray, np.ndarray]:
     """(scale, shift) of the uint8 normalize ``x*scale - shift``, tiled
     ``k*k`` times to match the ``s2d_pack`` channel order (dy, dx, c)."""
     return np.tile(_SCALE, k * k), np.tile(_SHIFT, k * k)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_affine(device: torch.device, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``packed_affine(k)`` on ``device``, uploaded once: a pageable upload
+    per call would synchronize the stream on every frame."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device) for a in packed_affine(k))
+
+
+def normalize_uint8_packed(z8: torch.Tensor, k: int) -> torch.Tensor:
+    """Normalize for ``s2d_pack`` output [B, H/k, W/k, k*k*3] uint8: the
+    per-RGB affine tiled k*k times over the packed channels, on z8's device."""
+    scale, shift = _device_affine(z8.device, k)
+    return z8.to(torch.float32) * scale - shift
 
 
 def s2d_pack(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Golden-fixture parity walk of the compressed PMG head variants.
+"""Golden-fixture parity walks of the camera paths' compressed weights.
 
-The camera path's head runs on a ``models.pmg.fold_head_weights`` tree
+The PMG camera path's head runs on a ``models.pmg.fold_head_weights`` tree
 (bf16 or weight-only int8 ``token_proj``), through the plain head
 (``pmg.head_from_gram_tokens``) or the fused head kernel
-(``ops.cuda_kernels.fused_head``).  Each variant is held to the frozen
-reference logits of every PMG golden fixture by the same walk, on the CPU
-or on the card.
+(``ops.cuda_kernels.fused_head``).  The RTM camera path runs
+``models.rtm.apply_stream`` on a ``fold_stream_weights`` tree (float32 or
+int8 fold).  Each variant is held to the frozen reference logits of every
+golden fixture of its family by the same walk, on the CPU or on the card.
 """
 
 from __future__ import annotations
@@ -102,3 +103,51 @@ def pmg_head_fold_fixture_parity(
                     drift = max(drift, float(np.abs(got - want).max()))
                 out[variant].append((name, agree, drift))
     return out[todo[0]] if single else out
+
+
+def rtm_stream_fixture_parity(
+    fixtures_dir: str, quantize_fold: bool = False, device="cuda"
+) -> List[Tuple[str, bool, float]]:
+    """Run ``rtm.apply_stream`` on every attention RTM golden fixture with
+    ``fold_stream_weights(quantize_fold=quantize_fold)`` weights, on
+    ``device`` (the int8 fold's product is the ``dequant_matvec`` kernel on
+    the card, its plain version on the CPU).
+
+    Returns [(fixture_name, argmax_matches, max_logit_drift)] against the
+    frozen reference logits.  ``device`` defaults to the card; pass
+    ``device="cpu"`` to run without one.
+    """
+    import numpy as np
+    import torch
+
+    from ..engine import checkpoint
+    from ..models import rtm
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("rtm_stream_fixture_parity: no CUDA device is available; pass device='cpu'")
+    out: List[Tuple[str, bool, float]] = []
+    for jf in sorted(glob.glob(os.path.join(fixtures_dir, "rtm_*.json"))):
+        name = os.path.splitext(os.path.basename(jf))[0]
+        with open(jf) as f:
+            meta = json.load(f)
+        spec = rtm.build_spec(meta["tasks"], meta["hparams"])
+        if not spec.use_attention:
+            continue
+        params = checkpoint.to_device(
+            checkpoint.load_torch_checkpoint("rtm", os.path.join(fixtures_dir, f"{name}.pth"), spec),
+            device,
+        )
+        data = np.load(os.path.join(fixtures_dir, f"{name}.npz"))
+        x = torch.from_numpy(np.ascontiguousarray(np.transpose(data["input"], (0, 2, 3, 1))))
+        with torch.inference_mode():
+            folded = rtm.fold_stream_weights(params, spec, quantize_fold=quantize_fold)
+            lg = rtm.apply_stream(folded, x.to(device), spec).float().cpu().numpy()
+        agree, drift = True, 0.0
+        for i, task in enumerate(spec.tasks.names):
+            want = data[f"logits/{task}"]
+            got = lg[:, i, : want.shape[1]]
+            agree &= bool((got.argmax(-1) == want.argmax(-1)).all())
+            drift = max(drift, float(np.abs(got - want).max()))
+        out.append((name, agree, drift))
+    return out

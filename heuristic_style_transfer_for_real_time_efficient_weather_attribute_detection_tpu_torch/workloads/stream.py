@@ -9,9 +9,11 @@ decodes, crops and overlays.
 For the shipped PMG the forward is two kernels: the fused trunk + Gram
 (``ops.cuda_kernels.fused_trunk_gram``) and the fused head
 (``ops.cuda_kernels.fused_head``) on a compressed ``fold_head_weights``
-tree.  Parity features: threshold -> Unknown labels, translucent text box
-overlay, XVID recording at 20 FPS, per-frame latency -> times_camera.json;
-keys r (record), f (fullscreen), q (quit); headless runs with no display.
+tree.  For RTM the default forward runs on the int8 ``fold_stream_weights``
+tree, whose fold product is the ``dequant_matvec`` kernel.  Parity
+features: threshold -> Unknown labels, translucent text box overlay, XVID
+recording at 20 FPS, per-frame latency -> times_camera.json; keys r
+(record), f (fullscreen), q (quit); headless runs with no display.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from ..engine.checkpoint import to_device
 from ..engine.executor import class_mask, masked_softmax
 from ..models import get_family
 from ..ops import cuda_kernels, kalman
-from ..ops.preprocess import normalize_uint8
+from ..ops.preprocess import normalize_uint8, normalize_uint8_packed, s2d_pack
 
-_TRUNK_KERNELS = ("auto", "fused", "packed", "generic")
+_TRUNK_KERNELS = ("auto", "fused", "packed", "generic", "folded", "folded_q8")
+_ROUTES = {"pmg": ("fused", "packed", "generic"), "rtm": ("generic", "folded", "folded_q8")}
 # PMG head treatments on the fused route: the exact float32 head, the
 # compressed folds through the plain head, or the fused head kernel on them.
 _HEAD_FOLDS = ("f32", "bf16", "q8", "fused_bf16", "fused_q8")
@@ -61,9 +64,9 @@ class PendingProbs:
 
 
 class StreamPredictor:
-    """Per-frame predictor with optional Kalman smoothing (PMG only so far).
+    """Per-frame predictor with optional Kalman smoothing (PMG and RTM).
 
-    Routes (``trunk_kernel``):
+    PMG routes (``trunk_kernel``):
 
     - ``"fused"``: the fused trunk + Gram kernel, then the head chosen by
       ``head_fold``: ``"f32"`` (exact head), ``"bf16"`` / ``"q8"``
@@ -79,6 +82,22 @@ class StreamPredictor:
       the JAX package, which reads a recorded TPU measurement, the port
       has no measured record of its own to choose from yet.
 
+    RTM routes:
+
+    - ``"generic"``: ``rtm.apply`` on the normalized frame;
+    - ``"folded"``: ``rtm.apply_stream`` on a float32
+      ``fold_stream_weights`` tree (the fold product is a plain ``bmm``);
+    - ``"folded_q8"``: the same on the int8 fold, whose product is the
+      ``dequant_matvec`` kernel.  The folded routes pack the frame on the
+      device (k = 2) and run the packed 4x4 stem.
+    - ``"auto"``: ``"folded_q8"`` where ``spec.use_attention``, else
+      ``"generic"``: a fixed rule that mirrors the JAX package's recorded
+      winner on the TPU, not a measurement of the port's.
+
+    ``params`` may be a ready ``fold_stream_weights`` tree for the folded
+    routes (of the same kind as the route), so a fold built once, on the card,
+    can be reused.  ``head_fold`` applies to PMG's fused route only.
+
     ``device`` defaults to the CUDA card and raises when there is none; pass
     ``device="cpu"`` to run the plain versions of the kernels.
     """
@@ -86,9 +105,10 @@ class StreamPredictor:
     def __init__(self, family: str, spec, params, use_kalman: bool = False,
                  dtype: torch.dtype = torch.float32, trunk_kernel: str = "auto",
                  head_fold: str = "auto", device="cuda"):
-        from ..models import pmg
+        from ..models import pmg, rtm
 
-        get_family(family)  # raises for the families not ported yet
+        mod = get_family(family)  # raises for the families not ported yet
+        family = family.lower()
         if dtype != torch.float32:
             raise NotImplementedError(
                 "only float32 runs on the port so far (bf16 dtype: ROADMAP.md A7)"
@@ -110,12 +130,26 @@ class StreamPredictor:
         self.use_kalman = use_kalman
         self._mask = torch.as_tensor(class_mask(self.tasks), device=self.device)
 
-        fusable = cuda_kernels.supports_fused_trunk_gram(spec) and spec.norm == "batch"
-        packable = pmg.supports_packed_input(spec)
-        if trunk_kernel == "auto":
-            route = "fused" if fusable else ("packed" if packable else "generic")
+        if family == "rtm":
+            fusable = packable = False
+            if trunk_kernel == "auto":
+                route = "folded_q8" if spec.use_attention else "generic"
+            else:
+                route = trunk_kernel
+            if route in ("folded", "folded_q8") and not spec.use_attention:
+                raise ValueError(f"trunk_kernel={route!r} needs an RTM spec with use_attention")
         else:
-            route = trunk_kernel
+            fusable = cuda_kernels.supports_fused_trunk_gram(spec) and spec.norm == "batch"
+            packable = pmg.supports_packed_input(spec)
+            if trunk_kernel == "auto":
+                route = "fused" if fusable else ("packed" if packable else "generic")
+            else:
+                route = trunk_kernel
+        if route not in _ROUTES[family]:
+            raise ValueError(
+                f"trunk_kernel={route!r} is not a {family.upper()} route; expected one of "
+                f"{_ROUTES[family]} or 'auto'"
+            )
         if route == "fused" and not fusable:
             raise ValueError(
                 "trunk_kernel='fused' needs a batch-norm spec with a [k=s p0]x2 + 1x1 "
@@ -129,8 +163,10 @@ class StreamPredictor:
                 f"(trunk_kernel='fused' on a supported batch-norm spec); this predictor "
                 f"runs the {route!r} route"
             )
+        self.family = family
         self.route = route
         self.head_fold = None
+        self._mod = mod
         params = to_device(params, self.device)
         self._trunk = self._stem = None
         if route == "fused":
@@ -148,6 +184,12 @@ class StreamPredictor:
                 self._head = head
         elif route == "packed":
             self._stem = pmg.fold_stem(params, spec)
+        elif route in ("folded", "folded_q8"):
+            q8 = route == "folded_q8"
+            if "attn_pq" not in params:
+                params = rtm.fold_stream_weights(params, spec, quantize_fold=q8)
+            elif ("attn_fold_q8" in params) != q8:
+                raise ValueError(f"the given fold_stream_weights tree does not fit route {route!r}")
         self.params = params
         self.kstate = kalman.init_state(len(self.tasks), self.tasks.max_classes, self.device)
 
@@ -158,15 +200,18 @@ class StreamPredictor:
     def step(self, x8: torch.Tensor) -> torch.Tensor:
         """One frame on the device: uint8 [1, H, W, 3] already there ->
         probs [T, Kmax] (Kalman-smoothed when ``use_kalman``), in flight."""
-        from ..models import pmg
+        from ..models import pmg, rtm
 
         if self.route == "fused":
             logits = self._head(cuda_kernels.fused_trunk_gram(x8, self._trunk, self.spec),
                                 self.params, self.spec)
         elif self.route == "packed":
             logits, _ = pmg.apply_packed(self.params, x8, self.spec, stem=self._stem)
+        elif self.route in ("folded", "folded_q8"):
+            x = normalize_uint8_packed(s2d_pack(x8, 2), 2)
+            logits = rtm.apply_stream(self.params, x, self.spec)
         else:
-            logits, _ = pmg.apply(self.params, normalize_uint8(x8), self.spec)
+            logits, _ = self._mod.apply(self.params, normalize_uint8(x8), self.spec)
         probs = masked_softmax(logits.float(), self._mask)[0]
         self.kstate, smoothed = kalman.filter_update(self.kstate, probs)
         return smoothed if self.use_kalman else probs

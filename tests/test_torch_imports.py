@@ -7,6 +7,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from tests.conftest import REPO
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
@@ -38,18 +40,40 @@ print("ok", len([n for n in sys.modules if n.startswith("{PORT}")]))
     assert out.stdout.startswith("ok")
 
 
-def test_no_import_line_names_jax():
+def _scanned_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    offending = []
-    for path in files:
-        with open(path) as f:
-            for i, line in enumerate(f, 1):
-                if re.match(r"\s*(import|from)\s", line) and FORBIDDEN.search(line):
-                    offending.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    return files
+
+
+def _forbidden_import_lines(path):
+    with open(path) as f:
+        return [f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}"
+                for i, line in enumerate(f, 1)
+                if re.match(r"\s*(import|from)\s", line) and FORBIDDEN.search(line)]
+
+
+def test_no_import_line_names_jax():
+    files = _scanned_files()
+    offending = [line for path in files for line in _forbidden_import_lines(path)]
     assert len(files) > 10
     assert not offending, offending
+
+
+@pytest.mark.parametrize("rel", ["models/resnet.py", "models/rtm.py", "engine/checkpoint.py",
+                                 "workloads/stream.py", "utils/goldens.py"])
+def test_rtm_modules_are_scanned_and_clean(rel):
+    """The RTM slice's modules are among those the scan reads, and the walk
+    over every module imports them without JAX."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    mod = f"{PORT}." + rel[:-3].replace("/", ".")
+    out = _run(f"import sys, {mod}; bad = [n for n in sys.modules if n == 'jax' or "
+               f"n.startswith('jax.') or n == '{JAX_PKG}' or n.startswith('{JAX_PKG}.')]; "
+               "assert not bad, bad")
+    assert out.returncode == 0, out.stderr
 
 
 def _smoke(cuda_available, cwd):

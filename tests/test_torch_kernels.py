@@ -148,8 +148,16 @@ def _head_call():
         ck.fused_head_plain
 
 
-CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call]
-CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head"]
+def _dequant_call():
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(2, 3, 40).astype(np.float32))
+    w8 = torch.from_numpy(rng.randint(-127, 128, (3, 40, 24)).astype(np.int8))
+    scale = torch.from_numpy(rng.rand(3, 24).astype(np.float32) * 0.01)
+    return ck.dequant_matvec, (x, w8, scale), ck.dequant_matvec_plain
+
+
+CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call]
+CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

@@ -203,7 +203,7 @@ def test_wrong_family_checkpoint_names_the_family():
     with pytest.raises(ValueError, match="schema matches PM"):
         tckpt.load_torch_checkpoint("pmg", os.path.join(FIXTURES, "pm_small.pth"), spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_family("rtm")
+        get_family("pm")
 
 
 def test_preprocess_matches_jax():

@@ -351,7 +351,7 @@ def test_stream_rejects_bad_choices(model):
         pred.submit(np.zeros((1, 64, 64, 3), np.uint8))
 
 
-@pytest.mark.parametrize("family,item", [("rtm", "A14"), ("pm", "A13")])
+@pytest.mark.parametrize("family,item", [("pm", "A13")])
 def test_stream_other_families_name_the_roadmap(model, family, item):
     _, _, tspec, tparams = model
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
