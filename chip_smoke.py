@@ -7,7 +7,7 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the five CUDA
+1. print the card's name and power limit (nvidia-smi), build the six CUDA
    kernels from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths;
@@ -62,10 +62,38 @@ Phases, each of which raises on failure:
     of phase 9, and its device kernels per step at the end of the run; K6
     at batch 1 with L2 out of play beside its bound, its plain version, a
     ``torch.bmm`` yardstick and ``torch._weight_int8pack_mm`` where this
-    torch has it.
+    torch has it;
+14. the bf16 path's kernels on the card at its shapes: K1 in bf16 against
+    its plain version at batch 256 and on two ragged shapes (one bf16 ulp),
+    with its time and bound; K2 on the bf16 path's folded operands
+    (identity affine, no LeakyReLU) at 2e-4; the bf16 ``linear`` (one
+    cuBLAS call) within one bf16 ulp of the float32 product plus bias
+    rounded; the bf16 token projection kernel (K5, ``gram_proj``) against
+    its plain version at batch 256 of the shipped spec (the Gram from K1
+    in bf16) and on two ragged shapes, within 1e-4 x max|y|; its time with
+    the Gram read from device memory (four rotating copies), its plain
+    version's, ``torch.matmul`` of the same bf16 operands and its bound;
+15. PMG bf16 batch: ``Engine(dtype=torch.bfloat16)`` on the shipped
+    checkpoint at batch 256 over phase 4's 600 frames, launch counts reset
+    just before; K5 and K1 must have launched.  Argmax agreement and
+    probability drift against phase 4's float32 run, the shipped fixture in
+    bf16 (argmax on decisive samples, drift <= 0.05), device step time (in
+    turns with float32), the host's enqueue time of one step, and
+    end-to-end images per second beside the float32 engine's;
+16. PM: the five PM golden fixtures on the card at 2e-4, ``pm_small``'s
+    attention (2e-4) and task embeddings (2e-3); the PM headline spec
+    (``pm.build_spec`` on the 12-task registry: ndf 64, patch 70, instance
+    norm, SE; seeded ``pm.init`` weights) at batch 256 in float32 and bf16:
+    logits against the port's CPU path on 2 frames, device step time and
+    images per second;
+17. RTM bf16 batch at phase 12's width and batch: argmax agreement and
+    probability drift against the float32 run, device step time and images
+    per second.
 
-Host times come from runs without ``--profile``: once a profiler session
-has run, the host's launch cost stays higher for the rest of the process.
+``--profile`` also prints, for phases 15-17, each step's device kernels,
+kernel time and table of device time by kernel.  Host times come from runs
+without ``--profile``: once a profiler session has run, the host's launch
+cost stays higher for the rest of the process.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
 card's nvidia-smi line, and as the last line
@@ -103,6 +131,9 @@ K4_TOL = 1e-3
 K6_TOL = 1e-4  # times max|y| of the plain version
 RTM_BATCH = 128
 RTM_FRAMES = 384
+K5_TOL = 1e-4  # times max|y| of the plain version
+BF16_FIXTURE_DRIFT = 0.05  # logit drift of a bf16 run on a golden fixture (utils/goldens.py)
+PM_FRAMES = 512
 
 
 def card_line() -> str:
@@ -245,6 +276,27 @@ def route_latency(label: str, p, x1, frames, card: str) -> None:
           f"in {statistics.median(steps) * 1e6:.1f} us; host wall per frame, submit to host "
           f"probs {statistics.median(walls) * 1e6:.1f} us, of which submit returns after "
           f"{statistics.median(enqueues) * 1e6:.1f} us (medians of {LATENCY_FRAMES}) | {card}")
+
+
+def profile_step(label: str, fn, steps: int = 3) -> None:
+    """Device kernels, kernel time per step and the table of device time by
+    kernel of ``steps`` calls of ``fn`` (``torch.profiler``; ``--profile``
+    only: host launch costs stay higher afterwards)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    print(f"{label}: {len(evs) / steps:.1f} device kernels per step, "
+          f"{sum(e.time_range.elapsed_us() for e in evs) / steps:.1f} us of kernel time per step")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
 
 
 def kernels_per_step(routes, profile: bool) -> None:
@@ -502,9 +554,11 @@ def random_rtm_params(spec, seed: int):
     return params
 
 
-def rtm_phases(profile: bool, card: str, routes: list) -> dict:
+def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
     """Phases 10-13 (the RTM family) at full width; returns K6's entry of
-    the kernels line and appends each timed camera route to ``routes``."""
+    the kernels line and phase 12's float32 run (spec, params, frames,
+    results, wall time) for phase 17, and appends each timed camera route
+    to ``routes``."""
     import itertools
 
     import numpy as np
@@ -579,11 +633,7 @@ def rtm_phases(profile: bool, card: str, routes: list) -> dict:
     out = eng.run(frames, collect=("probs", "preds", "logits"))
     torch.cuda.synchronize()
     mask = executor.class_mask(spec.tasks)
-    probs = out["probs"]
-    if (probs.shape != (RTM_FRAMES, len(spec.tasks), spec.tasks.max_classes)
-            or not np.isfinite(out["logits"]).all()
-            or not np.allclose(probs.sum(-1), 1.0, atol=1e-5) or np.abs(probs[:, ~mask]).max() != 0):
-        raise AssertionError("RTM batch probabilities are not finite rows summing to 1")
+    check_probs(out, RTM_FRAMES, spec, "RTM batch")
     want = executor.Engine("rtm", spec, params, batch_size=2, device="cpu").run(
         frames[:2], collect=("logits",))["logits"]
     scale = float(np.abs(want).max())
@@ -591,14 +641,7 @@ def rtm_phases(profile: bool, card: str, routes: list) -> dict:
                         1e-3 * scale, 1e-3, "RTM batch logits vs the port's CPU path")
     xb = torch.from_numpy(frames[:RTM_BATCH]).to(dev)
     step_ms = device_ms(lambda: eng.step(xb), reps=5, rounds=3)
-    eng.run(frames[:RTM_BATCH])
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run(frames)
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
+    wall, walls = run_wall(eng, frames)
     print(f"[12] RTM batch (ResNet-50 through layer4, C 2048, 12 tasks, d 2048, seeded weights): "
           f"{RTM_FRAMES} frames at batch {RTM_BATCH}, logits vs CPU on 2 frames max abs err "
           f"{batch_err:.3e} (max |logit| {scale:.3f}; atol 1e-3 x max, rtol 1e-3), launches "
@@ -618,6 +661,7 @@ def rtm_phases(profile: bool, card: str, routes: list) -> dict:
           f"host frames: {RTM_FRAMES / wall:,.0f} img/s (median of 3: "
           f"{[round(w, 4) for w in walls]} s) | {card}")
     del eng
+    rtm_f32 = {"spec": spec, "params": params, "frames": frames, "out": out, "wall": wall}
 
     # -- 13. RTM camera path at full width -------------------------------------
     cam = np.random.RandomState(14).randint(0, 256, (CAMERA_FRAMES, 224, 224, 3), np.uint8)
@@ -702,7 +746,344 @@ def rtm_phases(profile: bool, card: str, routes: list) -> dict:
         "launches": cam_launches["dequant_matvec"], "max_abs_err": k6_err,
         "ms": k6_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
+    }, rtm_f32
+
+
+def check_probs(out, n: int, spec, what: str) -> None:
+    """Finite logits, and probability rows that sum to 1 over each task's
+    real classes."""
+    import numpy as np
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+
+    mask = executor.class_mask(spec.tasks)
+    probs = out["probs"]
+    if (probs.shape != (n, len(spec.tasks), spec.tasks.max_classes)
+            or not np.isfinite(out["logits"]).all()
+            or not np.allclose(probs.sum(-1), 1.0, atol=1e-5) or np.abs(probs[:, ~mask]).max() != 0):
+        raise AssertionError(f"{what}: probabilities are not finite rows summing to 1")
+
+
+def agreement(a, b):
+    """(share of (frame, task) pairs whose argmax agrees, max probability
+    difference) between two runs' probabilities."""
+    import numpy as np
+
+    return float((a.argmax(-1) == b.argmax(-1)).mean()), float(np.abs(a - b).max())
+
+
+def in_turns(fn_a, fn_b, **kw):
+    """Device times of two functions measured in turns a, b, b, a; the
+    median of each one's two."""
+    a1 = device_ms(fn_a, **kw)
+    b1 = device_ms(fn_b, **kw)
+    b2 = device_ms(fn_b, **kw)
+    a2 = device_ms(fn_a, **kw)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def run_wall(eng, frames):
+    """(median, all) of 3 host-clock times of ``eng.run(frames)`` after a
+    warm-up batch."""
+    import torch
+
+    eng.run(frames[: eng.batch_size])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(frames)
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls), walls
+
+
+def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile: bool) -> dict:
+    """Phases 14-15: K5 against its plain version and timed, then the PMG
+    bf16 batch path on the shipped checkpoint; returns K5's entry of the
+    kernels line."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck, nn,
+    )
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    spec = eng32.spec
+    rng = np.random.RandomState(20)
+    eng16 = executor.Engine("pmg", spec, eng32.params, batch_size=BATCH, dtype=bf16)
+
+    # -- 14. K5 against its plain version, on the card ----------------------
+    tp = eng16._run_params["token_proj"]
+    w16, b32 = tp["w"], tp["b"].float()
+    z16 = torch.from_numpy(rng.randn(BATCH, 14, 14, spec.gram_channels).astype(np.float32)).to(dev).to(bf16)
+    g16 = ck.patch_gram(z16, spec.patch_div)  # the main path's bf16 Gram, [256, 9, 9216]
+    torch.cuda.synchronize()
+    # bf16 out: one rounding of float32 sums taken in another order, so the
+    # two may differ by one bf16 ulp (2^-8 of the value) and by no more
+    k1_err = max_err(g16.float(), ck.patch_gram_plain(z16, spec.patch_div).float(), 0.0, 2 ** -8,
+                     f"patch_gram bf16 {list(z16.shape)} div {spec.patch_div}")
+    # ragged: C % 8 != 0 takes scalar loads (C % 4 != 0 scalar stores too)
+    k1_rag = 0.0
+    for shape in ((2, 7, 5, 12), (2, 7, 5, 18)):
+        zr = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(bf16)
+        k1_rag = max(k1_rag, max_err(ck.patch_gram(zr, 2).float(), ck.patch_gram_plain(zr, 2).float(),
+                                     0.0, 2 ** -8, f"patch_gram bf16 {list(shape)} div 2"))
+    k1_ms = device_ms(lambda: ck.patch_gram(z16, spec.patch_div))
+    k1_bound, k1_by = bound_ms(2 * (z16.numel() + g16.numel()), 0.0,
+                               bf16_flops=2.0 * BATCH * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2)
+    print(f"[14] patch_gram in bf16 (bf16 in and out, float32 sums) vs plain: max abs err {k1_err:.3e} "
+          f"at [{BATCH},14,14,{spec.gram_channels}] div {spec.patch_div}, {k1_rag:.3e} at [2,7,5,12] and "
+          f"[2,7,5,18] div 2 (atol 0, rtol 2^-8); {k1_ms * 1e3:.1f} us (bound {k1_bound * 1e3:.1f} us "
+          f"by {k1_by}) | {card}")
+    # K2 as the bf16 path runs it: identity affine plus the folded bias, no
+    # LeakyReLU, on the bf16-rounded folded weight
+    x8 = torch.from_numpy(frames[:BATCH]).to(dev)
+    st = eng16._stem
+    k = spec.plan[0].kernel
+    k2_err = max_err(ck.stem(x8, st["w"], st["scale"], st["shift"], k, leaky=False),
+                     ck.stem_plain(x8, st["w"], st["scale"], st["shift"], k, leaky=False),
+                     2e-4, 2e-4, f"stem bf16-path operands {list(x8.shape)}, leaky=False")
+    print(f"[14] stem on the bf16 path's operands (identity affine, no LeakyReLU) vs plain at "
+          f"{list(x8.shape)}: max abs err {k2_err:.3e}, atol/rtol 2e-4")
+    # bf16 linear (one cuBLAS call with the bias) at the path's shapes: the
+    # float32 product plus bias, rounded once, within one bf16 ulp beyond
+    # what float32 sums in another order may differ by (K * 2^-24 of the
+    # sum of |terms|; it matters only where the terms cancel).  A bf16
+    # reduction of partial sums would be off by ~2^-9 of them.
+    lin_ulps = 0.0
+    rp = eng16._run_params
+    cases = [(rng.randn(BATCH, 14, 14, spec.trunk_channels),
+              {"w": rp["chan_proj"]["w"].reshape(spec.trunk_channels, spec.gram_channels)})]
+    for lp in rp.get("transformer", [])[:1]:
+        cases += [(rng.randn(BATCH, spec.patch_div ** 2, spec.d_model), lp["ffn1"]),
+                  (rng.randn(BATCH, spec.patch_div ** 2, 2 * spec.d_model), lp["ffn2"])]
+    for xa, lp in cases:
+        xl = torch.from_numpy(xa.astype(np.float32)).to(dev).to(bf16)
+        want = torch.matmul(xl.float(), lp["w"].float())
+        want = (want if lp.get("b") is None else want + lp["b"].float()).to(bf16).float()
+        got = nn.linear(xl, lp).float()
+        slack = xl.shape[-1] * 2.0 ** -24 * torch.matmul(xl.float().abs(), lp["w"].float().abs())
+        mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        ulps = float((((got - want).abs() - slack).clamp_min(0.0) / ulp).max())
+        if ulps > 1.0:
+            raise AssertionError(f"bf16 linear {list(xl.shape)} x {list(lp['w'].shape)}: {ulps} bf16 ulps off")
+        lin_ulps = max(lin_ulps, ulps)
+    print(f"[14] bf16 linear on the card (chan_proj, ffn1, ffn2 at batch {BATCH}) vs the float32 product "
+          f"plus bias rounded once: at most {lin_ulps:.2f} bf16 ulp beyond the float32 order allowance "
+          f"(bound 1)")
+    y = ck.gram_proj(g16, w16, b32)
+    torch.cuda.synchronize()
+    want = ck.gram_proj_plain(g16, w16, b32)
+    ymax = float(want.abs().max())
+    k5_err = max_err(y, want, K5_TOL * ymax, 0.0, f"gram_proj {list(g16.shape)} x {list(w16.shape)}")
+    k5_rel = k5_err / ymax
+    # ragged: M, N, K no multiples of the 64-wide tiles (masked edges and K tail)
+    for (bsz, npatch, k, n) in ((2, 9, 296, 40), (3, 7, 264, 72)):
+        gr = torch.from_numpy(rng.randn(bsz, npatch, k).astype(np.float32)).to(dev).to(bf16)
+        wr = torch.from_numpy(rng.randn(k, n).astype(np.float32) * k ** -0.5).to(dev).to(bf16)
+        br = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+        got = ck.gram_proj(gr, wr, br)
+        torch.cuda.synchronize()
+        wr_want = ck.gram_proj_plain(gr, wr, br)
+        rmax = float(wr_want.abs().max())
+        err = max_err(got, wr_want, K5_TOL * rmax, 0.0, f"gram_proj ragged [{bsz},{npatch},{k}] x [{k},{n}]")
+        k5_err, k5_rel = max(k5_err, err), max(k5_rel, err / rmax)
+    print(f"[14] gram_proj vs plain: max abs err {k5_err:.3e}, {k5_rel:.3e} x max|y| (bound {K5_TOL} x "
+          f"max|y|), at [M,K,N] = [{g16.shape[0] * g16.shape[1]},{g16.shape[2]},{w16.shape[1]}], "
+          f"[18,296,40], [21,264,72]")
+    # timed with G read from device memory: 4 rotating copies, 170 MB, over
+    # three times the 50 MB L2; W (3.5 MB) stays in L2 as it does between batches
+    copies = [g16.clone() for _ in range(4)]
+    rings = [itertools.cycle(copies) for _ in range(3)]
+    k5_ms = device_ms(lambda: ck.gram_proj(next(rings[0]), w16, b32))
+    plain_ms = device_ms(lambda: ck.gram_proj_plain(next(rings[1]), w16, b32))
+    # yardstick: torch.matmul of the same bf16 operands (bf16 result, no bias)
+    lib_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
+    del copies
+    m, k = g16.shape[0] * g16.shape[1], g16.shape[2]
+    n = w16.shape[1]
+    nbytes = 2 * g16.numel() + 2 * w16.numel() + 4 * n + 4 * m * n
+    b_ms, b_by = bound_ms(nbytes, 0.0, bf16_flops=2.0 * m * k * n)
+    print(f"[14] gram_proj at batch {BATCH} [{m},{k}] x [{k},{n}] bf16, G from device memory: "
+          f"{k5_ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
+          f"torch.matmul bf16 {lib_ms * 1e3:.1f} us | {card}")
+
+    # -- 15. PMG bf16 batch ----------------------------------------------------
+    ck.reset_launches()
+    out16 = eng16.run(frames, collect=("probs", "preds", "logits"))
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    for name in ("gram_proj", "patch_gram", "stem"):
+        if launches[name] == 0:
+            raise AssertionError(f"PMG bf16 path never launched the {name} kernel")
+    check_probs(out16, len(frames), spec, "PMG bf16 batch")
+    agree, drift = agreement(out16["probs"], out32["probs"])
+    top2 = np.sort(out32["probs"], axis=-1)
+    decisive = top2[..., -1] - top2[..., -2] > 0.1
+    if drift > 0.05 or not (out16["probs"].argmax(-1) == out32["probs"].argmax(-1))[decisive].all():
+        raise AssertionError(f"PMG bf16 vs float32: drift {drift}, argmax agreement {agree}")
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    data = np.load(os.path.join(FIXTURES, "pmg_shipped.npz"))
+    xf = torch.from_numpy(np.ascontiguousarray(data["input"].transpose(0, 2, 3, 1))).to(dev)
+    with torch.inference_mode():
+        logits, _ = pmg.apply(eng16._run_params, xf.to(bf16), spec)
+    logits = logits.float().cpu().numpy()
+    fix_drift, fix_agree = 0.0, True
+    for i, task in enumerate(spec.tasks.names):
+        ref = data[f"logits/{task}"]
+        got = logits[:, i, : ref.shape[1]]
+        fix_drift = max(fix_drift, float(np.abs(got - ref).max()))
+        r2 = np.sort(ref, axis=-1)
+        dec = r2[:, -1] - r2[:, -2] > 2 * BF16_FIXTURE_DRIFT
+        fix_agree &= bool((got.argmax(-1) == ref.argmax(-1))[dec].all())
+    if fix_drift > BF16_FIXTURE_DRIFT or not fix_agree:
+        raise AssertionError(f"pmg_shipped in bf16: drift {fix_drift}, argmax agrees {fix_agree}")
+    print(f"[15] PMG bf16 batch: {len(frames)} frames at batch {BATCH}, launches {launches}; vs the "
+          f"float32 run argmax agrees on {agree:.4f} of (frame, task) pairs, max prob drift {drift:.3e}; "
+          f"pmg_shipped fixture in bf16: max logit drift {fix_drift:.3e} (limit {BF16_FIXTURE_DRIFT}), "
+          f"argmax agrees on decisive samples")
+    xb = torch.from_numpy(frames[:BATCH]).to(dev)
+    # one step at a time behind the sleep: ten queued bf16 steps (~190
+    # launches each) fill the launch queue, and the host's pace leaks in
+    step32, step16 = in_turns(lambda: eng32.step(xb), lambda: eng16.step(xb), reps=1, rounds=10)
+    enqueue = {}
+    for label, e in (("float32", eng32), ("bf16", eng16)):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            e.step(xb)
+            times.append(time.perf_counter() - t0)
+        enqueue[label] = statistics.median(times)
+    torch.cuda.synchronize()
+    wall16, _ = run_wall(eng16, big)
+    print(f"[15] engine step on a device-resident batch of {BATCH}, in turns: float32 {step32:.3f} ms "
+          f"= {BATCH / step32 * 1e3:,.0f} img/s, bf16 {step16:.3f} ms = {BATCH / step16 * 1e3:,.0f} img/s "
+          f"(device); host enqueue of one step: float32 {enqueue['float32'] * 1e3:.3f} ms, bf16 "
+          f"{enqueue['bf16'] * 1e3:.3f} ms; Engine.run end to end on {len(big)} host frames: bf16 "
+          f"{len(big) / wall16:,.0f} img/s, float32 (phase 5) {len(big) / wall32:,.0f} img/s | {card}")
+    if profile:
+        profile_step(f"[15] PMG float32 step at batch {BATCH}", lambda: eng32.step(xb), steps=5)
+        profile_step(f"[15] PMG bf16 step at batch {BATCH}", lambda: eng16.step(xb), steps=5)
+    del eng16
+    return {
+        "name": "gram_proj", "route": "cuda", "source": f"{PORT}/csrc/gram_proj.cu",
+        "replaces": "tools/exp_pmg_projkernel.py:65",
+        "launches": launches["gram_proj"], "max_abs_err": k5_err,
+        "ms": k5_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
     }
+
+
+def pm_phase(card: str, profile: bool) -> None:
+    """Phase 16: the PM family on the card."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pm
+
+    dev = torch.device("cuda", 0)
+    fix_err = attn_err = emb_err = 0.0
+    names = ("pm_ablate", "pm_batchnorm_sigmoid", "pm_deep_plan", "pm_no_se", "pm_small")
+    for name in names:
+        with open(os.path.join(FIXTURES, f"{name}.json")) as f:
+            meta = json.load(f)
+        data = np.load(os.path.join(FIXTURES, f"{name}.npz"))
+        spec = pm.build_spec(meta["tasks"], meta["hparams"])
+        params = checkpoint.to_device(
+            checkpoint.load_torch_checkpoint("pm", os.path.join(FIXTURES, f"{name}.pth"), spec), dev)
+        xf = torch.from_numpy(np.ascontiguousarray(data["input"].transpose(0, 2, 3, 1))).to(dev)
+        with torch.inference_mode():
+            logits, aux = pm.apply(params, xf, spec, capture=("attn", "task_embeddings"))
+        for i, task in enumerate(spec.tasks.names):
+            want = torch.from_numpy(data[f"logits/{task}"]).to(dev)
+            fix_err = max(fix_err, max_err(logits[:, i, : want.shape[1]], want, 2e-4, 2e-4,
+                                           f"{name} fixture / {task}"))
+            if name == "pm_small":
+                attn_err = max(attn_err, max_err(aux["attn"][:, i], torch.from_numpy(
+                    data[f"attn/{task}"][:, 0]).to(dev), 2e-4, 2e-4, f"pm_small attn / {task}"))
+                emb_err = max(emb_err, max_err(aux["task_embeddings"][:, i], torch.from_numpy(
+                    data[f"task_emb/{task}"]).to(dev), 2e-3, 2e-3, f"pm_small task_emb / {task}"))
+    print(f"[16] PM golden logits on the card ({len(names)} fixtures): max abs err {fix_err:.3e} "
+          f"(atol/rtol 2e-4); pm_small attention {attn_err:.3e} (2e-4), task embeddings "
+          f"{emb_err:.3e} (2e-3)")
+
+    spec = pm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    params = pm.init(torch.Generator().manual_seed(16), spec)
+    frames = np.random.RandomState(17).randint(0, 256, (PM_FRAMES, 224, 224, 3), np.uint8)
+    xb = torch.from_numpy(frames[:BATCH]).to(dev)
+    outs, engines = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "bf16" if dtype == torch.bfloat16 else "float32"
+        eng = executor.Engine("pm", spec, params, batch_size=BATCH, dtype=dtype)
+        out = eng.run(frames, collect=("probs", "preds", "logits"))
+        check_probs(out, PM_FRAMES, spec, f"PM headline {label}")
+        want = executor.Engine("pm", spec, params, batch_size=2, dtype=dtype, device="cpu").run(
+            frames[:2], collect=("logits",))["logits"]
+        scale = float(np.abs(want).max())
+        # float32: summation order only; bf16: roundings at other places
+        # (cuDNN's bf16 output against the CPU's upcast convolution)
+        tol = 1e-3 if dtype == torch.float32 else 5e-2
+        err = max_err(torch.from_numpy(out["logits"][:2]), torch.from_numpy(want), tol * scale, tol,
+                      f"PM headline {label} logits vs the port's CPU path")
+        outs[label], engines[label] = out, eng
+        print(f"[16] PM headline {label} (ndf 64, patch 70, instance norm, SE, trunk "
+              f"{spec.trunk_channels} channels, 12 tasks, seeded weights): {PM_FRAMES} frames at batch "
+              f"{BATCH}, logits vs CPU on 2 frames max abs err {err:.3e} (max |logit| {scale:.3f}; "
+              f"atol {tol} x max, rtol {tol})")
+    agree, drift = agreement(outs["bf16"]["probs"], outs["float32"]["probs"])
+    step32, step16 = in_turns(lambda: engines["float32"].step(xb), lambda: engines["bf16"].step(xb),
+                              reps=3, rounds=3)
+    wall32, _ = run_wall(engines["float32"], frames)
+    wall16, _ = run_wall(engines["bf16"], frames)
+    print(f"[16] PM headline bf16 vs float32: argmax agrees on {agree:.4f} of (frame, task) pairs, max "
+          f"prob drift {drift:.3e}; engine step at batch {BATCH} in turns: float32 {step32:.3f} ms = "
+          f"{BATCH / step32 * 1e3:,.0f} img/s, bf16 {step16:.3f} ms = {BATCH / step16 * 1e3:,.0f} img/s "
+          f"(device); Engine.run end to end on {PM_FRAMES} host frames: float32 "
+          f"{PM_FRAMES / wall32:,.0f}, bf16 {PM_FRAMES / wall16:,.0f} img/s | {card}")
+    if profile:
+        for label in ("float32", "bf16"):
+            profile_step(f"[16] PM headline {label} step at batch {BATCH}",
+                         lambda: engines[label].step(xb))
+
+
+def rtm_bf16_phase(card: str, f32: dict, profile: bool) -> None:
+    """Phase 17: RTM batch inference in bf16 at phase 12's width and batch."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+
+    dev = torch.device("cuda", 0)
+    spec, params, frames = f32["spec"], f32["params"], f32["frames"]
+    eng16 = executor.Engine("rtm", spec, params, batch_size=RTM_BATCH, dtype=torch.bfloat16)
+    out16 = eng16.run(frames, collect=("probs", "preds", "logits"))
+    check_probs(out16, RTM_FRAMES, spec, "RTM bf16 batch")
+    agree, drift = agreement(out16["probs"], f32["out"]["probs"])
+    eng32 = executor.Engine("rtm", spec, params, batch_size=RTM_BATCH)
+    xb = torch.from_numpy(frames[:RTM_BATCH]).to(dev)
+    step32, step16 = in_turns(lambda: eng32.step(xb), lambda: eng16.step(xb), reps=3, rounds=3)
+    wall16, _ = run_wall(eng16, frames)
+    print(f"[17] RTM bf16 batch (phase 12's width): {RTM_FRAMES} frames at batch {RTM_BATCH}; vs the "
+          f"float32 run argmax agrees on {agree:.4f} of (frame, task) pairs, max prob drift {drift:.3e}; "
+          f"engine step in turns: float32 {step32:.3f} ms = {RTM_BATCH / step32 * 1e3:,.0f} img/s, bf16 "
+          f"{step16:.3f} ms = {RTM_BATCH / step16 * 1e3:,.0f} img/s (device); Engine.run end to end: "
+          f"bf16 {RTM_FRAMES / wall16:,.0f} img/s, float32 (phase 12) {RTM_FRAMES / f32['wall']:,.0f} "
+          f"img/s | {card}")
+    if profile:
+        profile_step(f"[17] RTM bf16 step at batch {RTM_BATCH}", lambda: eng16.step(xb))
 
 
 def main() -> int:
@@ -878,16 +1259,9 @@ def main() -> int:
     print(f"[5] host-to-device copy of one pageable uint8 batch ({frames[:BATCH].nbytes / 1e6:.1f} MB): "
           f"{statistics.median(h2d) * 1e3:.3f} ms (median of 5) | {card}")
     big = np.concatenate([frames] * 5)[: 10 * BATCH]
-    eng.run(big[:BATCH])
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run(big)
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
+    wall5, walls = run_wall(eng, big)
     print(f"[5] Engine.run end to end, {len(big)} host uint8 frames at batch {BATCH}: "
-          f"{len(big) / wall:,.0f} img/s (median of 3: {[round(w, 4) for w in walls]} s) | {card}")
+          f"{len(big) / wall5:,.0f} img/s (median of 3: {[round(w, 4) for w in walls]} s) | {card}")
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -900,8 +1274,13 @@ def main() -> int:
 
     routes: list = []
     kernels += camera_phases(args.profile, card, eng.spec, eng.params, routes)
+    k6, rtm_f32 = rtm_phases(args.profile, card, routes)
+    kernels.append(k6)
+    kernels.insert(4, pmg_bf16_phases(card, eng, frames, out, big, wall5, args.profile))
     del eng
-    kernels.append(rtm_phases(args.profile, card, routes))
+    pm_phase(card, args.profile)
+    rtm_bf16_phase(card, rtm_f32, args.profile)
+    del rtm_f32
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

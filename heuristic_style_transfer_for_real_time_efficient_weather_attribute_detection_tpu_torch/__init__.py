@@ -5,15 +5,16 @@ It stands beside the JAX package
 ``heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu``,
 which stays the reference: same public functions, same layouts (NHWC
 activations, stacked ``[B, T, Kmax]`` logits), same param tree.  It imports
-neither JAX nor anything of the JAX package.  Ported so far: the PMG and
-RTM families, batch inference (``Engine.run`` on uint8 frames) and the
-camera path (``workloads.stream.StreamPredictor``), with five hand-written
-CUDA kernels (``ops/cuda_kernels.py``).
+neither JAX nor anything of the JAX package.  Ported so far: the PMG, PM
+and RTM families, batch inference (``Engine.run`` on uint8 frames, float32
+or bf16) and the float32 camera path (``workloads.stream.StreamPredictor``),
+with six hand-written CUDA kernels (``ops/cuda_kernels.py``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 
     eng = load_engine("pmg", "best_model_PMG.pth", "tasks.json", batch_size=256)
     out = eng.run(images_u8)          # {"preds": [N,T], "probs": [N,T,Kmax]}
+    eng16 = load_engine("pmg", "best_model_PMG.pth", dtype=torch.bfloat16)
 """
 
 __version__ = "0.1.0"
@@ -22,16 +23,17 @@ from . import config  # noqa: F401
 
 
 def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwargs):
-    """One call from a ``.pth`` checkpoint to an :class:`Engine` (PMG or RTM).
+    """One call from a ``.pth`` checkpoint to an :class:`Engine` (PMG, PM or RTM).
 
     - ``tasks``: registry dict ``{task: [class, ...]}`` or a JSON path;
       defaults to the bundled 12-task weather registry.
     - ``hparams``: dict or JSON path; when omitted, sidecar JSONs are
       discovered next to ``model_path``.
     - ``model_path``: a torch ``.pth`` or ``.npz`` state dict, loaded
-      strictly.  Randomly initialized params are not ported yet.
+      strictly; for PM the checkpoint's own SE blocks decide
+      ``attn_use_se``.  Randomly initialized params are not ported yet.
     - ``engine_kwargs``: forwarded to :class:`Engine` (``batch_size``,
-      ``prob_threshold``, ``packed``, ``device`` ...).
+      ``dtype``, ``prob_threshold``, ``packed``, ``device`` ...).
     """
     import os
 
@@ -55,6 +57,9 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
         hparams = load_hparams(os.fspath(hparams), model_path)
     else:
         hparams = dict(hparams)
+    state = checkpoint.load_state_dict(model_path)
+    if family.lower() == "pm":
+        hparams["attn_use_se"] = checkpoint.checkpoint_has_se(state)
     spec = get_family(family).build_spec(tasks, hparams)
-    params = checkpoint.load_torch_checkpoint(family, model_path, spec)
+    params = checkpoint.convert(family, state, spec)
     return Engine(family, spec, params, **engine_kwargs)

@@ -28,12 +28,15 @@ def enable_parity_precision() -> None:
 
     PyTorch runs float32 matmuls in full precision by default but lets cuDNN
     convolutions use TF32 (about three decimal digits), so both switches are
-    set explicitly before any comparison against the f32 reference.
+    set explicitly before any comparison against the f32 reference.  bf16
+    products keep float32 sums throughout, as the JAX package's do: cuBLAS
+    may not reduce split-K partial sums in bf16.
     """
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def load_tasks(path: str) -> Dict[str, List[str]]:

@@ -1,12 +1,13 @@
-"""Checkpoint loading: PyTorch ``.pth`` state dicts -> the port's PMG and
-RTM params.
+"""Checkpoint loading: PyTorch ``.pth`` state dicts -> the port's PMG, PM
+and RTM params.
 
 The params are the JAX package's tree with torch tensors at the leaves:
 conv OIHW -> HWIO, Linear [out, in] -> [in, out], the packed transformer
 ``in_proj`` split into q/k/v, per-task modules stacked on a leading task
 axis and zero-padded to Kmax.  RTM backbones arrive under three key
 schemas (``truncated_encoder.<seq>.``, ``backbone.``, raw ResNet roots),
-all accepted.  Loading is strict: a missing key raises.
+all accepted.  PM checkpoints carry SE weights or not
+(``checkpoint_has_se``).  Loading is strict: a missing key raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models import get_family
+from ..models import pm as pm_mod
 from ..models import pmg as pmg_mod
 from ..models import resnet as resnet_mod
 from ..models import rtm as rtm_mod
@@ -45,12 +47,21 @@ def load_state_dict(path: str) -> StateDict:
     return {k[7:] if k.startswith("module.") else k: v for k, v in raw.items()}
 
 
+def checkpoint_has_se(state: StateDict) -> bool:
+    """The PM SE probe: a checkpoint has SE blocks when a key holds ``.se.mlp.``."""
+    return any(".se.mlp." in k for k in state)
+
+
 def _t(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=torch.float32)
+    """A contiguous float32 tensor (a transposed weight is copied in its new order)."""
+    return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32)
 
 
-def _conv(w: np.ndarray) -> Dict[str, torch.Tensor]:
-    return {"w": _t(np.transpose(w, (2, 3, 1, 0)))}  # OIHW -> HWIO
+def _conv(w: np.ndarray, b: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    p = {"w": _t(np.transpose(w, (2, 3, 1, 0)))}  # OIHW -> HWIO
+    if b is not None:
+        p["b"] = _t(b)
+    return p
 
 
 def _linear(w: np.ndarray, b: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
@@ -147,6 +158,49 @@ def convert_pmg(state: StateDict, spec: pmg_mod.Spec) -> Dict[str, Any]:
         [state[f"classifiers.{n}.bias"] for n in t.names],
         t.max_classes,
     )
+    return params
+
+
+def convert_pm(state: StateDict, spec: pm_mod.Spec) -> Dict[str, Any]:
+    """Map a ``MultiTaskPatchGAN`` state dict.  Per-task heads are stacked on
+    a leading task axis; SE weights stay zero where the spec has no SE or
+    the checkpoint carries none."""
+    t = spec.tasks
+    nt, kmax, c = len(t), t.max_classes, spec.trunk_channels
+    params: Dict[str, Any] = {"trunk": []}
+    for i in range(len(spec.plan)):
+        ci, ni = 3 * i, 3 * i + 1  # Sequential indices: conv, norm, LeakyReLU
+        params["trunk"].append({
+            "conv": _conv(state[f"trunk.{ci}.weight"], state.get(f"trunk.{ci}.bias")),
+            "norm": _norm(state, f"trunk.{ni}", spec.norm),
+        })
+    hid = max(c // 16, 1)
+    heads = {
+        "se1_w": np.zeros((nt, c, hid), np.float32),
+        "se1_b": np.zeros((nt, hid), np.float32),
+        "se2_w": np.zeros((nt, hid, c), np.float32),
+        "se2_b": np.zeros((nt, c), np.float32),
+        "attn_w": np.zeros((nt, c), np.float32),
+        "attn_b": np.zeros((nt,), np.float32),
+        "cls_w": np.zeros((nt, c, kmax), np.float32),
+    }
+    for i, name in enumerate(t.names):
+        pre = f"task_heads.{name}"
+        if spec.attn_use_se and f"{pre}.se.mlp.0.weight" in state:
+            heads["se1_w"][i] = state[f"{pre}.se.mlp.0.weight"].T
+            heads["se1_b"][i] = state[f"{pre}.se.mlp.0.bias"]
+            heads["se2_w"][i] = state[f"{pre}.se.mlp.2.weight"].T
+            heads["se2_b"][i] = state[f"{pre}.se.mlp.2.bias"]
+        heads["attn_w"][i] = state[f"{pre}.attn_conv.weight"][0, :, 0, 0]
+        heads["attn_b"][i] = state[f"{pre}.attn_conv.bias"][0]
+        kw = state[f"{pre}.cls_conv.weight"][:, :, 0, 0]  # [K, C]
+        if kw.shape[0] > kmax:
+            raise ValueError(
+                f"checkpoint head {name!r} has {kw.shape[0]} classes but the task registry's "
+                f"widest task has {kmax}"
+            )
+        heads["cls_w"][i, :, : kw.shape[0]] = kw.T
+    params["heads"] = {k: _t(v) for k, v in heads.items()}
     return params
 
 
@@ -256,7 +310,7 @@ def convert_rtm(state: StateDict, spec: rtm_mod.Spec, partial_copy: bool = True)
     return params
 
 
-_CONVERTERS = {"pmg": convert_pmg, "rtm": convert_rtm}
+_CONVERTERS = {"pmg": convert_pmg, "pm": convert_pm, "rtm": convert_rtm}
 
 
 def sniff_family(state: Mapping[str, Any]) -> Optional[str]:
@@ -282,7 +336,7 @@ def convert(family: str, state: StateDict, spec) -> Dict[str, Any]:
     """Strict state dict -> params.  A missing key raises; when the key
     schema belongs to another family, the error names it."""
     family = family.lower()
-    get_family(family)  # raises for the families not ported yet
+    get_family(family)  # raises for an unknown family
     try:
         return _CONVERTERS[family](state, spec)
     except KeyError as e:
@@ -305,8 +359,8 @@ def params_from_jax(tree: Any, spec) -> Dict[str, Any]:
     """The JAX package's param tree (numpy or JAX arrays at the leaves) ->
     the port's params (CPU tensors), leaf for leaf.
 
-    Takes a PMG tree, an RTM tree, or an RTM ``fold_stream_weights`` tree
-    (float32 or int8-quantized).  Both packages share one tree layout, so
+    Takes a PMG tree, a PM tree, an RTM tree, or an RTM
+    ``fold_stream_weights`` tree (float32 or int8-quantized).  Both packages share one tree layout, so
     this is a structural copy: float leaves become float32 tensors, int8
     leaves stay int8.  It checks that the tree has the entries ``spec``
     implies.
@@ -322,6 +376,9 @@ def params_from_jax(tree: Any, spec) -> Dict[str, Any]:
             want = {"backbone", "mlp", "final"} | ({"attn"} if spec.use_attention else set())
             layers = "mlp"
         planned, what = len(spec.mlp_dims) - 1, "MLP layers"
+    elif isinstance(spec, pm_mod.Spec):
+        want = {"trunk", "heads"}
+        layers, planned, what = "trunk", len(spec.plan), "trunk blocks"
     else:
         want = {"trunk", "chan_proj", "token_proj", "queries", "heads"}
         want |= {"se"} if spec.use_channel_attention else set()

@@ -4,7 +4,9 @@ One engine serves every batch workload: ``run(images_uint8)`` takes uint8
 NHWC frames (any N), pads the tail batch to the engine's batch size, runs
 the forward on the device, and returns host numpy probs / preds / logits.
 Images cross to the device as uint8 and are normalized there (folded into
-the stem kernel on the PMG path).
+the stem kernel on the PMG path).  ``dtype=torch.bfloat16`` runs the
+forward in bf16 on a cast copy of the params, as the JAX package's
+``Engine(dtype=jnp.bfloat16)`` does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from ..config import IGNORE_INDEX, UNKNOWN_PRED, TaskSpec
 from ..models import get_family
+from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8
 from .checkpoint import to_device
 
@@ -103,6 +106,12 @@ class Engine:
     host numpy, padding N up to ``batch_size`` internally.  ``device``
     defaults to the CUDA card and raises when there is none; pass
     ``device="cpu"`` to run the plain versions of the kernels.
+
+    ``dtype`` is float32 or bfloat16.  ``params`` stays float32 as given;
+    the forward runs on a copy cast to ``dtype`` (every floating leaf),
+    which assigning ``params`` derives anew, with the stem fold.  Logits
+    are cast to float32 before the masked softmax; captured taps come back
+    as float32 (host numpy has no bf16).
     """
 
     def __init__(
@@ -119,10 +128,8 @@ class Engine:
         packed: str = "auto",
         device="cuda",
     ):
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "only float32 runs on the port so far (bf16 Engine dtype: ROADMAP.md A7)"
-            )
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"Engine dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if mesh is not None:
             raise NotImplementedError("mesh execution is not ported yet (ROADMAP.md A22)")
         self.device = torch.device(device)
@@ -143,9 +150,20 @@ class Engine:
         self.pack_k = None
         if packed != "off" and family == "pmg" and self._mod.supports_packed_input(spec):
             self.pack_k = spec.plan[0].kernel
-        self.params = to_device(params, self.device)
+        self.params = params  # the setter derives the run copy and the stem fold
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, p) -> None:
+        self._params = to_device(p, self.device)
+        self._run_params = (self._params if self.dtype == torch.float32
+                            else cast_tree(self._params, self.dtype))
         # the stem fold is constant per params: folded once, not per batch
-        self._stem = self._mod.fold_stem(self.params, spec) if self.pack_k else None
+        self._stem = (self._mod.fold_stem(self._run_params, self.spec, self.dtype)
+                      if self.pack_k else None)
 
     # -- low-level -------------------------------------------------------
 
@@ -153,11 +171,11 @@ class Engine:
     def _step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.pack_k is not None:
             logits, aux = self._mod.apply_packed(
-                self.params, images, self.spec, self.capture, self._stem
+                self._run_params, images, self.spec, self.capture, self._stem, self.dtype
             )
         else:
             logits, aux = self._mod.apply(
-                self.params, normalize_uint8(images), self.spec, self.capture
+                self._run_params, normalize_uint8(images, self.dtype), self.spec, self.capture
             )
         logits = logits.float()
         probs = masked_softmax(logits, self._mask)
@@ -173,7 +191,7 @@ class Engine:
             "loss_per_task": loss_t,
             "count_per_task": count_t,
         }
-        out.update(aux)
+        out.update({k: v.float() for k, v in aux.items()})
         return out
 
     def step(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:

@@ -1,21 +1,15 @@
-"""Model families of the port: ``pmg`` and ``rtm``.  ``pm`` is queued in
-ROADMAP.md (queue A)."""
+"""Model families of the port: ``pmg``, ``pm`` and ``rtm``, as in the JAX
+package."""
 
 from __future__ import annotations
 
-from . import pmg, rtm
+from . import pm, pmg, rtm
 
-FAMILIES = {"pmg": pmg, "rtm": rtm}
-_QUEUED = {"pm": "ROADMAP.md A13 (PM family)"}
+FAMILIES = {"pmg": pmg, "pm": pm, "rtm": rtm}
 
 
 def get_family(name: str):
-    key = name.lower()
-    if key in _QUEUED:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported to PyTorch yet: {_QUEUED[key]}"
-        )
     try:
-        return FAMILIES[key]
+        return FAMILIES[name.lower()]
     except KeyError:
         raise ValueError(f"unknown model family {name!r}; choose from {sorted(FAMILIES)}")

@@ -15,6 +15,11 @@ d_model 192, 2 layers, 4 heads, batch norm; 224 px input -> 14x14 features
 Params are a nested dict of tensors with the JAX package's tree layout
 (HWIO convs, [in, out] linears, heads stacked over tasks), so one tree maps
 leaf for leaf onto the other (``engine.checkpoint.params_from_jax``).
+
+On a bf16 param tree (``ops.nn.cast_tree``) the forward runs in bf16 as
+the JAX package's does: the Gram is rounded to bf16 and ``token_proj``
+runs in the ``gram_proj`` kernel (K5) on the card, its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from ..config import TaskSpec
 from ..ops import cuda_kernels
 from ..ops.attention import stacked_task_heads, task_query_pool, transformer_encoder
 from ..ops.gram import patch_gram_tokens
-from ..ops.nn import conv2d, leaky_relu, linear, se_block, upcast_bf16
+from ..ops.nn import cast_tree, conv2d, leaky_relu, linear, se_block
 from ..ops.norms import apply_norm, batch_norm_affine
 from ..ops.preprocess import packed_affine, s2d_unpack
 from .trunk import apply_trunk, trunk_plan
@@ -131,7 +136,13 @@ def head_apply(
     aux: Dict[str, torch.Tensor] = {}
     h = se_block(feats, params["se"]) if spec.use_channel_attention else feats
     z = conv2d(h, params["chan_proj"])
-    tokens = linear(patch_gram_tokens(z.contiguous(), spec.patch_div), params["token_proj"])
+    grams = patch_gram_tokens(z.contiguous(), spec.patch_div)
+    tp = params["token_proj"]
+    if grams.dtype == torch.bfloat16:
+        # bf16 x bf16 summed in float32, the bias added in float32, one rounding
+        tokens = cuda_kernels.gram_proj(grams, tp["w"].contiguous(), tp["b"].float()).to(grams.dtype)
+    else:
+        tokens = linear(grams, tp)
     if spec.has_transformer:
         tokens = transformer_encoder(tokens, params["transformer"], spec.transformer_heads)
     if "tokens" in capture:
@@ -158,10 +169,10 @@ def head_from_gram_tokens(
         w = tp["w8"].to(torch.float32) * tp["scale"]
         tokens = torch.matmul(gram_tokens, w) + tp["b"]
     else:
-        tokens = linear(gram_tokens, upcast_bf16(tp))
+        tokens = linear(gram_tokens, cast_tree(tp, torch.float32))
     if spec.has_transformer:
         tokens = transformer_encoder(
-            tokens, upcast_bf16(params["transformer"]), spec.transformer_heads
+            tokens, cast_tree(params["transformer"], torch.float32), spec.transformer_heads
         )
     return stacked_task_heads(task_query_pool(tokens, params["queries"]), params["heads"])
 
@@ -224,35 +235,44 @@ def supports_packed_input(spec: Spec) -> bool:
     return b0.kernel == b0.stride and b0.pad == 0
 
 
-def fold_stem(params: Dict[str, Any], spec: Spec) -> Dict[str, torch.Tensor]:
+def _stem_fuses_norm(spec: Spec, dtype: torch.dtype) -> bool:
+    """The stem kernel applies batch norm and the LeakyReLU itself in
+    float32 runs; bf16 runs round its output and apply them in bf16."""
+    return spec.norm == "batch" and dtype == torch.float32
+
+
+def fold_stem(
+    params: Dict[str, Any], spec: Spec, dtype: torch.dtype = torch.float32
+) -> Dict[str, torch.Tensor]:
     """The first trunk block as the stem kernel's operands.
 
     The uint8 normalize affine is folded into the weight and a bias,
     ``(u8*scale - shift) @ W == u8 @ (scale*W) + (b - shift@W)``.  For batch
-    norm the inference affine joins the bias into the kernel's scale/shift
-    and the kernel applies the LeakyReLU; for instance or group norm the
+    norm in a float32 run the inference affine joins the bias into the
+    kernel's scale/shift and the kernel applies the LeakyReLU; otherwise the
     kernel's affine is the identity plus the bias, and the norm and LeakyReLU
-    follow the kernel.  Returns {"w": [k*k*cin, cout], "scale", "shift": [cout]}.
+    follow the kernel.  As in the JAX package, the folded weight is rounded
+    to the conv weight's own type (bf16 on a bf16 tree) and held in float32
+    for the kernel; the bias stays float32.  Returns {"w": [k*k*cin, cout],
+    "scale", "shift": [cout]}.
     """
     if not supports_packed_input(spec):
         raise ValueError("the first trunk block overlaps; use apply on normalized input")
     b0 = spec.plan[0]
     p0 = params["trunk"][0]
     w0 = p0["conv"]["w"].reshape(-1, b0.cout)
+    w0f = w0.float()
     scale, shift = (torch.as_tensor(a, device=w0.device) for a in packed_affine(b0.kernel))
-    bf = -(shift @ w0)
+    bf = -(shift @ w0f)
     if p0["conv"].get("b") is not None:
-        bf = bf + p0["conv"]["b"]
-    if spec.norm == "batch":
+        bf = bf + p0["conv"]["b"].float()
+    wf = (scale[:, None] * w0f).to(w0.dtype).float()
+    if _stem_fuses_norm(spec, dtype):
         s, t = batch_norm_affine(p0["norm"])
         t = bf * s + t
     else:
         s, t = torch.ones_like(bf), bf
-    return {
-        "w": (scale[:, None] * w0).contiguous(),
-        "scale": s.contiguous(),
-        "shift": t.contiguous(),
-    }
+    return {"w": wf.contiguous(), "scale": s.contiguous(), "shift": t.contiguous()}
 
 
 def packed_trunk_features(
@@ -260,26 +280,29 @@ def packed_trunk_features(
     x8: torch.Tensor,
     spec: Spec,
     stem: Optional[Dict[str, torch.Tensor]] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Trunk forward from uint8 -> feature map [B, h, w, C].
+    """Trunk forward from uint8 -> feature map [B, h, w, C] of ``dtype``.
 
     ``x8`` is raw uint8 NHWC [B, H, W, 3] or space-to-depth packed
     [B, H/k, W/k, k*k*3] (unpacked here, on x8's device).  The first block
     runs in the stem kernel on ``stem``, the operands from
     :func:`fold_stem` (folded here when not given; a caller that runs many
     batches folds once, as the fold's host-to-device constants would
-    otherwise synchronize every batch).
+    otherwise synchronize every batch).  In bf16 the kernel's float32
+    output is rounded to bf16 and the norm and LeakyReLU run in bf16 on the
+    bf16 params, as the JAX package's activation chain does.
     """
     if stem is None:
-        stem = fold_stem(params, spec)
+        stem = fold_stem(params, spec, dtype)
     b0 = spec.plan[0]
     k = b0.kernel
     if x8.shape[-1] == k * k * b0.cin and k > 1:
         x8 = s2d_unpack(x8, k)
-    batch_norm = spec.norm == "batch"
-    y = cuda_kernels.stem(x8, stem["w"], stem["scale"], stem["shift"], k, leaky=batch_norm)
-    if not batch_norm:
-        y = leaky_relu(apply_norm(y, params["trunk"][0]["norm"], spec.norm), 0.2)
+    fused = _stem_fuses_norm(spec, dtype)
+    y = cuda_kernels.stem(x8, stem["w"], stem["scale"], stem["shift"], k, leaky=fused)
+    if not fused:
+        y = leaky_relu(apply_norm(y.to(dtype), params["trunk"][0]["norm"], spec.norm), 0.2)
     for pp, bk in zip(params["trunk"][1:], spec.plan[1:]):
         y = conv2d(y, pp["conv"], stride=bk.stride, padding=bk.pad)
         y = leaky_relu(apply_norm(y, pp["norm"], spec.norm), 0.2)
@@ -292,11 +315,13 @@ def apply_packed(
     spec: Spec,
     capture: Sequence[str] = (),
     stem: Optional[Dict[str, torch.Tensor]] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward from uint8 images (raw or packed) through the stem kernel;
-    the same math as ``apply`` after ``normalize_uint8``.  ``stem``: see
+    the same math as ``apply`` after ``normalize_uint8``.  ``stem`` and
+    ``dtype`` (the run's type; bf16 wants a bf16 param tree): see
     :func:`packed_trunk_features`."""
-    y = packed_trunk_features(params, x8, spec, stem)
+    y = packed_trunk_features(params, x8, spec, stem, dtype)
     aux: Dict[str, torch.Tensor] = {}
     if "features" in capture:
         aux["features"] = y

@@ -13,7 +13,8 @@ the trunk runs NCHW through ``F.conv2d``: the activation is permuted once at
 the trunk's entry and once at its exit.  The private ``_apply_block`` and
 ``_apply_children`` work on NCHW.  Compare with the float32 reference only
 with TF32 off (``config.enable_parity_precision``): cuDNN's float32
-convolutions default to TF32.
+convolutions default to TF32.  A bf16 tree runs in bf16 under the JAX
+package's rule (``ops.nn.conv2d_nchw``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.nn import init_batch_norm, init_conv
+from ..ops.nn import conv2d_nchw, init_batch_norm, init_conv
 from ..ops.norms import batch_norm_affine
 
 # (num_blocks, planes) per stage; expansion 4 (ResNet-50).
@@ -82,7 +83,7 @@ def init(g: torch.Generator) -> Dict[str, Any]:
 
 def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1, padding: int = 0):
     """NCHW activation x HWIO weight -> NCHW."""
-    return F.conv2d(x, p["w"].permute(3, 2, 0, 1), p.get("b"), stride=stride, padding=padding)
+    return conv2d_nchw(x, p["w"].permute(3, 2, 0, 1), p.get("b"), stride, padding)
 
 
 def _bn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

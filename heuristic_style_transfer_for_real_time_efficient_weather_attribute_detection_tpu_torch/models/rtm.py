@@ -11,6 +11,10 @@ Headline configuration: ``build_spec(tasks, {})`` on the 12-task registry,
 i.e. the whole trunk through ``layer4`` (C = 2048, 7x7 tokens at 224 px),
 attention with d = C, no hidden MLP layers.
 
+``apply`` runs a bf16 param tree in bf16 as the JAX package does: the
+trunk and the task embeddings in bf16, the MLPs' products summed in
+float32 and the logits float32.  The camera fold stays float32.
+
 The camera path runs :func:`apply_stream` on a :func:`fold_stream_weights`
 tree.  With ``quantize_fold=True`` the fold's [T, C, C] product and any
 ``mlp_q8`` layers go through the ``dequant_matvec`` kernel
@@ -121,8 +125,10 @@ def _classify(params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
                            + lp["b"])
     else:
         for lp in params["mlp"]:
-            h = torch.relu(torch.einsum("btc,tcd->btd", h, lp["w"]) + lp["b"])
-    return torch.einsum("btc,tck->btk", h, params["final"]["w"]) + params["final"]["b"]
+            h = torch.relu(torch.einsum("btc,tcd->btd", h.float(), lp["w"].float())
+                           + lp["b"].float())
+    final = params["final"]
+    return torch.einsum("btc,tck->btk", h.float(), final["w"].float()) + final["b"].float()
 
 
 def head_apply(
@@ -186,7 +192,7 @@ def fold_stream_weights(
 
     The fold is a floating-point reassociation of :func:`apply`; the tests
     bound its drift.  Float32 only: the JAX package's ``dtype`` (bf16) is
-    not ported yet (ROADMAP.md A7).
+    not ported yet (ROADMAP.md A25).
     """
     if not spec.use_attention:
         raise ValueError("fold_stream_weights requires use_attention=True")

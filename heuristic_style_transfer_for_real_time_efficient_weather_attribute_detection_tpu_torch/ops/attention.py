@@ -4,6 +4,13 @@ query attention.
 
 Per-task computations are stacked over a task axis T into one batched
 product, as in the JAX package.
+
+bf16 activations and weights follow the JAX package's types: every product
+sums in float32 (``ops.nn.matmul_f32``; einsums on upcast operands), a
+float32 operand meeting a bf16 one promotes it, and only the attention
+output, the FFN's ``linear`` layers, the pooled tokens and the task
+embeddings are rounded back to the activations' type.  For float32 inputs
+the upcasts are no-ops.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ from typing import Dict, List
 
 import torch
 
-from .nn import linear
+from .nn import linear, matmul_f32
 from .norms import layer_norm
 
 
@@ -32,14 +39,14 @@ def multi_head_attention(
     def split(y):  # [B, N, D] -> [B, h, N, hd]
         return y.reshape(b, n, h, hd).transpose(1, 2)
 
-    q = split(torch.matmul(x, p["wq"]) + p["bq"])
-    k = split(torch.matmul(x, p["wk"]) + p["bk"])
-    v = split(torch.matmul(x, p["wv"]) + p["bv"])
+    q = split(matmul_f32(x, p["wq"]) + p["bq"].float())
+    k = split(matmul_f32(x, p["wk"]) + p["bk"].float())
+    v = split(matmul_f32(x, p["wv"]) + p["bv"].float())
     q = q * (1.0 / math.sqrt(hd))
     w = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k), dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", w, v)
     o = o.transpose(1, 2).reshape(b, n, d)
-    return torch.matmul(o, p["wo"]) + p["bo"]
+    return (torch.matmul(o, p["wo"].float()) + p["bo"].float()).to(x.dtype)
 
 
 def transformer_encoder(
@@ -60,8 +67,9 @@ def task_query_pool(tokens: torch.Tensor, queries: torch.Tensor) -> torch.Tensor
     tokens: [B, N, D]; queries: [T, D].  scores_t = <tokens, q_t> softmaxed
     over N (no 1/sqrt(d) scaling); pooled_t = sum_n w_n token_n -> [B, T, D].
     """
-    w = torch.softmax(torch.einsum("bnd,td->btn", tokens, queries), dim=-1)
-    return torch.einsum("btn,bnd->btd", w, tokens)
+    t32 = tokens.float()
+    w = torch.softmax(torch.einsum("bnd,td->btn", t32, queries.float()), dim=-1)
+    return torch.einsum("btn,bnd->btd", w, t32).to(tokens.dtype)
 
 
 def rtm_task_attention(tokens: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -74,17 +82,18 @@ def rtm_task_attention(tokens: torch.Tensor, p: Dict[str, torch.Tensor]) -> torc
     C-space, then ``proj_w``, then ``out_w``.  Returns [B, T, C].
     """
     d = p["q"].shape[-1]
-    pq = torch.einsum("tcd,td->tc", p["proj_w"], p["q"])
-    w = torch.softmax(torch.einsum("bnc,tc->btn", tokens, pq) * (1.0 / math.sqrt(d)), dim=-1)
-    pooled = torch.einsum("btn,bnc->btc", w, tokens)
-    h = torch.einsum("btc,tcd->btd", pooled, p["proj_w"])
-    return torch.einsum("btd,tdc->btc", h, p["out_w"])
+    t32, proj_w = tokens.float(), p["proj_w"].float()
+    pq = torch.einsum("tcd,td->tc", proj_w, p["q"].float())
+    w = torch.softmax(torch.einsum("bnc,tc->btn", t32, pq) * (1.0 / math.sqrt(d)), dim=-1)
+    pooled = torch.einsum("btn,bnc->btc", w, t32)
+    h = torch.einsum("btc,tcd->btd", pooled, proj_w)
+    return torch.einsum("btd,tdc->btc", h, p["out_w"].float()).to(tokens.dtype)
 
 
 def stacked_task_heads(pooled: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Per-task linear classifiers as one batched product.
 
     pooled: [B, T, D]; p: {"w": [T, D, Kmax], "b": [T, Kmax]}, columns beyond
-    a task's class count zero-padded -> [B, T, Kmax].
+    a task's class count zero-padded -> float32 [B, T, Kmax].
     """
-    return torch.einsum("btd,tdk->btk", pooled, p["w"]) + p["b"]
+    return torch.einsum("btd,tdk->btk", pooled.float(), p["w"].float()) + p["b"].float()

@@ -3,7 +3,8 @@ their launch counts.
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 
-- ``patch_gram`` (``csrc/patch_gram.cu``) replaces ``patch_gram_tokens_pallas``;
+- ``patch_gram`` (``csrc/patch_gram.cu``) replaces ``patch_gram_tokens_pallas``,
+  in float32 and in bf16;
 - ``stem`` (``csrc/stem.cu``) replaces ``fused_stem``;
 - ``fused_trunk_gram`` (``csrc/trunk_gram.cu``) replaces ``fused_trunk_gram``,
   the camera path's trunk + Gram on a ``fold_trunk_gram_weights`` fold;
@@ -11,7 +12,10 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   path's head on a ``models.pmg.fold_head_weights`` tree;
 - ``dequant_matvec`` (``csrc/int8_matvec.cu``) replaces ``int8_pallas``
   (``tools/exp_rtm_int8_stream.py:77``), the RTM camera path's per-task
-  int8 fold product and ``mlp_q8`` layers.
+  int8 fold product and ``mlp_q8`` layers;
+- ``gram_proj`` (``csrc/gram_proj.cu``) replaces ``make_proj_kernel.proj``
+  (``tools/exp_pmg_projkernel.py:65``), the bf16 token projection of the
+  PMG batch path read from the row-major Gram.
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -27,6 +31,7 @@ fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,20 +46,24 @@ import torch
 from ..config import IMAGENET_MEAN, IMAGENET_STD
 from .attention import stacked_task_heads, task_query_pool, transformer_encoder
 from .gram import split_patches
-from .nn import leaky_relu, upcast_bf16
+from .nn import cast_tree, leaky_relu
 from .preprocess import s2d_pack
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
-_SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu")
+_SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
+            "gram_proj.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first launch
+_GRAM_PROJ_BLOCKS_PER_SM = 8  # csrc/gram_proj.cu splits K until about this many blocks
+_GRAM_PROJ_TILE = 64  # its output tile edge and K step
 
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
+    "gram_proj": 0,
 }
 
 _lib = None
@@ -130,8 +139,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                 print(log)
         lib = ctypes.CDLL(so_path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wadt_patch_gram_f32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.wadt_patch_gram_f32.restype = i32
+        for fn in (lib.wadt_patch_gram_f32, lib.wadt_patch_gram_bf16):
+            fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            fn.restype = i32
         lib.wadt_stem_u8_f32.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
         ]
@@ -145,6 +155,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_fused_head.restype = i32
         lib.wadt_dequant_matvec.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.wadt_dequant_matvec.restype = i32
+        lib.wadt_gram_proj_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.wadt_gram_proj_bf16.restype = i32
         _lib = lib
         return lib
 
@@ -184,33 +196,37 @@ def _require_cuda(x: torch.Tensor, kernel: str) -> None:
 
 
 def patch_gram_plain(x: torch.Tensor, div: int) -> torch.Tensor:
-    """Plain PyTorch per-patch Gram: NHWC [B,H,W,C] -> [B, div*div, C*C]."""
+    """Plain PyTorch per-patch Gram: NHWC [B,H,W,C] -> [B, div*div, C*C] of
+    x's dtype, summed in float32 (float64 for float64 x)."""
     patches, area = split_patches(x, div)
     b, np_, _, c = patches.shape
-    g = torch.einsum("bpnc,bpnd->bpcd", patches, patches) * (1.0 / float(area))
-    return g.reshape(b, np_, c * c)
+    p = patches.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+    g = torch.einsum("bpnc,bpnd->bpcd", p, p) * (1.0 / float(area))
+    return g.reshape(b, np_, c * c).to(x.dtype)
 
 
 def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     """Replicate-pad, split into div*div row-major patches, per-patch
-    ``P^T P / area`` in float32 -> [B, div*div, C*C].
+    ``P^T P / area`` summed in float32 -> [B, div*div, C*C] of x's dtype
+    (bf16: rounded once, to nearest even).
 
     CPU tensor: the plain version.  CUDA tensor: the ``patch_gram`` kernel,
-    float32 NHWC contiguous only.
+    float32 or bf16 NHWC contiguous only.
     """
     if x.device.type == "cpu":
         return patch_gram_plain(x, div)
     _require_cuda(x, "patch_gram")
     if x.ndim != 4 or div < 1:
         raise ValueError(f"patch_gram: expected NHWC and div >= 1, got {tuple(x.shape)}, {div}")
-    _check_cuda("patch_gram x", x, torch.float32, x.device)
+    dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    _check_cuda("patch_gram x", x, dtype, x.device)
     b, h, w, c = x.shape
-    out = torch.empty((b, div * div, c * c), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, div * div, c * c), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = build()
-    _launch("patch_gram", lib.wadt_patch_gram_f32, x.device,
-            x.data_ptr(), out.data_ptr(), b, h, w, c, div)
+    fn = lib.wadt_patch_gram_bf16 if dtype == torch.bfloat16 else lib.wadt_patch_gram_f32
+    _launch("patch_gram", fn, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, div)
     return out
 
 
@@ -455,7 +471,7 @@ def fused_head_plain(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torc
     x = torch.matmul(_bf16_round(tokens), w) + tp["b"]
     layers = folded.get("transformer", ())
     if layers:
-        x = transformer_encoder(x, upcast_bf16(layers), spec.transformer_heads)
+        x = transformer_encoder(x, cast_tree(layers, torch.float32), spec.transformer_heads)
     return stacked_task_heads(task_query_pool(x, folded["queries"]), folded["heads"])
 
 
@@ -563,3 +579,63 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
     _launch("dequant_matvec", lib.wadt_dequant_matvec, dev, x.data_ptr(), w8.data_ptr(),
             scale.data_ptr(), out.data_ptr(), b, t, c, d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: bf16 token projection from the row-major Gram (the bf16 batch path)
+# ---------------------------------------------------------------------------
+
+
+def gram_proj_plain(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch token projection: ``float(g) @ float(w) + b`` in float32
+    (the products of bf16 values are exact in float32)."""
+    return torch.matmul(g.float(), w.float()) + b.float()
+
+
+def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Gram tokens g bf16 [B, Np, C*C] (the row-major per-patch Gram,
+    flattened), ``token_proj`` w bf16 [C*C, N] in its own order, bias b
+    float32 [N] -> float32 [B, Np, N] = ``g @ w + b``, summed in float32.
+
+    Replaces ``make_proj_kernel.proj`` (``tools/exp_pmg_projkernel.py:65``),
+    which took w transposed to d-major; the Gram is symmetric, so the two
+    are the same product.  CPU tensor: the plain version.  CUDA tensor: the
+    ``gram_proj`` kernel, contiguous tensors with K and N multiples of 8
+    and g and w 16-byte aligned only (every spec's C*C and d_model are);
+    K is split into slices (float32 scratch, a second launch adds them)
+    until there are about eight blocks per SM.
+    """
+    if g.device.type == "cpu":
+        return gram_proj_plain(g, w, b)
+    _require_cuda(g, "gram_proj")
+    if g.ndim != 3 or w.ndim != 2:
+        raise ValueError(
+            f"gram_proj: expected g [B, Np, K] and w [K, N], got {tuple(g.shape)} and "
+            f"{tuple(w.shape)}"
+        )
+    bsz, npatch, k = g.shape
+    n = w.shape[-1]
+    dev = g.device
+    _check_cuda("gram_proj g", g, torch.bfloat16, dev)
+    _check_cuda("gram_proj w", w, torch.bfloat16, dev, (k, n))
+    _check_cuda("gram_proj b", b, torch.float32, dev, (n,))
+    if k % 8 or n % 8 or g.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(
+            f"gram_proj: K = {k} and N = {n} must be multiples of 8, and g and w 16-byte aligned"
+        )
+    out = torch.empty((bsz, npatch, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    m, t = bsz * npatch, _GRAM_PROJ_TILE
+    tiles = -(-m // t) * -(-n // t)
+    splits = max(1, min(-(-_GRAM_PROJ_BLOCKS_PER_SM * _sm_count(dev) // tiles), k // (8 * t)))
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
+    lib = build()
+    _launch("gram_proj", lib.wadt_gram_proj_bf16, dev, g.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(), m, n, k, splits)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,14 +1,25 @@
 """Basic functional NN ops: conv, linear, leaky ReLU, SE channel attention,
-and torch's default initializers.
+torch's default initializers, and the bf16 cast of a param tree.
 
 Layout at the boundary is the JAX package's: NHWC activations, HWIO conv
 kernels, ``[in, out]`` linear weights.
+
+bf16 follows the JAX package's rule (its ``preferred_element_type``): a
+product of bf16 operands sums in float32, the bias is added in float32,
+and the result is rounded once to bf16.  On the CPU the operands are
+upcast first (the product of two bf16 values is exact in float32); on the
+card cuBLAS and cuDNN take them as they are and sum in float32.  A bf16
+``linear`` is one cuBLAS call, which adds the bias in float32 before its
+one rounding, where cuBLAS may not reduce split-K sums in bf16
+(``config.enable_parity_precision``); otherwise it takes a float32 result
+and adds and rounds after.  cuDNN rounds a convolution before the bias
+add (a second rounding).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -20,10 +31,17 @@ def _uniform(g: torch.Generator, shape: Sequence[int], bound: float) -> torch.Te
     return (torch.rand(tuple(shape), generator=g, dtype=torch.float32) * 2.0 - 1.0) * bound
 
 
-def init_conv(g: torch.Generator, kh: int, kw: int, cin: int, cout: int) -> Dict[str, torch.Tensor]:
-    """Bias-free HWIO conv params with torch's default init: kaiming-uniform
-    with a = sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
-    return {"w": _uniform(g, (kh, kw, cin, cout), 1.0 / math.sqrt(cin * kh * kw))}
+def init_conv(
+    g: torch.Generator, kh: int, kw: int, cin: int, cout: int, bias: bool = False
+) -> Dict[str, torch.Tensor]:
+    """HWIO conv params with torch's default init: kaiming-uniform with
+    a = sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in)), and the bias
+    from the same range."""
+    bound = 1.0 / math.sqrt(cin * kh * kw)
+    p = {"w": _uniform(g, (kh, kw, cin, cout), bound)}
+    if bias:
+        p["b"] = _uniform(g, (cout,), bound)
+    return p
 
 
 def init_linear(g: torch.Generator, cin: int, cout: int, bias: bool = True) -> Dict[str, torch.Tensor]:
@@ -41,6 +59,36 @@ def init_batch_norm(c: int) -> Dict[str, torch.Tensor]:
             "var": torch.ones(c)}
 
 
+def init_norm(c: int, kind: str) -> Dict[str, torch.Tensor]:
+    """Identity affine; batch norm adds zero mean and unit variance."""
+    if kind == "batch":
+        return init_batch_norm(c)
+    return {"scale": torch.ones(c), "bias": torch.zeros(c)}
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` [..., K] x [K, N] summed in float32 with a float32 result,
+    whatever the operands' float types (JAX's ``preferred_element_type``).
+    bf16 operands on a CUDA card go to cuBLAS as they are, with a float32
+    output; elsewhere they are upcast, which is exact."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def conv2d_nchw(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: int, padding: int
+) -> torch.Tensor:
+    """``F.conv2d`` on NCHW x OIHW with the bf16 rule.  On the card cuDNN
+    sums in float32 and rounds to bf16 itself, and the bias (bf16, as in
+    the run copy) is added to that rounded sum and rounded again."""
+    if x.dtype != torch.bfloat16 or x.is_cuda:
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    y = F.conv2d(x.float(), w.float(), stride=stride, padding=padding)
+    return (y if b is None else y + b.float()[:, None, None]).to(x.dtype)
+
+
 def conv2d(
     x: torch.Tensor,
     p: Dict[str, torch.Tensor],
@@ -55,32 +103,42 @@ def conv2d(
     """
     kh, kw, cin, cout = p["w"].shape
     if kh == kw == stride and padding == 0:
-        y = torch.matmul(s2d_pack(x, kh), p["w"].reshape(kh * kw * cin, cout))
-        return y if p.get("b") is None else y + p["b"]
-    y = F.conv2d(
-        x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1), p.get("b"),
-        stride=stride, padding=padding,
-    )
+        return linear(s2d_pack(x, kh), {"w": p["w"].reshape(kh * kw * cin, cout), "b": p.get("b")})
+    y = conv2d_nchw(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1), p.get("b"),
+                    stride, padding)
     return y.permute(0, 2, 3, 1)
 
 
 def linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """x: [..., in] @ w[in, out] + b[out]."""
-    y = torch.matmul(x, p["w"])
-    if p.get("b") is not None:
-        y = y + p["b"]
-    return y
+    """x: [..., in] @ w[in, out] + b[out]; bf16 x: the bf16 rule."""
+    w, b = p["w"], p.get("b")
+    if x.dtype == torch.bfloat16:
+        if (x.is_cuda and w.dtype == x.dtype and (b is None or b.dtype == x.dtype)
+                and not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction):
+            # one cuBLAS call: float32 sums, the bias added in float32, one rounding
+            if b is None:
+                return torch.matmul(x, w)
+            y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        y = matmul_f32(x, w)
+        return (y if b is None else y + b.float()).to(x.dtype)
+    y = torch.matmul(x, w)
+    return y if b is None else y + b
 
 
-def upcast_bf16(tree: Any) -> Any:
-    """A param tree with its bfloat16 leaves as float32 (exact), the others
-    as they are: what JAX's dtype promotion does to a float32 activation
-    meeting a bf16 weight."""
+def cast_tree(tree: Any, dtype: Optional[torch.dtype]) -> Any:
+    """A param tree with every floating leaf cast to ``dtype`` (batch-norm
+    running statistics and queries included), the others (int8) as they
+    are; ``None`` returns the tree unchanged.  float32 on a tree with bf16
+    leaves is what JAX's dtype promotion does to a float32 activation
+    meeting a bf16 weight (exact)."""
+    if dtype is None:
+        return tree
     if isinstance(tree, Mapping):
-        return {k: upcast_bf16(v) for k, v in tree.items()}
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [upcast_bf16(v) for v in tree]
-    return tree.float() if tree.dtype == torch.bfloat16 else tree
+        return [cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -60,11 +60,13 @@ def load_image_uint8(
     return np.asarray(img, dtype=np.uint8)
 
 
-def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
-    """uint8 NHWC [0,255] -> ImageNet-normalized float32 NHWC, on x's device,
-    as one multiply-add: ``x * (1/(255*std)) - mean/std``."""
-    scale, shift = _device_affine(x.device, 1)
-    return x.to(torch.float32) * scale - shift
+def normalize_uint8(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 NHWC [0,255] -> ImageNet-normalized NHWC of ``dtype``, on x's
+    device, as one multiply-add ``x * (1/(255*std)) - mean/std`` whose
+    constants are rounded to ``dtype`` too (bf16 runs it in bf16, as the
+    JAX package does)."""
+    scale, shift = _device_affine(x.device, 1, dtype)
+    return x.to(dtype) * scale - shift
 
 
 def packed_affine(k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -74,11 +76,13 @@ def packed_affine(k: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_affine(device: torch.device, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``packed_affine(k)`` on ``device``, uploaded once: a pageable upload
-    per call would synchronize the stream on every frame."""
+def _device_affine(
+    device: torch.device, k: int, dtype: torch.dtype = torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``packed_affine(k)`` as ``dtype`` on ``device``, uploaded once: a
+    pageable upload per call would synchronize the stream on every frame."""
     with torch.inference_mode(False):
-        return tuple(torch.as_tensor(a, device=device) for a in packed_affine(k))
+        return tuple(torch.as_tensor(a).to(device, dtype) for a in packed_affine(k))
 
 
 def normalize_uint8_packed(z8: torch.Tensor, k: int) -> torch.Tensor:

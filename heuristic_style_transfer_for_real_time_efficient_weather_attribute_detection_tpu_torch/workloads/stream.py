@@ -10,7 +10,8 @@ For the shipped PMG the forward is two kernels: the fused trunk + Gram
 (``ops.cuda_kernels.fused_trunk_gram``) and the fused head
 (``ops.cuda_kernels.fused_head``) on a compressed ``fold_head_weights``
 tree.  For RTM the default forward runs on the int8 ``fold_stream_weights``
-tree, whose fold product is the ``dequant_matvec`` kernel.  Parity
+tree, whose fold product is the ``dequant_matvec`` kernel.  PM runs its
+generic forward on the normalized frame.  The stream runs in float32.  Parity
 features: threshold -> Unknown labels, translucent text box overlay, XVID
 recording at 20 FPS, per-frame latency -> times_camera.json; keys r
 (record), f (fullscreen), q (quit); headless runs with no display.
@@ -35,7 +36,11 @@ from ..ops import cuda_kernels, kalman
 from ..ops.preprocess import normalize_uint8, normalize_uint8_packed, s2d_pack
 
 _TRUNK_KERNELS = ("auto", "fused", "packed", "generic", "folded", "folded_q8")
-_ROUTES = {"pmg": ("fused", "packed", "generic"), "rtm": ("generic", "folded", "folded_q8")}
+_ROUTES = {
+    "pmg": ("fused", "packed", "generic"),
+    "rtm": ("generic", "folded", "folded_q8"),
+    "pm": ("generic",),
+}
 # PMG head treatments on the fused route: the exact float32 head, the
 # compressed folds through the plain head, or the fused head kernel on them.
 _HEAD_FOLDS = ("f32", "bf16", "q8", "fused_bf16", "fused_q8")
@@ -64,7 +69,7 @@ class PendingProbs:
 
 
 class StreamPredictor:
-    """Per-frame predictor with optional Kalman smoothing (PMG and RTM).
+    """Per-frame predictor with optional Kalman smoothing (PMG, RTM and PM).
 
     PMG routes (``trunk_kernel``):
 
@@ -94,6 +99,9 @@ class StreamPredictor:
       ``"generic"``: a fixed rule that mirrors the JAX package's recorded
       winner on the TPU, not a measurement of the port's.
 
+    PM has one route, ``"generic"`` (``pm.apply`` on the normalized
+    frame), which ``"auto"`` picks, as the JAX package's generic uint8 step.
+
     ``params`` may be a ready ``fold_stream_weights`` tree for the folded
     routes (of the same kind as the route), so a fold built once, on the card,
     can be reused.  ``head_fold`` applies to PMG's fused route only.
@@ -107,11 +115,12 @@ class StreamPredictor:
                  head_fold: str = "auto", device="cuda"):
         from ..models import pmg, rtm
 
-        mod = get_family(family)  # raises for the families not ported yet
+        mod = get_family(family)  # raises for an unknown family
         family = family.lower()
         if dtype != torch.float32:
             raise NotImplementedError(
-                "only float32 runs on the port so far (bf16 dtype: ROADMAP.md A7)"
+                "the port's stream runs in float32 only so far (bf16 StreamPredictor: "
+                "ROADMAP.md A25)"
             )
         if trunk_kernel not in _TRUNK_KERNELS:
             raise ValueError(f"unknown trunk_kernel {trunk_kernel!r}; expected one of {_TRUNK_KERNELS}")
@@ -138,6 +147,9 @@ class StreamPredictor:
                 route = trunk_kernel
             if route in ("folded", "folded_q8") and not spec.use_attention:
                 raise ValueError(f"trunk_kernel={route!r} needs an RTM spec with use_attention")
+        elif family == "pm":
+            fusable = packable = False
+            route = "generic" if trunk_kernel == "auto" else trunk_kernel
         else:
             fusable = cuda_kernels.supports_fused_trunk_gram(spec) and spec.norm == "batch"
             packable = pmg.supports_packed_input(spec)

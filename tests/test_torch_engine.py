@@ -139,9 +139,16 @@ def test_default_device_raises_without_a_card(shipped, monkeypatch):
     (dict(mesh=object()), NotImplementedError),
 ])
 def test_unported_options_raise(shipped, kwargs, err):
+    """``mesh`` raises in the Engine.  bf16 runs in the Engine now
+    (tests/test_torch_bf16.py) and still raises in the stream."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.stream import (
+        StreamPredictor,
+    )
+
     spec, params = shipped
+    make = StreamPredictor if "dtype" in kwargs else Engine
     with pytest.raises(err, match="ROADMAP"):
-        Engine("pmg", spec, params, device="cpu", **kwargs)
+        make("pmg", spec, params, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("bad", [

@@ -76,6 +76,30 @@ def test_rtm_modules_are_scanned_and_clean(rel):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("rel", ["models/pm.py", "models/__init__.py", "ops/nn.py",
+                                 "ops/attention.py", "engine/executor.py"])
+def test_bf16_and_pm_modules_are_scanned_and_clean(rel):
+    """The bf16 and PM slice's modules are among those the scan reads, and
+    each imports without JAX."""
+    test_rtm_modules_are_scanned_and_clean(rel)
+
+
+def test_gram_proj_source_is_built_and_noted():
+    """K5's CUDA source is one the build compiles, and it names the TPU
+    kernel it replaces and what bounds it."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels,
+    )
+
+    assert "gram_proj.cu" in cuda_kernels._SOURCES
+    assert "gram_proj" in cuda_kernels.LAUNCHES
+    with open(os.path.join(REPO, PORT, "csrc", "gram_proj.cu")) as f:
+        src = f.read()
+    assert "tools/exp_pmg_projkernel.py:65" in src and "make_proj_kernel.proj" in src
+    assert "What bounds it" in src and "sm_90a" in src
+    assert 'extern "C" int wadt_gram_proj_bf16' in src
+
+
 def _smoke(cuda_available, cwd):
     return _run("import runpy, sys, torch; "
                 f"torch.cuda.is_available = lambda: {cuda_available}; "

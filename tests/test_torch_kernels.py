@@ -156,8 +156,21 @@ def _dequant_call():
     return ck.dequant_matvec, (x, w8, scale), ck.dequant_matvec_plain
 
 
-CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call]
-CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec"]
+def _gram_proj_call():
+    rng = np.random.RandomState(5)
+    g = torch.from_numpy(rng.randn(2, 9, 256).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.randn(256, 40).astype(np.float32) * 0.06).to(torch.bfloat16)
+    b = torch.from_numpy(rng.randn(40).astype(np.float32))
+    return ck.gram_proj, (g, w, b), ck.gram_proj_plain
+
+
+def _gram_bf16_call():
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 7, 5, 16).astype(np.float32))
+    return ck.patch_gram, (x.to(torch.bfloat16), 2), ck.patch_gram_plain
+
+
+CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call]
+CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
@@ -203,8 +216,29 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def test_gram_proj_plain_is_the_bf16_linear():
+    """K5's plain version is ``linear`` on the bf16 Gram before its one
+    rounding: bf16 products summed in float32, the bias added in float32."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import linear
+
+    _, (g, w, b), _ = _gram_proj_call()
+    y = ck.gram_proj_plain(g, w, b)
+    assert y.dtype == torch.float32 and y.shape == (2, 9, 40)
+    torch.testing.assert_close(y.to(torch.bfloat16), linear(g, {"w": w, "b": b}), atol=0, rtol=0)
+
+
+def test_patch_gram_keeps_bf16_and_rounds_once():
+    """bf16 in, bf16 out: the float32 Gram of the same values, rounded once."""
+    _, (x, div), _ = _gram_bf16_call()
+    got = ck.patch_gram(x, div)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ck.patch_gram_plain(x.float(), div).to(torch.bfloat16),
+                               atol=0, rtol=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [_gram_call, _stem_call], ids=["patch_gram", "stem"])
+@pytest.mark.parametrize("case", [_gram_call, _stem_call, _gram_proj_call, _gram_bf16_call],
+                         ids=["patch_gram", "stem", "gram_proj", "patch_gram_bf16"])
 def test_kernel_matches_plain_on_card(case, cuda_device):
     wrapper, args, plain = case()
     args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
@@ -212,5 +246,24 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     got = wrapper(*args)
     torch.cuda.synchronize()
     assert sum(ck.LAUNCHES.values()) == 1
-    tol = 1e-5 if wrapper is ck.patch_gram else 2e-4
-    torch.testing.assert_close(got, plain(*args), atol=tol, rtol=tol)
+    want = plain(*args)
+    if case is _gram_proj_call:  # float32 sums in another order: 1e-4 x max|y|
+        torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+    elif case is _gram_bf16_call:  # one rounding of the same float32 sums
+        torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -8)
+    else:
+        tol = 1e-5 if wrapper is ck.patch_gram else 2e-4
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(260, 40), (256, 36)])
+def test_gram_proj_refuses_k_or_n_off_eight_on_card(k, n, cuda_device):
+    """K5 copies 16-byte runs of bf16: K and N not multiples of 8 raise."""
+    g = torch.zeros((2, 9, k), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros((k, n), dtype=torch.bfloat16, device=cuda_device)
+    b = torch.zeros((n,), dtype=torch.float32, device=cuda_device)
+    ck.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ck.gram_proj(g, w, b)
+    assert ck.LAUNCHES["gram_proj"] == 0

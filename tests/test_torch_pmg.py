@@ -197,13 +197,17 @@ def test_spec_defaults_match_jax():
 
 
 def test_wrong_family_checkpoint_names_the_family():
+    """A PM checkpoint loaded as PMG names PM; PM is a ported family now."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pm as tpm
+
     with open(os.path.join(FIXTURES, "pm_small.json")) as f:
         meta = json.load(f)
     spec = tpmg.build_spec(meta["tasks"], {})
     with pytest.raises(ValueError, match="schema matches PM"):
         tckpt.load_torch_checkpoint("pmg", os.path.join(FIXTURES, "pm_small.pth"), spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_family("pm")
+    assert get_family("pm") is tpm
+    with pytest.raises(ValueError, match="unknown model family"):
+        get_family("vit")
 
 
 def test_preprocess_matches_jax():
