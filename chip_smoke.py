@@ -25,8 +25,9 @@ Phases, each of which raises on failure:
    over a few device-resident steps;
 6. the camera path's kernels against their plain versions on the card: the
    fused trunk + Gram at the shipped shapes (batch 1 and 8) and on a ragged
-   spec, the fused head for the bf16 and q8 folds (batch 1 and 8) and for a
-   spec without transformer;
+   spec, the fused head for the bf16 and q8 folds (batch 1 and 8), for a
+   spec without transformer and for narrow layers (d 64, FFN 128, 2 heads;
+   batch 1 and 8, clusters of 8 and 16), each called twice: bit-identical;
 7. the golden-fixture walk of the fused head variants on the card: argmax
    agrees on decisive samples, drift <= HEAD_FOLD_MAX_DRIFT;
 8. camera path: ``StreamPredictor`` with its default routes on the shipped
@@ -35,7 +36,10 @@ Phases, each of which raises on failure:
    recursion and match the port's CPU path on 8 frames; the packed route
    runs at batch 1 through the stem and Gram kernels;
 9. camera times: both camera kernels at batch 1 beside their bounds and
-   plain versions, and per-frame latency of three routes: device time per
+   plain versions, the fused head's two launches apart (and, where the
+   gitignored ``_archive/`` holds the previous kernel sources, the previous
+   fused head in turns with the new one), and per-frame latency of three
+   routes: device time per
    step back to back, one step's device span on an idle card and the host
    time to enqueue it, and host wall time per frame from ``submit`` to the
    probabilities on the host; at the end of the run, after every host
@@ -70,9 +74,12 @@ Phases, each of which raises on failure:
     cuBLAS call) within one bf16 ulp of the float32 product plus bias
     rounded; the bf16 token projection kernel (K5, ``gram_proj``) against
     its plain version at batch 256 of the shipped spec (the Gram from K1
-    in bf16) and on two ragged shapes, within 1e-4 x max|y|; its time with
-    the Gram read from device memory (four rotating copies), its plain
-    version's, ``torch.matmul`` of the same bf16 operands and its bound;
+    in bf16; two calls bit-identical; bf16 output within one bf16 ulp) and
+    on six shapes that take every tile width, ragged M and K tails, within
+    1e-4 x max|y|; its time with the Gram read from device memory (four
+    rotating copies), its plain version's, ``torch.matmul`` of the same
+    bf16 operands, its bound, the host time of one call, and the previous
+    K5 in turns where ``_archive/`` holds it;
 15. PMG bf16 batch: ``Engine(dtype=torch.bfloat16)`` on the shipped
     checkpoint at batch 256 over phase 4's 600 frames, launch counts reset
     just before; K5 and K1 must have launched.  Argmax agreement and
@@ -242,6 +249,75 @@ def tree_nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+ARCHIVE = "_archive"  # gitignored: earlier kernel versions kept for an A/B in one call
+
+
+def archived_kernels():
+    """The previous versions of K5 and K4 (``_archive/gram_proj_v2.cu`` and
+    ``_archive/head_v2.cu``, a copy of the parent commit's sources that is
+    not committed), built into one library of their own, or None where the
+    checkout has no such copy."""
+    import ctypes
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    srcs = [os.path.join(ARCHIVE, f) for f in ("gram_proj_v2.cu", "head_v2.cu")]
+    if not all(os.path.isfile(f) for f in srcs):
+        return None
+    out = os.path.join(ARCHIVE, "build")
+    os.makedirs(out, exist_ok=True)
+    objs = [os.path.join(out, os.path.basename(f) + ".o") for f in srcs]
+    nvcc = ck._nvcc()
+    ck._run_all([[nvcc, *ck._NVCC_FLAGS, "-c", f, "-o", o] for f, o in zip(srcs, objs)], "nvcc (archive)")
+    so = os.path.join(out, "libv2.so")
+    ck._run_all([[nvcc, "-shared", *objs, "-o", so]], "nvcc link (archive)")
+    lib = ctypes.CDLL(os.path.abspath(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wadt_gram_proj_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.wadt_fused_head.argtypes = [ptr, ptr, i32, ptr, ptr, ctypes.POINTER(ptr), i32, ptr, ptr, ptr,
+                                    ptr, i32, ptr] + [i32] * 8 + [ptr]
+    return lib
+
+
+def archived_head_call(lib, tokens, fold, spec):
+    """A function that runs the archived K4 (two launches) on ``tokens``."""
+    import ctypes
+
+    import torch
+
+    tp, layers = fold["token_proj"], fold.get("transformer", ())
+    q8 = "w8" in tp
+    w = tp["w8"] if q8 else tp["w"]
+    order = (("norm1", "scale"), ("norm1", "bias"), ("attn", "wq"), ("attn", "bq"), ("attn", "wk"),
+             ("attn", "bk"), ("attn", "wv"), ("attn", "bv"), ("attn", "wo"), ("attn", "bo"),
+             ("norm2", "scale"), ("norm2", "bias"), ("ffn1", "w"), ("ffn1", "b"), ("ffn2", "w"),
+             ("ffn2", "b"))
+    ptrs = [lp[g][k].data_ptr() for lp in layers for g, k in order]
+    table = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    b, npatch, din = tokens.shape
+    d = w.shape[1]
+    ff = layers[0]["ffn1"]["w"].shape[1] if layers else 0
+    ntask, kmax = fold["heads"]["b"].shape
+    chunks = -(-din // 256)
+    partial = torch.empty((chunks, b * npatch, d), dtype=torch.float32, device=tokens.device)
+    out = torch.empty((b, ntask, kmax), dtype=torch.float32, device=tokens.device)
+
+    def run():
+        err = lib.wadt_fused_head(
+            tokens.data_ptr(), w.data_ptr(), int(q8), tp["scale"].data_ptr() if q8 else None,
+            tp["b"].data_ptr(), table, len(layers), fold["queries"].data_ptr(),
+            fold["heads"]["w"].data_ptr(), fold["heads"]["b"].data_ptr(), partial.data_ptr(), chunks,
+            out.data_ptr(), b, npatch, din, d, ff, spec.transformer_heads, ntask, kmax,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"archived fused_head failed: {err}")
+        return out
+
+    return run
+
+
 def route_latency(label: str, p, x1, frames, card: str) -> None:
     """Print one camera route's latency: device time of one step with all its
     launches queued behind a sleep, one step's device span on an idle card
@@ -321,7 +397,7 @@ def kernels_per_step(routes, profile: bool) -> None:
             print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
 
 
-def camera_phases(profile: bool, card: str, spec, params, routes: list) -> list:
+def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None) -> list:
     """Phases 6-9 (the camera path) on the shipped ``spec`` and ``params``
     (on the card); returns the camera kernels' entries of the kernels line
     and appends each timed route to ``routes``."""
@@ -374,19 +450,32 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list) -> list:
         transformer_layers=0, use_token_attention=False))
     nt_fold = pmg.fold_head_weights(
         checkpoint.to_device(random_pmg_params(nt_spec, rng), dev), nt_spec, "q8")
+    # narrow layers (d 64, FFN 128, 2 heads): 8 columns a block of 8, and on
+    # a cluster of 16 half the blocks own no d-wide columns
+    nw_spec = pmg.build_spec(spec.tasks.as_dict(), dict(
+        ndf=16, patch_size=64, patch_div=3, gram_channels=32, d_model=64, transformer_layers=2,
+        transformer_heads=2, use_token_attention=True))
+    nw_fold = pmg.fold_head_weights(
+        checkpoint.to_device(random_pmg_params(nw_spec, rng), dev), nw_spec, "bf16")
+    nw8 = torch.from_numpy(rng.randn(8, 9, 32 * 32).astype(np.float32)).to(dev)
     k4_err = 0.0
-    cases = [(f"{v} batch {tb.shape[0]}", tb, f, spec)
+    cases = [(f"{v} batch {tb.shape[0]}", tb, f, spec, None)
              for v, f in folds.items() for tb in (tokens1, tokens8)]
-    cases.append(("q8 no transformer batch 8", tokens8, nt_fold, nt_spec))
-    for what, tb, f, sp in cases:
-        got = ck.fused_head(tb, f, sp)
+    cases.append(("q8 no transformer batch 8", tokens8, nt_fold, nt_spec, None))
+    cases += [(f"narrow d 64 batch {tb.shape[0]} cluster {cl or 8}", tb, nw_fold, nw_spec, cl)
+              for tb in (nw8[:1].contiguous(), nw8) for cl in (None, 16)]
+    for what, tb, f, sp, cl in cases:
+        got = ck._fused_head_launch(tb, f, sp, cluster=cl)
         torch.cuda.synchronize()
         want = ck.fused_head_plain(tb, f, sp)
         k4_err = max(k4_err, max_err(got, want, K4_TOL, K4_TOL, f"fused_head {what}"))
         if not torch.equal(got.argmax(-1), want.argmax(-1)):
             raise AssertionError(f"fused_head {what}: argmax differs from the plain version")
+        if not torch.equal(ck._fused_head_launch(tb, f, sp, cluster=cl), got):
+            raise AssertionError(f"fused_head {what}: two calls on the same inputs differ")
     print(f"[6] fused_head vs plain: max abs err {k4_err:.3e} (bf16 and q8 folds at batch 1 "
-          f"and 8, no-transformer spec), atol/rtol {K4_TOL}, argmax equal")
+          f"and 8, no-transformer spec, narrow d 64 spec on clusters of 8 and 16), atol/rtol "
+          f"{K4_TOL}, argmax equal, two calls bit-identical")
 
     # -- 7. golden-fixture walk of the fused head, on the card ---------------
     rows = goldens.pmg_head_fold_fixture_parity(FIXTURES, ["fused_bf16", "fused_q8"], device=dev)
@@ -488,6 +577,21 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list) -> list:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.1f} us"
         print(f"[9] {k['name']} at batch 1: {k['ms'] * 1e3:.1f} us (bound {k['bound_ms'] * 1e3:.2f}"
               f" us by {k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, library {lib} | {card}")
+    # launch 1 (token_proj partial sums) and launch 2 (the cluster) apart
+    part = torch.empty((-(-din // 256), npatch, d), dtype=torch.float32, device=dev)
+    out1 = torch.empty((1, ntask, kmax), dtype=torch.float32, device=dev)
+    ck._fused_head_launch(tokens1, fb, spec, out=out1, partial=part)
+    l1_ms = device_ms(lambda: ck._fused_head_launch(tokens1, fb, spec, stages=1, out=out1, partial=part))
+    l2_ms = device_ms(lambda: ck._fused_head_launch(tokens1, fb, spec, stages=2, out=out1, partial=part))
+    plan = ck.head_share_plan(npatch, d, ff, spec.transformer_heads, spec.transformer_layers, ntask, kmax)
+    print(f"[9] fused_head at batch 1, launches apart: launch 1 {l1_ms * 1e3:.1f} us, launch 2 "
+          f"{l2_ms * 1e3:.1f} us (clusters of {plan.cluster}, {plan.smem} bytes of shared memory a "
+          f"block) | {card}")
+    if old is not None:  # the archived K4 (launch 2 on one block per image) in turns
+        old_ms, new_ms = in_turns(archived_head_call(old, tokens1, fb, spec),
+                                  lambda: ck.fused_head(tokens1, fb, spec))
+        print(f"[9] fused_head at batch 1 in turns: archived v2 {old_ms * 1e3:.1f} us, new "
+              f"{new_ms * 1e3:.1f} us | {card}")
     if profile:  # the head kernel's time with the fold cut to its first n layers
         for n in range(len(fb["transformer"]) + 1):
             sub = dict(fb, transformer=fb["transformer"][:n])
@@ -797,7 +901,8 @@ def run_wall(eng, frames):
     return statistics.median(walls), walls
 
 
-def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile: bool) -> dict:
+def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile: bool,
+                    old=None) -> dict:
     """Phases 14-15: K5 against its plain version and timed, then the PMG
     bf16 batch path on the shipped checkpoint; returns K5's entry of the
     kernels line."""
@@ -809,7 +914,7 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
-        cuda_kernels as ck, nn,
+        cuda_kernels as ck, gram, nn,
     )
 
     dev = torch.device("cuda", 0)
@@ -837,10 +942,16 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     k1_ms = device_ms(lambda: ck.patch_gram(z16, spec.patch_div))
     k1_bound, k1_by = bound_ms(2 * (z16.numel() + g16.numel()), 0.0,
                                bf16_flops=2.0 * BATCH * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2)
+    # partial yardstick: torch.bmm in bf16 on the already split patches (no
+    # pad/split, no 1/area)
+    p16, _ = gram.split_patches(z16, spec.patch_div)
+    p16 = p16.reshape(-1, p16.shape[-2], spec.gram_channels).contiguous()
+    p16t = p16.transpose(1, 2)
+    k1_lib = device_ms(lambda: torch.bmm(p16t, p16))
     print(f"[14] patch_gram in bf16 (bf16 in and out, float32 sums) vs plain: max abs err {k1_err:.3e} "
           f"at [{BATCH},14,14,{spec.gram_channels}] div {spec.patch_div}, {k1_rag:.3e} at [2,7,5,12] and "
           f"[2,7,5,18] div 2 (atol 0, rtol 2^-8); {k1_ms * 1e3:.1f} us (bound {k1_bound * 1e3:.1f} us "
-          f"by {k1_by}) | {card}")
+          f"by {k1_by}), torch.bmm bf16 on the split patches {k1_lib * 1e3:.1f} us | {card}")
     # K2 as the bf16 path runs it: identity affine plus the folded bias, no
     # LeakyReLU, on the bf16-rounded folded weight
     x8 = torch.from_numpy(frames[:BATCH]).to(dev)
@@ -884,8 +995,19 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     ymax = float(want.abs().max())
     k5_err = max_err(y, want, K5_TOL * ymax, 0.0, f"gram_proj {list(g16.shape)} x {list(w16.shape)}")
     k5_rel = k5_err / ymax
-    # ragged: M, N, K no multiples of the 64-wide tiles (masked edges and K tail)
-    for (bsz, npatch, k, n) in ((2, 9, 296, 40), (3, 7, 264, 72)):
+    if not torch.equal(ck.gram_proj(g16, w16, b32), y):
+        raise AssertionError("gram_proj: two calls on the same inputs differ")
+    # bf16 out, as the bf16 path calls it: the float32 sum plus bias rounded
+    # once, within one bf16 ulp (2^-7 of the value) of the plain version's
+    # rounding of its own float32 sum (K5_TOL x max|y| near zero)
+    y16 = ck.gram_proj(g16, w16, b32, torch.bfloat16)
+    torch.cuda.synchronize()
+    k5_bf16 = max_err(y16.float(), ck.gram_proj_plain(g16, w16, b32, torch.bfloat16).float(),
+                      K5_TOL * ymax, 2 ** -7, "gram_proj bf16 out")
+    # every tile width (64: N 32, 40, 64; 128: N 72; 256: N 256 and two
+    # 256-wide tiles for N 320), ragged M, and K tails (296, 264)
+    for (bsz, npatch, k, n) in ((2, 9, 256, 32), (3, 16, 1024, 64), (2, 9, 296, 40),
+                                (3, 7, 264, 72), (2, 9, 264, 256), (2, 9, 384, 320)):
         gr = torch.from_numpy(rng.randn(bsz, npatch, k).astype(np.float32)).to(dev).to(bf16)
         wr = torch.from_numpy(rng.randn(k, n).astype(np.float32) * k ** -0.5).to(dev).to(bf16)
         br = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
@@ -896,8 +1018,10 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
         err = max_err(got, wr_want, K5_TOL * rmax, 0.0, f"gram_proj ragged [{bsz},{npatch},{k}] x [{k},{n}]")
         k5_err, k5_rel = max(k5_err, err), max(k5_rel, err / rmax)
     print(f"[14] gram_proj vs plain: max abs err {k5_err:.3e}, {k5_rel:.3e} x max|y| (bound {K5_TOL} x "
-          f"max|y|), at [M,K,N] = [{g16.shape[0] * g16.shape[1]},{g16.shape[2]},{w16.shape[1]}], "
-          f"[18,296,40], [21,264,72]")
+          f"max|y|), at [M,K,N] = [{g16.shape[0] * g16.shape[1]},{g16.shape[2]},{w16.shape[1]}] "
+          f"({ck.gram_proj_plan(g16.shape[0] * g16.shape[1], w16.shape[1], g16.shape[2], ck._sm_count(dev))}), "
+          f"[18,256,32], [48,1024,64], [18,296,40], [21,264,72], [18,264,256], [18,384,320]; two calls "
+          f"bit-identical; bf16 out {k5_bf16:.3e} (one bf16 ulp)")
     # timed with G read from device memory: 4 rotating copies, 170 MB, over
     # three times the 50 MB L2; W (3.5 MB) stays in L2 as it does between batches
     copies = [g16.clone() for _ in range(4)]
@@ -906,14 +1030,34 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     plain_ms = device_ms(lambda: ck.gram_proj_plain(next(rings[1]), w16, b32))
     # yardstick: torch.matmul of the same bf16 operands (bf16 result, no bias)
     lib_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
-    del copies
     m, k = g16.shape[0] * g16.shape[1], g16.shape[2]
+    if old is not None:  # the archived K5 (wmma, split K through device memory) in turns
+        n = w16.shape[1]
+        splits = 10
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+        out_old = torch.empty((m, n), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        ring_old = itertools.cycle(copies)
+        old_ms, new_ms = in_turns(
+            lambda: old.wadt_gram_proj_bf16(next(ring_old).data_ptr(), w16.data_ptr(), b32.data_ptr(),
+                                            out_old.data_ptr(), part.data_ptr(), m, n, k, splits, stream),
+            lambda: ck.gram_proj(next(rings[0]), w16, b32))
+        mm_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
+        print(f"[14] gram_proj in turns, G from device memory: archived v2 {old_ms * 1e3:.1f} us, new "
+              f"{new_ms * 1e3:.1f} us; torch.matmul bf16 {mm_ms * 1e3:.1f} us | {card}")
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ck.gram_proj(g16, w16, b32)
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    del copies
     n = w16.shape[1]
     nbytes = 2 * g16.numel() + 2 * w16.numel() + 4 * n + 4 * m * n
     b_ms, b_by = bound_ms(nbytes, 0.0, bf16_flops=2.0 * m * k * n)
     print(f"[14] gram_proj at batch {BATCH} [{m},{k}] x [{k},{n}] bf16, G from device memory: "
           f"{k5_ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
-          f"torch.matmul bf16 {lib_ms * 1e3:.1f} us | {card}")
+          f"torch.matmul bf16 {lib_ms * 1e3:.1f} us; host time of one wrapper call (tensor maps "
+          f"encoded, launch enqueued) {host_us:.1f} us | {card}")
 
     # -- 15. PMG bf16 batch ----------------------------------------------------
     ck.reset_launches()
@@ -1116,6 +1260,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ck.build(verbose=True)
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
+    old = archived_kernels()
+    print(f"[1] archived K5/K4 versions for an A/B: {'built' if old else 'none in this checkout'}")
 
     # -- 2. kernels against their plain versions, on the card -------------
     rng = np.random.RandomState(0)
@@ -1273,10 +1419,10 @@ def main() -> int:
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
 
     routes: list = []
-    kernels += camera_phases(args.profile, card, eng.spec, eng.params, routes)
+    kernels += camera_phases(args.profile, card, eng.spec, eng.params, routes, old)
     k6, rtm_f32 = rtm_phases(args.profile, card, routes)
     kernels.append(k6)
-    kernels.insert(4, pmg_bf16_phases(card, eng, frames, out, big, wall5, args.profile))
+    kernels.insert(4, pmg_bf16_phases(card, eng, frames, out, big, wall5, args.profile, old))
     del eng
     pm_phase(card, args.profile)
     rtm_bf16_phase(card, rtm_f32, args.profile)

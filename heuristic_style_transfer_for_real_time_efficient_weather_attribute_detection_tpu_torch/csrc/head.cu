@@ -20,8 +20,8 @@
 // shipped head: Din 9216, d 192, 2 layers, FFN 384, 12 tasks, Kmax 8) the
 // bf16 token_proj is 3.54 MB (int8: 1.77 MB), the transformer 1.18 MB, and
 // the rest KBs: about 1.4 us at 3.35 TB/s, against 2 * 6.8 M FMAs, 0.2 us at
-// 67 TFLOP/s.  One block per image, the TPU's grid, would stream all of it
-// through one SM.
+// 67 TFLOP/s.  At batch 1 the layers are a chain of small dependent steps,
+// so latency, not either bound, sets the time.
 //
 // What the design does about it: two launches.
 //  - Launch 1 splits token_proj over its Din rows, 256 rows x 64 columns a
@@ -31,30 +31,41 @@
 //    pairs, or int8 pairs dequantized in registers) before using any, so
 //    their latency is paid once.  The eight warps' sums are added in a
 //    fixed order, and each block writes a float32 partial sum [B*Np, 64] to
-//    scratch that the wrapper allocates: no atomics, the result does not
-//    depend on the run.
-//  - Launch 2 is one block per image.  It adds the partial sums in chunk
-//    order, then runs the layers, the pooling and the heads with every
-//    activation in shared memory.  Its 2.6 M multiply-adds a layer would
-//    take one SM's CUDA cores at least ~12 us, so the six GEMMs of a layer
-//    run on the tensor cores (`mma.sync` m16n8k16 bf16, float32 sums): the
-//    weights are bf16 already, and each float32 activation is split into
-//    two bf16 terms, hi + lo, which keeps the product to about 2^-16 of
-//    float32.  Each weight is copied whole (or in row chunks, for wider
-//    models) into shared memory with `cp.async` before its GEMM, all of a
-//    thread's copies in flight at once; biases are loaded before the k
-//    loop.  The queries and head weights are copied to shared memory before
-//    pooling, and each pooling score and head logit takes a warp.
-// Not done yet: launch 2 runs on one SM, and a layer there is some 25
-// phases between barriers (nine token rows padded to the MMA's sixteen;
-// attention scores, softmax and layer norms on CUDA cores), which at batch 1
-// sets K4's time far above the weight read.  Spreading a layer over a
-// cluster of SMs is the next step.
+//    scratch that the wrapper allocates.
+//  - Launch 2 is one thread block cluster per image, 8 blocks, or 16 where
+//    a block's share of the weights needs it (the shipped head).  Block r
+//    owns a share of the columns of every layer matrix (multiples of 8;
+//    uneven shares and idle blocks allowed): the wrapper packs each block's
+//    shares of all layers contiguously, and each layer's float32 vectors,
+//    once per fold.  At kernel start each block issues one bulk copy
+//    (`cp.async.bulk` on an `mbarrier`) per layer of its shares and the
+//    layer's vectors into its own shared memory, and one per task it
+//    classifies; so the whole transformer's weights are in flight on 8-16
+//    SMs at once, and with programmatic dependent launch they stream in
+//    while launch 1 still runs (`griddepcontrol.wait` comes before the
+//    first read of the partial sums).  Every block keeps a full copy of the
+//    activations.  Each GEMM stage computes the block's column share for
+//    all Np rows on the tensor cores (`mma.sync` m16n8k16 bf16, float32
+//    sums; the float32 activations are kept as two bf16 terms, hi + lo,
+//    which keeps the product to about 2^-16 of float32), writes it into
+//    every block's copy through distributed shared memory, and ends in one
+//    cluster barrier: four a layer (QKV, the output projection, FFN1,
+//    FFN2).  Layer norms (a half warp a row, the row in registers) and
+//    attention (scores, softmax, P.V) are small and run redundantly in
+//    every block on its own copy.  Launch 1's partial sums are added the
+//    same way: each block sums its column share in chunk order and
+//    all-gathers it.  Task t is pooled and classified by block t mod the
+//    cluster size.
+// No atomics: every sum is taken in a fixed order, so two runs give the
+// same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kChunkRows = 256;   // token_proj rows per launch-1 block
 constexpr int kColTile = 64;      // token_proj columns per launch-1 block
@@ -63,8 +74,10 @@ constexpr int kProjThreads = 256;
 constexpr int kProjWarps = kProjThreads / 32;
 constexpr int kWarpRows = kChunkRows / kProjWarps;  // token_proj rows per warp
 constexpr int kRestThreads = 512;
+constexpr int kRestWarps = kRestThreads / 32;
 constexpr int kMaxLayers = 8;
-constexpr int kWbufMax = 96 * 1024;  // bf16 elements of launch 2's weight buffer, at most
+constexpr int kMaxCluster = 16;
+constexpr int kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
@@ -84,6 +97,9 @@ __global__ void __launch_bounds__(kProjThreads)
 head_proj_kernel(const float* __restrict__ tok, const uint16_t* __restrict__ wbf,
                  const int8_t* __restrict__ w8, const float* __restrict__ scale,
                  float* __restrict__ partial, int M, int Din, int d) {
+  // let launch 2 start its weight prefetch now; it waits for this grid's
+  // completion before it reads `partial`
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ float smem[];
   float* xs = smem;                                  // [kRowTile][kChunkRows]
   float* red = smem + kRowTile * kChunkRows;         // [kProjWarps][kRowTile][kColTile]
@@ -162,22 +178,19 @@ head_proj_kernel(const float* __restrict__ tok, const uint16_t* __restrict__ wbf
 }
 
 // ---------------------------------------------------------------------------
-// Launch 2: the rest of the head, one block per image
+// Launch 2: the rest of the head, one cluster per image
 // ---------------------------------------------------------------------------
 
-struct Layer {
-  const float *n1s, *n1b;
-  const uint16_t* wq; const float* bq;
-  const uint16_t* wk; const float* bk;
-  const uint16_t* wv; const float* bv;
-  const uint16_t* wo; const float* bo;
-  const float *n2s, *n2b;
-  const uint16_t* f1w; const float* f1b;
-  const uint16_t* f2w; const float* f2b;
-};
+// A layer's float32 vectors, packed: the d-wide n1s n1b bq bk bv bo n2s
+// n2b f2b, then the FFN-wide f1b.
+enum Vec { kN1s = 0, kN1b, kBq, kBk, kBv, kBo, kN2s, kN2b, kF2b, kF1b };
 
-struct RestArgs {
-  Layer layers[kMaxLayers];
+struct HeadArgs {
+  const float* vecs;           // [n_layers][9 d + ff]
+  const uint16_t* packed;      // every block's shares of every layer matrix, bf16
+  int bd[kMaxCluster + 1];     // block r owns d-wide columns [bd[r], bd[r+1])
+  int bf[kMaxCluster + 1];     // and FFN-wide columns [bf[r], bf[r+1])
+  int off[kMaxCluster + 1];    // its packed shares start at packed + off[r]
   int n_layers;
   const float* partial;  // [chunks][B*Np][d]
   const float* tp_b;     // [d]
@@ -186,157 +199,82 @@ struct RestArgs {
   const float* heads_b;  // [T][kmax]
   float* out;            // [B][T][kmax]
   int chunks, B, Np, d, ff, heads, T, kmax;
-  int wbuf_elems;        // weight buffer size, a multiple of 8
-  int split_elems;       // size of each activation split buffer, a multiple of 8
-  int att_elems;         // size of the score buffer, a multiple of 4
+  int w_cap;  // bf16 elements of a block's weight buffer
+  int t_cap;  // tasks a block classifies, at most
 };
 
-enum Epilogue { kBias = 0, kRelu = 1, kResidual = 2 };
+// Shared-memory layout of launch 2, in bytes from the (16-byte aligned)
+// base; the wrapper's plan (`ops/cuda_kernels.head_share_plan`) mirrors it.
+// The GEMM inputs are kept as bf16 hi/lo splits, rows padded to 16 (the
+// padding rows only feed output rows that are never stored).  q, k and v
+// rows are d + 4 floats apart, so that the score loop's 16-byte loads of
+// eight rows fall on distinct banks.  FFN1's output (hhi, hlo) shares the
+// bytes of q, k and v: each is dead while the other is written.
+struct HeadSmem {
+  int w, vec, tq, th, x, q, k, v, ahi, alo, hhi, hlo, att, ps, pooled, bars, total;
+};
 
-constexpr int kRestWarps = kRestThreads / 32;
-constexpr int kTilesPerWarp = 4;  // 16 x 8 output tiles a warp holds per pass
+__host__ __device__ inline int up16(int bytes) { return (bytes + 15) / 16 * 16; }
 
-// d += a * b for one m16n8k16 tile: a row-major bf16 (4 registers), b
-// column-major bf16 (2 registers), d float32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__host__ __device__ inline HeadSmem head_smem(int w_cap, int t_cap, int n_layers, int Np, int d,
+                                              int ff, int heads, int kmax) {
+  const int rows = (Np + 15) / 16 * 16;
+  HeadSmem s;
+  int o = 0;
+  s.w = o; o += up16(w_cap * 2);
+  s.vec = o; o += n_layers * (9 * d + ff) * 4;
+  s.tq = o; o += up16(t_cap * d * 4);
+  s.th = o; o += up16(t_cap * d * kmax * 4);
+  s.x = o; o += up16(Np * d * 4);
+  const int qkv = up16(Np * (d + 4) * 4), hid = up16(rows * (ff + 8) * 2);
+  s.q = s.hhi = o;
+  s.k = o + qkv;
+  s.v = o + 2 * qkv;
+  s.hlo = o + hid;
+  o += 3 * qkv > 2 * hid ? 3 * qkv : 2 * hid;
+  s.ahi = o; o += up16(rows * (d + 8) * 2);
+  s.alo = o; o += up16(rows * (d + 8) * 2);
+  s.att = o; o += up16(heads * Np * Np * 4);
+  s.ps = o; o += up16(t_cap * Np * 4);
+  s.pooled = o; o += up16(t_cap * d * 4);
+  s.bars = o; o += (kMaxLayers + 1) * 8;
+  s.total = o;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
-__device__ __forceinline__ uint16_t bf16_bits(float rounded) {
-  return (uint16_t)(__float_as_uint(rounded) >> 16);
-}
-
-// Asynchronous 16-byte copy from device to shared memory (no register
-// round trip, so a thread keeps all its copies in flight at once).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) to shared
-// memory with the whole block; the caller waits and synchronizes.
-__device__ void stage_async(void* smem, const void* gmem, int bytes) {
-  for (int e = threadIdx.x; e < bytes / 16; e += kRestThreads)
-    cp_async16(static_cast<uint4*>(smem) + e, static_cast<const uint4*>(gmem) + e);
-}
-
-// out[M, N] (=, or += for kResidual) epi(in[M, Kd] @ w[Kd, N] + bias) * scale
-// on the tensor cores.  in: float32 [M, Kd] in shared memory; w: bf16
-// [Kd, N] in device memory, 16-byte aligned; Kd % 16 == 0, N % 8 == 0.
-// Each float32 input a is split into hi = bf16(a) and lo = bf16(a - hi), so
-// a * w = hi * w + lo * w to about 2^-16 relative (w is bf16 already): two
-// bf16 MMAs per tile and step, float32 sums.  hi and lo go to `ahi` / `alo`
-// ([rows][Kd + 8], rows zero-padded to a multiple of 16); the weight goes
-// through `wbuf` in chunks of whole rows (row stride N + 8), copied 16 bytes
-// a thread by the whole block.  The +8 pads put the lanes of a fragment
-// load on distinct banks.  Every thread of the block calls this: it
-// synchronizes inside.
-__device__ void gemm_tc(const float* in, int M, int Kd, const uint16_t* __restrict__ w,
-                        const float* __restrict__ bias, int N, float* out, int epi,
-                        uint16_t* wbuf, int wbuf_elems, uint16_t* ahi, uint16_t* alo,
-                        float scale = 1.f) {
-  const int rows = (M + 15) / 16 * 16;
-  const int lda = Kd + 8;
-  const int ldb = N + 8;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  __syncthreads();  // `in` is complete; ahi and alo are free
-  for (int e = threadIdx.x; e < rows * Kd / 4; e += kRestThreads) {
-    const int r = e / (Kd / 4);
-    const int c = (e - r * (Kd / 4)) * 4;
-    const float4 v = r < M ? *reinterpret_cast<const float4*>(in + (size_t)r * Kd + c)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float hi = round_bf16(vs[j]);
-      ahi[r * lda + c + j] = bf16_bits(hi);
-      alo[r * lda + c + j] = bf16_bits(round_bf16(vs[j] - hi));
-    }
-  }
-  const int ntn = N / 8;
-  const int tiles = rows / 16 * ntn;
-  const int kc = wbuf_elems / ldb / 16 * 16;  // weight rows a chunk
-  const int vecs = N / 8;                     // 16-byte vectors a weight row
-  for (int base = 0; base < tiles; base += kTilesPerWarp * kRestWarps) {
-    float acc[kTilesPerWarp][4];
-    float bv[kTilesPerWarp][2];  // the tiles' biases, loaded ahead of their use
-#pragma unroll
-    for (int i = 0; i < kTilesPerWarp; ++i) {
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      const int tile = base + i * kRestWarps + warp;
-      const int col = tile % ntn * 8 + 2 * t;
-      bv[i][0] = tile < tiles ? bias[col] : 0.f;
-      bv[i][1] = tile < tiles ? bias[col + 1] : 0.f;
-    }
-    for (int k0 = 0; k0 < Kd; k0 += kc) {
-      const int kn = min(kc, Kd - k0);
-      const uint4* src = reinterpret_cast<const uint4*>(w + (size_t)k0 * N);
-      __syncthreads();  // the buffer's previous contents are consumed
-      for (int e = threadIdx.x; e < kn * vecs; e += kRestThreads) {
-        const int r = e / vecs;
-        cp_async16(reinterpret_cast<uint4*>(wbuf + (size_t)r * ldb) + (e - r * vecs), src + e);
-      }
-      cp_async_wait_all();
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kTilesPerWarp; ++i) {
-        const int tile = base + i * kRestWarps + warp;
-        if (tile >= tiles) break;  // warp-uniform
-        const int m0 = tile / ntn * 16;
-        const int n0 = tile % ntn * 8;
-        const uint16_t* ah = ahi + (m0 + g) * lda + k0 + 2 * t;
-        const uint16_t* al = alo + (m0 + g) * lda + k0 + 2 * t;
-        const uint16_t* bp = wbuf + (2 * t) * ldb + n0 + g;
-        for (int kk = 0; kk < kn; kk += 16) {
-          uint32_t a[4], l[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(ah + kk);
-          a[1] = *reinterpret_cast<const uint32_t*>(ah + 8 * lda + kk);
-          a[2] = *reinterpret_cast<const uint32_t*>(ah + kk + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(ah + 8 * lda + kk + 8);
-          l[0] = *reinterpret_cast<const uint32_t*>(al + kk);
-          l[1] = *reinterpret_cast<const uint32_t*>(al + 8 * lda + kk);
-          l[2] = *reinterpret_cast<const uint32_t*>(al + kk + 8);
-          l[3] = *reinterpret_cast<const uint32_t*>(al + 8 * lda + kk + 8);
-          const uint16_t* b = bp + (size_t)kk * ldb;
-          const uint32_t b0 = (uint32_t)b[0] | ((uint32_t)b[ldb] << 16);
-          const uint32_t b1 = (uint32_t)b[8 * ldb] | ((uint32_t)b[9 * ldb] << 16);
-          mma_bf16(acc[i], a, b0, b1);
-          mma_bf16(acc[i], l, b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kTilesPerWarp; ++i) {
-      const int tile = base + i * kRestWarps + warp;
-      if (tile >= tiles) break;
-      const int m0 = tile / ntn * 16;
-      const int n0 = tile % ntn * 8;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + g + 8 * half;
-        if (r >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + 2 * t + j;
-          float v = acc[i][2 * half + j] + bv[i][j];
-          float* o = out + (size_t)r * N + col;
-          if (epi == kRelu) v = fmaxf(v, 0.f);
-          if (epi == kResidual) *o = *o + v;
-          else *o = v * scale;
-        }
-      }
-    }
-  }
+// Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into this block's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Sum of a lane's values over the warp, in a fixed order.
@@ -345,20 +283,66 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dst[r] = LayerNorm(src[r]) * s + b over rows of width d, one warp a row.
-__device__ void layer_norm_rows(const float* src, float* dst, int M, int d,
-                                const float* __restrict__ s, const float* __restrict__ b) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < M; r += kRestThreads / 32) {
-    const float* x = src + (size_t)r * d;
+// Sum over each half of the warp, in a fixed order.
+__device__ __forceinline__ float half_sum(float v) {
+  for (int o = 8; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  return (__float_as_uint(lo_col) >> 16) | (__float_as_uint(hi_col) & 0xffff0000u);
+}
+
+// The bf16 hi/lo split of a float32 pair: hi = bf16(a), lo = bf16(a - hi),
+// so that a * w = hi * w + lo * w to about 2^-16 of a (w bf16 already).
+__device__ __forceinline__ void split2(float a0, float a1, uint32_t& hi, uint32_t& lo) {
+  const float h0 = round_bf16(a0), h1 = round_bf16(a1);
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(round_bf16(a0 - h0), round_bf16(a1 - h1));
+}
+
+constexpr int kMaxPerLane = 16;  // d / 16 values a half warp holds in layer norm (d <= 256)
+
+// LayerNorm(x[r]) * s + b of the Np rows of width d, written as bf16 hi/lo
+// splits (row pitch d + 8); a half warp a row, the row in registers.  A
+// warp takes rows in pairs, so that the whole warp takes part in every
+// shuffle, also where its second row lies beyond Np.
+__device__ void layer_norm_split(const float* x, int Np, int d, const float* s, const float* b,
+                                 uint16_t* hi, uint16_t* lo) {
+  const int lane = threadIdx.x % 16;
+  for (int r0 = 2 * (threadIdx.x / 32); r0 < Np; r0 += 2 * kRestWarps) {
+    const int r = r0 + (threadIdx.x % 32) / 16;
+    const bool row = r < Np;
+    const float* xr = x + (size_t)r * d;
+    float v[kMaxPerLane];
     float sum = 0.f;
-    for (int j = lane; j < d; j += 32) sum += x[j];
-    const float mu = warp_sum(sum) / (float)d;
+#pragma unroll
+    for (int i = 0; i < kMaxPerLane; i += 2) {  // 8-byte loads: a half warp reads 128 bytes
+      const int j = 2 * lane + 16 * i;
+      const float2 p = row && j < d ? *reinterpret_cast<const float2*>(xr + j) : make_float2(0.f, 0.f);
+      v[i] = p.x;
+      v[i + 1] = p.y;
+      sum += v[i];
+      sum += v[i + 1];
+    }
+    const float mu = half_sum(sum) / (float)d;
     float sq = 0.f;
-    for (int j = lane; j < d; j += 32) sq += (x[j] - mu) * (x[j] - mu);
-    const float inv = 1.0f / sqrtf(warp_sum(sq) / (float)d + 1e-5f);
-    for (int j = lane; j < d; j += 32) dst[(size_t)r * d + j] = (x[j] - mu) * inv * s[j] + b[j];
+#pragma unroll
+    for (int i = 0; i < kMaxPerLane; ++i) {
+      const int j = 2 * lane + 32 * (i / 2) + (i % 2);
+      if (j < d) sq += (v[i] - mu) * (v[i] - mu);
+    }
+    const float inv = 1.0f / sqrtf(half_sum(sq) / (float)d + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < kMaxPerLane; i += 2) {
+      const int j = 2 * lane + 16 * i;
+      if (row && j < d) {
+        uint32_t h, l;
+        split2((v[i] - mu) * inv * s[j] + b[j], (v[i + 1] - mu) * inv * s[j + 1] + b[j + 1], h, l);
+        *reinterpret_cast<uint32_t*>(hi + (size_t)r * (d + 8) + j) = h;
+        *reinterpret_cast<uint32_t*>(lo + (size_t)r * (d + 8) + j) = l;
+      }
+    }
   }
 }
 
@@ -377,125 +361,285 @@ __device__ void softmax_rows(float* a, int rows, int n) {
   }
 }
 
-__global__ void __launch_bounds__(kRestThreads, 1) head_rest_kernel(RestArgs a) {
-  extern __shared__ float4 smem4[];
-  uint16_t* wbuf = reinterpret_cast<uint16_t*>(smem4);  // [wbuf_elems]
-  uint16_t* ahi = wbuf + a.wbuf_elems;                   // [split_elems]
-  uint16_t* alo = ahi + a.split_elems;                   // [split_elems]
-  float* x = reinterpret_cast<float*>(alo + a.split_elems);
-  const int Np = a.Np, d = a.d;
-  const int wb = a.wbuf_elems;
+// d += a * b for one m16n8k16 tile: a row-major bf16 (4 registers), b
+// column-major bf16 (2 registers), d float32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block's column share of A[Np, Kd] @ W_m for nmat matrices m on the
+// tensor cores: A as bf16 hi/lo splits (row pitch Kd + 8, rows padded to 16),
+// W_m's share bf16 [Kd, cw] row-major at w + m Kd cw.  A warp takes one
+// 16 x 8 output tile at a time over the whole of Kd, the hi and lo products
+// in two float32 chains added at the end (a fixed order), and hands each
+// row's column pair to store(m, row, col, v0, v1), col in [0, cw).
+template <typename Store>
+__device__ __forceinline__ void gemm_share(const uint16_t* ahi, const uint16_t* alo, int Np,
+                                           int Kd, const uint16_t* w, int cw, int nmat,
+                                           Store store) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const size_t nd = (size_t)Np * d;
-  float* h = x + nd;
-  float* q = h + nd;
-  float* kk = q + nd;
-  float* v = kk + nd;
-  float* att = v + nd;             // [heads][Np][Np], then [T][Np]
-  float* hid = att + a.att_elems;  // [Np][ff], then [T][d]
-  const int b = blockIdx.x;
-  const int M = a.B * Np;
-
-  for (int e = threadIdx.x; e < Np * d; e += kRestThreads) {
-    float s = 0.f;
-#pragma unroll 12
-    for (int c = 0; c < a.chunks; ++c) s += a.partial[((size_t)c * M + (size_t)b * Np) * d + e];
-    x[e] = s + a.tp_b[e % d];
+  const int g = lane >> 2, t = lane & 3;
+  const int lda = Kd + 8;
+  const int ntn = cw / 8, mt = (Np + 15) / 16;
+  for (int tile = warp; tile < nmat * mt * ntn; tile += kRestWarps) {
+    const int m = tile / (mt * ntn);
+    const int r0 = (tile / ntn) % mt * 16;
+    const int n0 = tile % ntn * 8;
+    const uint16_t* ah = ahi + (size_t)(r0 + g) * lda + 2 * t;
+    const uint16_t* al = alo + (size_t)(r0 + g) * lda + 2 * t;
+    const uint16_t* bp = w + (size_t)m * Kd * cw + (size_t)(2 * t) * cw + n0 + g;
+    float ch[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int k = 0; k < Kd; k += 16) {
+      uint32_t a[4], l[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(ah + k);
+      a[1] = *reinterpret_cast<const uint32_t*>(ah + 8 * lda + k);
+      a[2] = *reinterpret_cast<const uint32_t*>(ah + k + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(ah + 8 * lda + k + 8);
+      l[0] = *reinterpret_cast<const uint32_t*>(al + k);
+      l[1] = *reinterpret_cast<const uint32_t*>(al + 8 * lda + k);
+      l[2] = *reinterpret_cast<const uint32_t*>(al + k + 8);
+      l[3] = *reinterpret_cast<const uint32_t*>(al + 8 * lda + k + 8);
+      const uint16_t* b = bp + (size_t)k * cw;
+      const uint32_t b0 = (uint32_t)b[0] | ((uint32_t)b[cw] << 16);
+      const uint32_t b1 = (uint32_t)b[8 * cw] | ((uint32_t)b[9 * cw] << 16);
+      mma_bf16(ch, a, b0, b1);
+      mma_bf16(cl, l, b0, b1);
+    }
+    if (r0 + g < Np) store(m, r0 + g, n0 + 2 * t, ch[0] + cl[0], ch[1] + cl[1]);
+    if (r0 + g + 8 < Np) store(m, r0 + g + 8, n0 + 2 * t, ch[2] + cl[2], ch[3] + cl[3]);
   }
-  __syncthreads();
+}
+
+// Write a value into every block's copy of an activation (same offset),
+// with shared::cluster stores to the `mapa`-mapped addresses.
+__device__ __forceinline__ uint32_t map_rank(uint32_t local, int q) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(q));
+  return remote;
+}
+
+__device__ __forceinline__ void all_gather(cg::cluster_group& cl, float2* local, float2 v) {
+  const uint32_t a = smem_u32(local);
+  const int n = (int)cl.num_blocks();
+#pragma unroll 4
+  for (int q = 0; q < n; ++q)
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(map_rank(a, q)), "f"(v.x),
+                 "f"(v.y)
+                 : "memory");
+}
+
+__device__ __forceinline__ void all_gather(cg::cluster_group& cl, uint32_t* local, uint32_t v) {
+  const uint32_t a = smem_u32(local);
+  const int n = (int)cl.num_blocks();
+#pragma unroll 4
+  for (int q = 0; q < n; ++q)
+    asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(map_rank(a, q)), "r"(v) : "memory");
+}
+
+__global__ void __launch_bounds__(kRestThreads, 1) head_cluster_kernel(const HeadArgs a) {
+  extern __shared__ float4 smem4[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int r = (int)cl.block_rank();
+  const int cs = (int)cl.num_blocks();
+  const int b = blockIdx.x / cs;  // the image
+  const int Np = a.Np, d = a.d, ff = a.ff;
+  const HeadSmem L = head_smem(a.w_cap, a.t_cap, a.n_layers, Np, d, ff, a.heads, a.kmax);
+  uint16_t* wsm = reinterpret_cast<uint16_t*>(base + L.w);
+  float* vsm = reinterpret_cast<float*>(base + L.vec);
+  float* tq = reinterpret_cast<float*>(base + L.tq);
+  float* th = reinterpret_cast<float*>(base + L.th);
+  float* x = reinterpret_cast<float*>(base + L.x);
+  float* q = reinterpret_cast<float*>(base + L.q);
+  float* kk = reinterpret_cast<float*>(base + L.k);
+  float* v = reinterpret_cast<float*>(base + L.v);
+  uint16_t* ahi = reinterpret_cast<uint16_t*>(base + L.ahi);
+  uint16_t* alo = reinterpret_cast<uint16_t*>(base + L.alo);
+  uint16_t* hhi = reinterpret_cast<uint16_t*>(base + L.hhi);
+  uint16_t* hlo = reinterpret_cast<uint16_t*>(base + L.hlo);
+  float* att = reinterpret_cast<float*>(base + L.att);
+  float* ps = reinterpret_cast<float*>(base + L.ps);
+  float* pooled = reinterpret_cast<float*>(base + L.pooled);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bars);
+  const int c0 = a.bd[r], cw = a.bd[r + 1] - c0;  // this block's d-wide columns
+  const int f0 = a.bf[r], fw = a.bf[r + 1] - f0;  // and FFN-wide columns
+  const int region = 4 * d * cw + d * fw + ff * cw;  // bf16 elements a layer
+  const int nvec = 9 * d + ff;                        // float32 vector elements a layer
+  const int ntask = a.T > r ? (a.T - 1 - r) / cs + 1 : 0;  // tasks r, r + cs, ...
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // prefetch: every layer's shares and vectors and this block's task
+  // weights, all in flight at once; none of it depends on launch 1
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kMaxLayers; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int l = 0; l < a.n_layers; ++l) {
+      mbar_expect_tx(&bars[l], region * 2 + nvec * 4);
+      if (region > 0)
+        bulk_copy(wsm + (size_t)l * region, a.packed + a.off[r] + (size_t)l * region, region * 2,
+                  &bars[l]);
+      bulk_copy(vsm + (size_t)l * nvec, a.vecs + (size_t)l * nvec, nvec * 4, &bars[l]);
+    }
+    if (ntask > 0) {
+      mbar_expect_tx(&bars[kMaxLayers], ntask * d * (1 + a.kmax) * 4);
+      for (int j = 0; j < ntask; ++j) {
+        const int t = r + j * cs;
+        bulk_copy(tq + j * d, a.queries + (size_t)t * d, d * 4, &bars[kMaxLayers]);
+        bulk_copy(th + (size_t)j * d * a.kmax, a.heads_w + (size_t)t * d * a.kmax,
+                  d * a.kmax * 4, &bars[kMaxLayers]);
+      }
+    }
+  }
+  cl.sync();  // every block runs, and its barriers are set, before any remote write
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // launch 1 is complete
+
+  // x[:, share] = sum of launch 1's partials in chunk order + bias, gathered
+  const int M = a.B * Np;
+  for (int e = threadIdx.x; e < Np * (cw / 2); e += kRestThreads) {
+    const int i = e / (cw / 2);
+    const int c = c0 + 2 * (e - i * (cw / 2));
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll 12  // independent loads, in flight together
+    for (int ch = 0; ch < a.chunks; ++ch) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(a.partial + ((size_t)ch * M + (size_t)b * Np + i) * d + c);
+      s.x += p.x;
+      s.y += p.y;
+    }
+    s.x += a.tp_b[c];
+    s.y += a.tp_b[c + 1];
+    all_gather(cl, reinterpret_cast<float2*>(x + (size_t)i * d + c), s);
+  }
+  cl.sync();
 
   const int hd = d / a.heads;
+  const int ldq = d + 4;  // row pitch of q, k and v
   const float qscale = 1.0f / sqrtf((float)hd);
-  for (int li = 0; li < a.n_layers; ++li) {
-    const Layer& L = a.layers[li];
-    layer_norm_rows(x, h, Np, d, L.n1s, L.n1b);
+  for (int l = 0; l < a.n_layers; ++l) {
+    const float* P = vsm + (size_t)l * nvec;
+    const uint16_t* wl = wsm + (size_t)l * region;
+    mbar_wait(&bars[l], 0);
+    layer_norm_split(x, Np, d, P + kN1s * d, P + kN1b * d, ahi, alo);
     __syncthreads();
-    gemm_tc(h, Np, d, L.wq, L.bq, d, q, kBias, wbuf, wb, ahi, alo, qscale);
-    gemm_tc(h, Np, d, L.wk, L.bk, d, kk, kBias, wbuf, wb, ahi, alo);
-    gemm_tc(h, Np, d, L.wv, L.bv, d, v, kBias, wbuf, wb, ahi, alo);
-    __syncthreads();
+    // q (scaled), k, v: this block's columns, gathered
+    float* const qkv[3] = {q, kk, v};
+    gemm_share(ahi, alo, Np, d, wl, cw, 3, [&](int m, int i, int c, float v0, float v1) {
+      const float* bias = P + (kBq + m) * d + c0 + c;
+      const float sc = m == 0 ? qscale : 1.f;
+      float* dst = m == 0 ? qkv[0] : (m == 1 ? qkv[1] : qkv[2]);
+      all_gather(cl, reinterpret_cast<float2*>(dst + (size_t)i * ldq + c0 + c),
+                 make_float2((v0 + bias[0]) * sc, (v1 + bias[1]) * sc));
+    });
+    cl.sync();
+    // attention on this block's full copy: scores, softmax, P . V -> hi/lo
     for (int e = threadIdx.x; e < a.heads * Np * Np; e += kRestThreads) {
       const int hh = e / (Np * Np);
       const int i = (e / Np) % Np;
       const int j = e % Np;
-      const float* qi = q + (size_t)i * d + hh * hd;
-      const float* kj = kk + (size_t)j * d + hh * hd;
-      float s = 0.f;
-      for (int t = 0; t < hd; ++t) s = fmaf(qi[t], kj[t], s);
-      att[e] = s;
+      const float4* qi = reinterpret_cast<const float4*>(q + (size_t)i * ldq + hh * hd);
+      const float4* kj = reinterpret_cast<const float4*>(kk + (size_t)j * ldq + hh * hd);
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int t = 0; t < hd / 4; ++t) {
+        const float4 qa = qi[t], kb = kj[t];
+        s4[0] = fmaf(qa.x, kb.x, s4[0]);
+        s4[1] = fmaf(qa.y, kb.y, s4[1]);
+        s4[2] = fmaf(qa.z, kb.z, s4[2]);
+        s4[3] = fmaf(qa.w, kb.w, s4[3]);
+      }
+      att[e] = (s4[0] + s4[1]) + (s4[2] + s4[3]);
     }
     __syncthreads();
     softmax_rows(att, a.heads * Np, Np);
     __syncthreads();
-    for (int e = threadIdx.x; e < Np * d; e += kRestThreads) {
-      const int i = e / d;
-      const int col = e % d;
-      const float* p = att + ((size_t)(col / hd) * Np + i) * Np;
-      float s = 0.f;
-      for (int j = 0; j < Np; ++j) s = fmaf(p[j], v[(size_t)j * d + col], s);
-      h[e] = s;
+    for (int e = threadIdx.x; e < Np * (d / 4); e += kRestThreads) {
+      const int i = e / (d / 4);
+      const int c = (e % (d / 4)) * 4;
+      const float* p = att + ((size_t)(c / hd) * Np + i) * Np;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int j = 0; j < Np; ++j) {
+        const float4 vj = *reinterpret_cast<const float4*>(v + (size_t)j * ldq + c);
+        o.x = fmaf(p[j], vj.x, o.x);
+        o.y = fmaf(p[j], vj.y, o.y);
+        o.z = fmaf(p[j], vj.z, o.z);
+        o.w = fmaf(p[j], vj.w, o.w);
+      }
+      uint32_t h0, l0, h1, l1;
+      split2(o.x, o.y, h0, l0);
+      split2(o.z, o.w, h1, l1);
+      *reinterpret_cast<uint2*>(ahi + (size_t)i * (d + 8) + c) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(alo + (size_t)i * (d + 8) + c) = make_uint2(l0, l1);
     }
     __syncthreads();
-    gemm_tc(h, Np, d, L.wo, L.bo, d, x, kResidual, wbuf, wb, ahi, alo);
+    // x += attention @ Wo + bo: this block's columns, gathered
+    gemm_share(ahi, alo, Np, d, wl + 3 * d * cw, cw, 1, [&](int, int i, int c, float v0, float v1) {
+      float* xo = x + (size_t)i * d + c0 + c;
+      const float* bias = P + kBo * d + c0 + c;
+      all_gather(cl, reinterpret_cast<float2*>(xo),
+                 make_float2(xo[0] + (v0 + bias[0]), xo[1] + (v1 + bias[1])));
+    });
+    cl.sync();
+    layer_norm_split(x, Np, d, P + kN2s * d, P + kN2b * d, ahi, alo);
     __syncthreads();
-    layer_norm_rows(x, h, Np, d, L.n2s, L.n2b);
-    __syncthreads();
-    gemm_tc(h, Np, d, L.f1w, L.f1b, a.ff, hid, kRelu, wbuf, wb, ahi, alo);
-    __syncthreads();
-    gemm_tc(hid, Np, a.ff, L.f2w, L.f2b, d, x, kResidual, wbuf, wb, ahi, alo);
-    __syncthreads();
+    // ReLU(LN2(x) @ FFN1 + b): this block's FFN columns, gathered as hi/lo
+    gemm_share(ahi, alo, Np, d, wl + 4 * d * cw, fw, 1, [&](int, int i, int c, float v0, float v1) {
+      const float* bias = P + 9 * d + f0 + c;
+      uint32_t h, lw;
+      split2(fmaxf(v0 + bias[0], 0.f), fmaxf(v1 + bias[1], 0.f), h, lw);
+      all_gather(cl, reinterpret_cast<uint32_t*>(hhi + (size_t)i * (ff + 8) + f0 + c), h);
+      all_gather(cl, reinterpret_cast<uint32_t*>(hlo + (size_t)i * (ff + 8) + f0 + c), lw);
+    });
+    cl.sync();
+    // x += hidden @ FFN2 + b: this block's columns, gathered
+    gemm_share(hhi, hlo, Np, ff, wl + 4 * d * cw + d * fw, cw, 1,
+               [&](int, int i, int c, float v0, float v1) {
+                 float* xo = x + (size_t)i * d + c0 + c;
+                 const float* bias = P + kF2b * d + c0 + c;
+                 all_gather(cl, reinterpret_cast<float2*>(xo),
+                            make_float2(xo[0] + (v0 + bias[0]), xo[1] + (v1 + bias[1])));
+               });
+    cl.sync();
   }
-
-  // task-query pooling, then the stacked heads; a warp for each score and
-  // each logit, its lanes striding the model width.  The queries and head
-  // weights go to shared memory first, where they fit (16-byte aligned).
-  float* ps = att;      // [T][Np]
-  float* pooled = hid;  // [T][d]
-  const float* queries = a.queries;
-  const float* heads_w = a.heads_w;
-  const int qbytes = a.T * d * 4;
-  const int hbytes = a.T * d * a.kmax * 4;
-  if (qbytes % 16 == 0 && hbytes % 16 == 0 && qbytes + hbytes <= a.wbuf_elems * 2 &&
-      reinterpret_cast<uintptr_t>(queries) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(heads_w) % 16 == 0) {
-    float* sq = reinterpret_cast<float*>(wbuf);
-    float* sh = sq + a.T * d;
-    __syncthreads();  // the layers are done with the buffer
-    stage_async(sq, queries, qbytes);
-    stage_async(sh, heads_w, hbytes);
-    cp_async_wait_all();
-    __syncthreads();
-    queries = sq;
-    heads_w = sh;
-  }
-  for (int e = warp; e < a.T * Np; e += kRestThreads / 32) {
-    const int t = e / Np;
+  // no remote access from here on: each block pools and classifies its tasks
+  if (ntask == 0) return;
+  mbar_wait(&bars[kMaxLayers], 0);
+  for (int e = warp; e < ntask * Np; e += kRestWarps) {
+    const int j = e / Np;
     const int n = e % Np;
     float s = 0.f;
-    for (int j = lane; j < d; j += 32) s = fmaf(queries[(size_t)t * d + j], x[(size_t)n * d + j], s);
+    for (int c = lane; c < d; c += 32) s = fmaf(tq[(size_t)j * d + c], x[(size_t)n * d + c], s);
     s = warp_sum(s);
     if (lane == 0) ps[e] = s;
   }
   __syncthreads();
-  softmax_rows(ps, a.T, Np);
+  softmax_rows(ps, ntask, Np);
   __syncthreads();
-  for (int e = threadIdx.x; e < a.T * d; e += kRestThreads) {
-    const int t = e / d;
-    const int j = e % d;
+  for (int e = threadIdx.x; e < ntask * d; e += kRestThreads) {
+    const int j = e / d;
+    const int c = e % d;
     float s = 0.f;
-    for (int n = 0; n < Np; ++n) s = fmaf(ps[t * Np + n], x[(size_t)n * d + j], s);
+    for (int n = 0; n < Np; ++n) s = fmaf(ps[j * Np + n], x[(size_t)n * d + c], s);
     pooled[e] = s;
   }
   __syncthreads();
-  for (int e = warp; e < a.T * a.kmax; e += kRestThreads / 32) {
-    const int t = e / a.kmax;
+  for (int e = warp; e < ntask * a.kmax; e += kRestWarps) {
+    const int j = e / a.kmax;
     const int k = e % a.kmax;
-    const float* hw = heads_w + (size_t)t * d * a.kmax + k;
+    const int t = r + j * cs;
+    const float* hw = th + (size_t)j * d * a.kmax + k;
     float s = 0.f;
-    for (int j = lane; j < d; j += 32) s = fmaf(pooled[(size_t)t * d + j], hw[(size_t)j * a.kmax], s);
+    for (int c = lane; c < d; c += 32) s = fmaf(pooled[(size_t)j * d + c], hw[(size_t)c * a.kmax], s);
     s = warp_sum(s);
-    if (lane == 0) a.out[((size_t)b * a.T + t) * a.kmax + k] = s + a.heads_b[e];
+    if (lane == 0) a.out[((size_t)b * a.T + t) * a.kmax + k] = s + a.heads_b[t * a.kmax + k];
   }
 }
 
@@ -503,60 +647,70 @@ __global__ void __launch_bounds__(kRestThreads, 1) head_rest_kernel(RestArgs a) 
 
 // tokens: float32 [B, Np, Din]; token_proj: bf16 tp_w [Din, d] (tp_q8 = 0)
 // or int8 tp_w [Din, d] with float32 tp_scale [d] (tp_q8 = 1); tp_b [d];
-// layer_ptrs: host array of n_layers x 16 device pointers per layer, in the
-// order n1s n1b wq bq wk bk wv bv wo bo n2s n2b f1w f1b f2w f2b (matrices bf16
-// [in, out], the rest float32); queries float32 [T, d]; heads_w [T, d, kmax];
+// packed: bf16, block r's shares of every layer at packed + off[r], per
+// layer Wq, Wk, Wv, Wo, FFN2 columns [bd[r], bd[r+1]) and FFN1 columns
+// [bf[r], bf[r+1]) in the order q k v o f1 f2, each [in, share] row-major;
+// vecs: float32 [n_layers, 9 d + ff], each layer's n1s n1b bq bk bv bo n2s
+// n2b f2b (d wide) then f1b (ff wide); bd, bf, off: host
+// arrays of cluster + 1 ints; queries float32 [T, d]; heads_w [T, d, kmax];
 // heads_b [T, kmax]; partial: float32 scratch [partial_chunks, B*Np, d] with
 // partial_chunks = ceil(Din / 256); out float32 [B, T, kmax].  All
-// contiguous.  Two launches on `stream`; returns the first error of either
-// (0 on success), or cudaErrorInvalidValue for sizes it does not take.
+// contiguous.  w_cap, t_cap: the weight buffer (bf16 elements) and tasks of
+// a block.  stages: 1 launch 1 only, 2 launch 2 only (on launch 1's last
+// partial sums), 3 both.  Returns the first error (0 on success), or
+// cudaErrorInvalidValue for sizes it does not take.
 extern "C" int wadt_fused_head(const void* tokens, const void* tp_w, int tp_q8,
-                               const void* tp_scale, const void* tp_b,
-                               const void* const* layer_ptrs, int n_layers,
-                               const void* queries, const void* heads_w,
-                               const void* heads_b, void* partial, int partial_chunks,
-                               void* out, int B, int Np, int Din, int d, int ff,
-                               int heads, int T, int kmax, void* stream) {
-  if (B <= 0 || Np <= 0 || Din <= 0 || d <= 0 || d % 2 != 0 || T <= 0 || kmax <= 0 ||
-      n_layers < 0 || n_layers > kMaxLayers ||
+                               const void* tp_scale, const void* tp_b, const void* packed,
+                               const void* vecs, int n_layers, const int* bd,
+                               const int* bf, const int* off, int cluster, int w_cap, int t_cap,
+                               const void* queries, const void* heads_w, const void* heads_b,
+                               void* partial, int partial_chunks, void* out, int B, int Np,
+                               int Din, int d, int ff, int heads, int T, int kmax, int stages,
+                               void* stream) {
+  if (B <= 0 || Np <= 0 || Din <= 0 || d <= 0 || d % 8 != 0 || T <= 0 || kmax <= 0 ||
+      n_layers < 0 || n_layers > kMaxLayers || cluster < 1 || cluster > kMaxCluster ||
+      t_cap != (T + cluster - 1) / cluster || w_cap < 0 || w_cap % 8 != 0 || stages < 1 || stages > 3 ||
       partial_chunks != (Din + kChunkRows - 1) / kChunkRows ||
-      (n_layers > 0 && (heads <= 0 || d % heads != 0 || d % 16 != 0 || ff <= 0 || ff % 16 != 0)) ||
+      (n_layers > 0 && (heads <= 0 || d % 16 != 0 || d > 16 * kMaxPerLane || d % heads != 0 ||
+                        (d / heads) % 4 != 0 || ff <= 0 || ff % 16 != 0)) ||
       (long long)B * Np * Din >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  if (n_layers == 0) ff = 0, heads = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * Np;
-
-  const dim3 grid1(partial_chunks, (d + kColTile - 1) / kColTile);
-  const size_t smem1 =
-      (size_t)(kRowTile * kChunkRows + kProjWarps * kRowTile * kColTile) * sizeof(float);
-  head_proj_kernel<<<grid1, kProjThreads, smem1, s>>>(
-      static_cast<const float*>(tokens), tp_q8 ? nullptr : static_cast<const uint16_t*>(tp_w),
-      tp_q8 ? static_cast<const int8_t*>(tp_w) : nullptr, static_cast<const float*>(tp_scale),
-      static_cast<float*>(partial), M, Din, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  RestArgs a = {};
-  for (int li = 0; li < n_layers; ++li) {
-    const void* const* p = layer_ptrs + 16 * li;
-    Layer& L = a.layers[li];
-    L.n1s = static_cast<const float*>(p[0]);
-    L.n1b = static_cast<const float*>(p[1]);
-    L.wq = static_cast<const uint16_t*>(p[2]);
-    L.bq = static_cast<const float*>(p[3]);
-    L.wk = static_cast<const uint16_t*>(p[4]);
-    L.bk = static_cast<const float*>(p[5]);
-    L.wv = static_cast<const uint16_t*>(p[6]);
-    L.bv = static_cast<const float*>(p[7]);
-    L.wo = static_cast<const uint16_t*>(p[8]);
-    L.bo = static_cast<const float*>(p[9]);
-    L.n2s = static_cast<const float*>(p[10]);
-    L.n2b = static_cast<const float*>(p[11]);
-    L.f1w = static_cast<const uint16_t*>(p[12]);
-    L.f1b = static_cast<const float*>(p[13]);
-    L.f2w = static_cast<const uint16_t*>(p[14]);
-    L.f2b = static_cast<const float*>(p[15]);
+  cudaError_t err;
+  if (stages & 1) {
+    const dim3 grid1(partial_chunks, (d + kColTile - 1) / kColTile);
+    const size_t smem1 =
+        (size_t)(kRowTile * kChunkRows + kProjWarps * kRowTile * kColTile) * sizeof(float);
+    head_proj_kernel<<<grid1, kProjThreads, smem1, s>>>(
+        static_cast<const float*>(tokens), tp_q8 ? nullptr : static_cast<const uint16_t*>(tp_w),
+        tp_q8 ? static_cast<const int8_t*>(tp_w) : nullptr, static_cast<const float*>(tp_scale),
+        static_cast<float*>(partial), M, Din, d);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  if (!(stages & 2)) return 0;
+
+  HeadArgs a = {};
+  a.vecs = static_cast<const float*>(vecs);
+  for (int i = 0; i <= cluster; ++i) {
+    a.bd[i] = bd[i];
+    a.bf[i] = n_layers > 0 ? bf[i] : 0;
+    a.off[i] = off[i];
+  }
+  for (int i = 0; i < cluster; ++i) {
+    const int cw = a.bd[i + 1] - a.bd[i], fw = a.bf[i + 1] - a.bf[i];
+    if (cw < 0 || fw < 0 || cw % 8 != 0 || fw % 8 != 0 || a.off[i] % 8 != 0 ||
+        (long long)n_layers * (4 * d * cw + d * fw + ff * cw) > w_cap)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (a.bd[0] != 0 || a.bd[cluster] != d || a.bf[0] != 0 || a.bf[cluster] != ff ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0 || reinterpret_cast<uintptr_t>(vecs) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(queries) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(heads_w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  a.packed = static_cast<const uint16_t*>(packed);
   a.n_layers = n_layers;
   a.partial = static_cast<const float*>(partial);
   a.tp_b = static_cast<const float*>(tp_b);
@@ -565,32 +719,32 @@ extern "C" int wadt_fused_head(const void* tokens, const void* tp_w, int tp_q8,
   a.heads_b = static_cast<const float*>(heads_b);
   a.out = static_cast<float*>(out);
   a.chunks = partial_chunks;
-  a.B = B; a.Np = Np; a.d = d; a.ff = n_layers > 0 ? ff : 0;
-  a.heads = n_layers > 0 ? heads : 1;
+  a.B = B; a.Np = Np; a.d = d; a.ff = ff; a.heads = heads;
   a.T = T; a.kmax = kmax;
-  const size_t hid = (size_t)Np * a.ff > (size_t)T * d ? (size_t)Np * a.ff : (size_t)T * d;
-  const size_t att = ((size_t)(a.heads > T ? a.heads : T) * Np * Np + 3) / 4 * 4;
-  a.att_elems = (int)att;
-  // activations and their bf16 splits, then as much weight buffer as the
-  // rest of the 227 KB holds (at least 16 rows of the widest weight)
-  const int widest = a.ff > d ? a.ff : d;
-  a.split_elems = n_layers > 0 ? (Np + 15) / 16 * 16 * (widest + 8) : 0;
-  const size_t act = (5 * (size_t)Np * d + att + hid) * sizeof(float) +
-                     2 * (size_t)a.split_elems * sizeof(uint16_t);
-  const size_t room = act < 227 * 1024 ? (227 * 1024 - act) / sizeof(uint16_t) / 8 * 8 : 0;
-  a.wbuf_elems = (int)(room < (size_t)kWbufMax ? room : kWbufMax);
-  if (n_layers > 0 && a.wbuf_elems < 16 * (widest + 8)) return (int)cudaErrorInvalidValue;
-  const int matrices[] = {2, 4, 6, 8, 12, 14};  // copied to shared memory 16 bytes at a time
-  for (int li = 0; li < n_layers; ++li)
-    for (int i : matrices)
-      if (reinterpret_cast<uintptr_t>(layer_ptrs[16 * li + i]) % 16 != 0)
-        return (int)cudaErrorInvalidValue;
-  const size_t smem2 = (size_t)a.wbuf_elems * sizeof(uint16_t) + act;
-  if (smem2 > 48 * 1024) {
-    err = cudaFuncSetAttribute(head_rest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem2);
+  a.w_cap = w_cap; a.t_cap = t_cap;
+  const int smem2 = head_smem(w_cap, t_cap, n_layers, Np, d, ff, heads, kmax).total;
+  if (smem2 > kSmemMax) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(head_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(head_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  head_rest_kernel<<<B, kRestThreads, smem2, s>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(kRestThreads);
+  cfg.dynamicSmemBytes = smem2;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, head_cluster_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

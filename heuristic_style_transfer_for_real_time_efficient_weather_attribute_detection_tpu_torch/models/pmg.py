@@ -140,7 +140,7 @@ def head_apply(
     tp = params["token_proj"]
     if grams.dtype == torch.bfloat16:
         # bf16 x bf16 summed in float32, the bias added in float32, one rounding
-        tokens = cuda_kernels.gram_proj(grams, tp["w"].contiguous(), tp["b"].float()).to(grams.dtype)
+        tokens = cuda_kernels.gram_proj(grams, tp["w"].contiguous(), tp["b"].float(), grams.dtype)
     else:
         tokens = linear(grams, tp)
     if spec.has_transformer:

@@ -38,7 +38,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +58,6 @@ _NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first launch
-_GRAM_PROJ_BLOCKS_PER_SM = 8  # csrc/gram_proj.cu splits K until about this many blocks
-_GRAM_PROJ_TILE = 64  # its output tile edge and K step
 
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
@@ -148,14 +146,15 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_stem_u8_f32.restype = i32
         lib.wadt_trunk_gram_u8.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
         lib.wadt_trunk_gram_u8.restype = i32
+        ints = ctypes.POINTER(i32)
         lib.wadt_fused_head.argtypes = [
-            ptr, ptr, i32, ptr, ptr, ctypes.POINTER(ptr), i32, ptr, ptr, ptr, ptr, i32,
-            ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, ints, ints, ints, i32, i32,
+            i32, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.wadt_fused_head.restype = i32
         lib.wadt_dequant_matvec.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.wadt_dequant_matvec.restype = i32
-        lib.wadt_gram_proj_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.wadt_gram_proj_bf16.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.wadt_gram_proj_bf16.restype = i32
         _lib = lib
         return lib
@@ -173,13 +172,14 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.de
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(kernel: str, fn, device: torch.device, *args) -> None:
+def _launch(kernel: str, fn, device: torch.device, *args, count: bool = True) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed") from torch.cuda.CudaError(err)
-    LAUNCHES[kernel] += 1
+    if count:
+        LAUNCHES[kernel] += 1
 
 
 def _require_cuda(x: torch.Tensor, kernel: str) -> None:
@@ -449,14 +449,101 @@ def fused_trunk_gram(x8: torch.Tensor, weights, spec) -> torch.Tensor:
 # K4: fused head (the camera path's head)
 # ---------------------------------------------------------------------------
 
-# The kernel's per-layer weights, in the order of its pointer table.
-_LAYER_LEAVES = (
-    ("norm1", "scale"), ("norm1", "bias"), ("attn", "wq"), ("attn", "bq"),
-    ("attn", "wk"), ("attn", "bk"), ("attn", "wv"), ("attn", "bv"),
-    ("attn", "wo"), ("attn", "bo"), ("norm2", "scale"), ("norm2", "bias"),
-    ("ffn1", "w"), ("ffn1", "b"), ("ffn2", "w"), ("ffn2", "b"),
+# The kernel's per-layer float32 vectors and the matrices whose column shares
+# it packs, each in its packed order (csrc/head.cu `Vec`: the d-wide vectors,
+# then FFN1's bias).
+_LAYER_VECS = (
+    ("norm1", "scale"), ("norm1", "bias"), ("attn", "bq"), ("attn", "bk"), ("attn", "bv"),
+    ("attn", "bo"), ("norm2", "scale"), ("norm2", "bias"), ("ffn2", "b"), ("ffn1", "b"),
 )
+_LAYER_MATRICES = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                   ("ffn1", "w"), ("ffn2", "w"))
 _MAX_HEAD_LAYERS = 8  # csrc/head.cu kMaxLayers
+_HEAD_CLUSTERS = (8, 16)  # launch 2's cluster sizes, the first whose shares fit
+_SMEM_MAX = 227 * 1024  # shared memory a block may use
+_HEAD_CACHE_SIZE = 8
+
+
+class HeadSharePlan(NamedTuple):
+    """Column shares of ``csrc/head.cu``'s launch 2: block r of a cluster
+    owns the d-wide columns [bd[r], bd[r+1]) of Wq, Wk, Wv, Wo and FFN2, and
+    the FFN-wide columns [bf[r], bf[r+1]) of FFN1; its packed shares of
+    every layer start at element off[r] of the packed buffer (off[-1]: the
+    buffer's size).  ``w_cap`` bf16 elements of weights, ``t_cap`` tasks and
+    ``smem`` bytes of shared memory a block."""
+
+    cluster: int
+    bd: Tuple[int, ...]
+    bf: Tuple[int, ...]
+    off: Tuple[int, ...]
+    w_cap: int
+    t_cap: int
+    smem: int
+
+
+def _shares(n: int, parts: int) -> Tuple[int, ...]:
+    """Bounds of ``parts`` shares of n columns, each a multiple of 8, as even
+    as they come (empty shares when n / 8 < parts)."""
+    units = n // 8
+    return tuple(8 * (units * r // parts) for r in range(parts + 1))
+
+
+def _up16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _head_smem(w_cap, t_cap, n_layers, np_, d, ff, heads, kmax) -> int:
+    """Bytes of launch 2's shared memory (csrc/head.cu ``head_smem``)."""
+    rows = -(-np_ // 16) * 16
+    return (_up16(2 * w_cap) + 4 * n_layers * (9 * d + ff) + _up16(4 * t_cap * d)
+            + _up16(4 * t_cap * d * kmax) + _up16(4 * np_ * d)
+            + max(3 * _up16(4 * np_ * (d + 4)), 2 * _up16(2 * rows * (ff + 8)))
+            + 2 * _up16(2 * rows * (d + 8))
+            + _up16(4 * heads * np_ * np_) + _up16(4 * t_cap * np_) + _up16(4 * t_cap * d)
+            + 8 * (_MAX_HEAD_LAYERS + 1))
+
+
+def head_share_plan(np_: int, d: int, ff: int, heads: int, n_layers: int, ntask: int, kmax: int,
+                    cluster: Optional[int] = None) -> HeadSharePlan:
+    """The column shares of the fused head's launch 2 on the first cluster
+    size of (8, 16) (or ``cluster``) whose per-block shared memory fits in
+    227 KB; raises ValueError naming the limit when none does."""
+    if n_layers == 0:
+        ff, heads = 0, 1
+    need = None
+    for cs in (cluster,) if cluster else _HEAD_CLUSTERS:
+        bd = _shares(d, cs)
+        bf = _shares(ff, cs)
+        regions = [n_layers * (4 * d * (bd[r + 1] - bd[r]) + d * (bf[r + 1] - bf[r])
+                               + ff * (bd[r + 1] - bd[r])) for r in range(cs)]
+        off = tuple(int(v) for v in np.concatenate([[0], np.cumsum(regions)]))
+        t_cap = -(-ntask // cs)
+        smem = _head_smem(max(regions), t_cap, n_layers, np_, d, ff, heads, kmax)
+        if smem <= _SMEM_MAX:
+            return HeadSharePlan(cs, bd, bf, off, max(regions), t_cap, smem)
+        need = smem
+    raise ValueError(
+        f"fused_head: d={d}, ffn={ff}, {n_layers} layers need {need} bytes of shared memory a "
+        f"block even on clusters of {cluster or _HEAD_CLUSTERS[-1]}; the limit is {_SMEM_MAX}"
+    )
+
+
+def pack_head_shares(layers, plan: HeadSharePlan) -> torch.Tensor:
+    """Every block's column shares of every layer matrix, packed for
+    launch 2: block by block, layer by layer, Wq Wk Wv Wo FFN1 FFN2, each
+    share [in, cols] row-major -> one flat bf16 tensor of ``plan.off[-1]``
+    elements (8 zeros when there is nothing to pack)."""
+    pieces = []
+    for r in range(plan.cluster):
+        cols = {"d": slice(plan.bd[r], plan.bd[r + 1]), "f": slice(plan.bf[r], plan.bf[r + 1])}
+        for lp in layers:
+            for grp, leaf in _LAYER_MATRICES:
+                sl = cols["f" if grp == "ffn1" else "d"]
+                pieces.append(lp[grp][leaf][:, sl].reshape(-1))
+    if not pieces or plan.off[-1] == 0:
+        dev = layers[0]["attn"]["wq"].device if layers else "cpu"
+        return torch.zeros(8, dtype=torch.bfloat16, device=dev)
+    return torch.cat(pieces).contiguous()
 
 
 def fused_head_plain(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torch.Tensor:
@@ -475,26 +562,33 @@ def fused_head_plain(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torc
     return stacked_task_heads(task_query_pool(x, folded["queries"]), folded["heads"])
 
 
-def fused_head(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torch.Tensor:
-    """Gram tokens [B, Np, gc*gc] + a ``fold_head_weights`` tree (bf16 or
-    q8) -> stacked logits [B, T, Kmax]: ``token_proj``, the fold's
-    transformer layers, task-query pooling and the heads.
+def _head_leaves(folded: Dict[str, Any]):
+    """Every tensor the fused head reads, in a fixed order."""
+    tp = folded["token_proj"]
+    leaves = [tp[k] for k in ("w8", "scale", "w", "b") if k in tp]
+    for lp in folded.get("transformer", ()):
+        leaves += [lp[g][k] for g, k in _LAYER_VECS + _LAYER_MATRICES]
+    return leaves + [folded["queries"], folded["heads"]["w"], folded["heads"]["b"]]
 
-    CPU tensor: the plain version.  CUDA tensor: the ``fused_head`` kernel
-    (two launches, counted as one call).
-    """
-    if tokens.device.type == "cpu":
-        return fused_head_plain(tokens, folded, spec)
-    _require_cuda(tokens, "fused_head")
-    if tokens.ndim != 3:
-        raise ValueError(f"fused_head: expected tokens [B, Np, D], got {tuple(tokens.shape)}")
-    dev = tokens.device
-    _check_cuda("fused_head tokens", tokens, torch.float32, dev)
-    b, npatch, din = tokens.shape
+
+_head_cache: Dict[int, Tuple[Any, Tuple, Dict[str, Any]]] = {}
+
+
+def _head_state(folded: Dict[str, Any], spec, npatch: int, dev: torch.device,
+                cluster: Optional[int]) -> Dict[str, Any]:
+    """The fold's checked launch state: its plan, packed shares and pointer
+    tables.  Built once per fold object and kept while the fold's tensors
+    keep their storage; a fold whose tensors are replaced is checked again.
+    (The fold is read as immutable: its shares are copied once.)"""
+    key = (tuple(t.data_ptr() for t in _head_leaves(folded)), spec.transformer_heads, npatch,
+           dev, cluster)
+    hit = _head_cache.get(id(folded))
+    if hit is not None and hit[0] is folded and hit[1] == key:
+        return hit[2]
     tp = folded["token_proj"]
     q8 = "w8" in tp
     w = tp["w8"] if q8 else tp["w"]
-    d = w.shape[-1]
+    din, d = w.shape
     _check_cuda("fused_head token_proj", w, torch.int8 if q8 else torch.bfloat16, dev, (din, d))
     scale = None
     if q8:
@@ -506,35 +600,86 @@ def fused_head(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torch.Tens
         raise ValueError(f"fused_head: at most {_MAX_HEAD_LAYERS} layers, got {len(layers)}")
     ff = layers[0]["ffn1"]["w"].shape[-1] if layers else 0
     heads = spec.transformer_heads
-    if layers and (d % heads or d % 16 or ff % 16):
+    if d % 8 or (layers and (d % 16 or d > 256 or ff % 16 or d % heads or (d // heads) % 4)):
         raise ValueError(
-            f"fused_head: the kernel takes model and FFN widths that are multiples of 16 "
-            f"and divide into the heads; got d={d}, ffn={ff}, {heads} heads"
+            f"fused_head: the kernel takes model widths up to 256, model and FFN widths that "
+            f"are multiples of 16 and heads of a multiple of 4 wide (without layers: d a "
+            f"multiple of 8); got d={d}, ffn={ff}, {heads} heads"
         )
-    ffn_shapes = {("ffn1", "w"): (d, ff), ("ffn1", "b"): (ff,), ("ffn2", "w"): (ff, d)}
-    ptrs = []
+    shapes = {("ffn1", "w"): (d, ff), ("ffn1", "b"): (ff,), ("ffn2", "w"): (ff, d)}
     for li, lp in enumerate(layers):
-        for grp, leaf in _LAYER_LEAVES:
+        for grp, leaf in _LAYER_VECS + _LAYER_MATRICES:
             t = lp[grp][leaf]
             matrix = leaf.startswith("w")
-            shape = ffn_shapes.get((grp, leaf), (d, d) if matrix else (d,))
-            dtype = torch.bfloat16 if matrix else torch.float32
-            _check_cuda(f"fused_head layer {li} {grp}.{leaf}", t, dtype, dev, shape)
-            ptrs.append(t.data_ptr())
+            shape = shapes.get((grp, leaf), (d, d) if matrix else (d,))
+            _check_cuda(f"fused_head layer {li} {grp}.{leaf}", t,
+                        torch.bfloat16 if matrix else torch.float32, dev, shape)
+    vecs = (torch.stack([torch.cat([lp[g][k] for g, k in _LAYER_VECS]) for lp in layers])
+            if layers else torch.zeros(4, dtype=torch.float32, device=dev))
     queries, hw, hb = folded["queries"], folded["heads"]["w"], folded["heads"]["b"]
     ntask, kmax = hb.shape
     _check_cuda("fused_head queries", queries, torch.float32, dev, (ntask, d))
     _check_cuda("fused_head heads w", hw, torch.float32, dev, (ntask, d, kmax))
     _check_cuda("fused_head heads b", hb, torch.float32, dev, (ntask, kmax))
+    if queries.data_ptr() % 16 or hw.data_ptr() % 16:
+        raise ValueError("fused_head: queries and head weights must be 16-byte aligned")
+    plan = head_share_plan(npatch, d, ff, heads, len(layers), ntask, kmax, cluster)
+    ints = ctypes.c_int * (plan.cluster + 1)
+    state = {
+        "q8": q8, "w": w, "scale": scale, "b": tp["b"], "d": d, "din": din, "ff": ff,
+        "heads": heads, "ntask": ntask, "kmax": kmax, "n_layers": len(layers), "plan": plan,
+        "packed": pack_head_shares(layers, plan), "queries": queries, "hw": hw, "hb": hb,
+        "vecs": vecs.contiguous(),
+        "bd": ints(*plan.bd), "bf": ints(*plan.bf), "off": ints(*plan.off),
+    }
+    if len(_head_cache) >= _HEAD_CACHE_SIZE:
+        _head_cache.pop(next(iter(_head_cache)))
+    _head_cache[id(folded)] = (folded, key, state)
+    return state
+
+
+def fused_head(tokens: torch.Tensor, folded: Dict[str, Any], spec) -> torch.Tensor:
+    """Gram tokens [B, Np, gc*gc] + a ``fold_head_weights`` tree (bf16 or
+    q8) -> stacked logits [B, T, Kmax]: ``token_proj``, the fold's
+    transformer layers, task-query pooling and the heads.
+
+    CPU tensor: the plain version.  CUDA tensor: the ``fused_head`` kernel
+    (two launches, counted as one call; the second one cluster of 8 or 16
+    blocks per image on :func:`head_share_plan`'s column shares).
+    """
+    if tokens.device.type == "cpu":
+        return fused_head_plain(tokens, folded, spec)
+    return _fused_head_launch(tokens, folded, spec)
+
+
+def _fused_head_launch(tokens: torch.Tensor, folded: Dict[str, Any], spec, stages: int = 3,
+                       cluster: Optional[int] = None, out: Optional[torch.Tensor] = None,
+                       partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fused_head``'s launches on a CUDA tensor: ``stages`` 1 runs launch 1
+    only (into ``partial``), 2 launch 2 only (from ``partial``), 3 both;
+    ``cluster`` forces launch 2's cluster size.  Only the full call counts
+    as a launch."""
+    _require_cuda(tokens, "fused_head")
+    if tokens.ndim != 3:
+        raise ValueError(f"fused_head: expected tokens [B, Np, D], got {tuple(tokens.shape)}")
+    dev = tokens.device
+    b, npatch, din = tokens.shape
+    st = _head_state(folded, spec, npatch, dev, cluster)
+    _check_cuda("fused_head tokens", tokens, torch.float32, dev, (b, npatch, st["din"]))
     chunks = -(-din // _HEAD_CHUNK_ROWS)
-    partial = torch.empty((chunks, b * npatch, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, ntask, kmax), dtype=torch.float32, device=dev)
-    table = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    if partial is None:
+        partial = torch.empty((chunks, b * npatch, st["d"]), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((b, st["ntask"], st["kmax"]), dtype=torch.float32, device=dev)
+    plan = st["plan"]
     lib = build()
-    _launch("fused_head", lib.wadt_fused_head, dev, tokens.data_ptr(), w.data_ptr(), int(q8),
-            scale.data_ptr() if q8 else None, tp["b"].data_ptr(), table, len(layers),
-            queries.data_ptr(), hw.data_ptr(), hb.data_ptr(), partial.data_ptr(), chunks,
-            out.data_ptr(), b, npatch, din, d, ff, heads, ntask, kmax)
+    _launch("fused_head", lib.wadt_fused_head, dev, tokens.data_ptr(), st["w"].data_ptr(),
+            int(st["q8"]), st["scale"].data_ptr() if st["q8"] else None, st["b"].data_ptr(),
+            st["packed"].data_ptr(), st["vecs"].data_ptr(), st["n_layers"], st["bd"], st["bf"],
+            st["off"], plan.cluster, plan.w_cap, plan.t_cap, st["queries"].data_ptr(),
+            st["hw"].data_ptr(), st["hb"].data_ptr(), partial.data_ptr(), chunks, out.data_ptr(),
+            b, npatch, din, st["d"], st["ff"], st["heads"], st["ntask"], st["kmax"], stages,
+            count=stages == 3)
     return out
 
 
@@ -586,27 +731,88 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
 # ---------------------------------------------------------------------------
 
 
-def gram_proj_plain(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gram_proj_plain(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch token projection: ``float(g) @ float(w) + b`` in float32
-    (the products of bf16 values are exact in float32)."""
-    return torch.matmul(g.float(), w.float()) + b.float()
+    (the products of bf16 values are exact in float32), then one cast to
+    ``out_dtype``."""
+    return (torch.matmul(g.float(), w.float()) + b.float()).to(out_dtype)
 
 
-def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+class GramProjPlan(NamedTuple):
+    """Launch plan of ``csrc/gram_proj.cu``: output tiles of 128 rows by
+    ``tile_n`` columns, K cut into ``splits`` slices of whole 64-deep
+    tiles, one cluster of ``splits`` blocks per output tile."""
+
+    tile_n: int
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    splits: int
+    one_wave: bool  # every cluster is resident at once (see gram_proj_plan)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.splits, self.m_tiles, self.n_tiles)
+
+    @property
+    def cluster(self) -> Tuple[int, int, int]:
+        return (self.splits, 1, 1)
+
+    def k_slice(self, s: int) -> Tuple[int, int]:
+        """[first, end) 64-deep tiles of K slice ``s``, as the kernel cuts them."""
+        base, rem = divmod(self.k_tiles, self.splits)
+        first = s * base + min(s, rem)
+        return first, first + base + (1 if s < rem else 0)
+
+
+_GRAM_PROJ_WIDTHS = (64, 128, 192, 256)  # the kernel's compile-time tile widths
+GRAM_PROJ_TILE_M, _GRAM_PROJ_BK = 128, 64  # its tile height and K step
+_GRAM_PROJ_MAX_SPLITS = 8  # the portable cluster size
+_GPC_SMS = 16  # a cluster runs inside one GPC; the H100 SXM has 8 of about 16 SMs
+
+
+def _one_wave(tiles: int, splits: int, sms: int) -> bool:
+    """Whether ``tiles`` clusters of ``splits`` blocks (one block per SM) are
+    all resident at once: at most one block per SM, and clusters counted
+    per GPC, ``16 // splits`` in each of ``sms // 16``."""
+    return tiles * splits <= sms and tiles <= (sms // _GPC_SMS) * (_GPC_SMS // splits)
+
+
+@functools.lru_cache(maxsize=64)
+def gram_proj_plan(m: int, n: int, k: int, sms: int) -> GramProjPlan:
+    """The launch plan of K5 for G [m, k] x W [k, n] on a card of ``sms`` SMs:
+    the narrowest tile width that holds n (256-wide tiles beyond), and the
+    most K slices (at most 8, at most one per 64-deep tile) whose clusters
+    are all resident at once.  (At the main shape, [2304, 9216] x [9216,
+    192] on 132 SMs: 18 tiles, 5 slices, 90 blocks.)"""
+    tile_n = next((t for t in _GRAM_PROJ_WIDTHS if t >= n), _GRAM_PROJ_WIDTHS[-1])
+    m_tiles, n_tiles = -(-m // GRAM_PROJ_TILE_M), -(-n // tile_n)
+    k_tiles = -(-k // _GRAM_PROJ_BK)
+    tiles = m_tiles * n_tiles
+    splits = next((s for s in range(min(_GRAM_PROJ_MAX_SPLITS, k_tiles), 0, -1)
+                   if _one_wave(tiles, s, sms)), 1)
+    return GramProjPlan(tile_n, m_tiles, n_tiles, k_tiles, splits, _one_wave(tiles, splits, sms))
+
+
+def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Gram tokens g bf16 [B, Np, C*C] (the row-major per-patch Gram,
     flattened), ``token_proj`` w bf16 [C*C, N] in its own order, bias b
-    float32 [N] -> float32 [B, Np, N] = ``g @ w + b``, summed in float32.
+    float32 [N] -> [B, Np, N] = ``g @ w + b``, summed in float32, written as
+    float32 or rounded once to bf16 (``out_dtype``).
 
     Replaces ``make_proj_kernel.proj`` (``tools/exp_pmg_projkernel.py:65``),
     which took w transposed to d-major; the Gram is symmetric, so the two
     are the same product.  CPU tensor: the plain version.  CUDA tensor: the
-    ``gram_proj`` kernel, contiguous tensors with K and N multiples of 8
-    and g and w 16-byte aligned only (every spec's C*C and d_model are);
-    K is split into slices (float32 scratch, a second launch adds them)
-    until there are about eight blocks per SM.
+    ``gram_proj`` kernel on :func:`gram_proj_plan`'s launch plan, contiguous
+    tensors with K and N multiples of 8 and g, w and b 16-byte aligned only
+    (every spec's C*C and d_model are).
     """
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gram_proj: out_dtype must be float32 or bfloat16, got {out_dtype}")
     if g.device.type == "cpu":
-        return gram_proj_plain(g, w, b)
+        return gram_proj_plain(g, w, b, out_dtype)
     _require_cuda(g, "gram_proj")
     if g.ndim != 3 or w.ndim != 2:
         raise ValueError(
@@ -619,20 +825,18 @@ def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     _check_cuda("gram_proj g", g, torch.bfloat16, dev)
     _check_cuda("gram_proj w", w, torch.bfloat16, dev, (k, n))
     _check_cuda("gram_proj b", b, torch.float32, dev, (n,))
-    if k % 8 or n % 8 or g.data_ptr() % 16 or w.data_ptr() % 16:
+    if k % 8 or n % 8 or g.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(
-            f"gram_proj: K = {k} and N = {n} must be multiples of 8, and g and w 16-byte aligned"
+            f"gram_proj: K = {k} and N = {n} must be multiples of 8, and g, w and b 16-byte aligned"
         )
-    out = torch.empty((bsz, npatch, n), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, npatch, n), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    m, t = bsz * npatch, _GRAM_PROJ_TILE
-    tiles = -(-m // t) * -(-n // t)
-    splits = max(1, min(-(-_GRAM_PROJ_BLOCKS_PER_SM * _sm_count(dev) // tiles), k // (8 * t)))
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1 else None
+    plan = gram_proj_plan(bsz * npatch, n, k, _sm_count(dev))
     lib = build()
     _launch("gram_proj", lib.wadt_gram_proj_bf16, dev, g.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(), m, n, k, splits)
+            out.data_ptr(), int(out_dtype == torch.bfloat16), bsz * npatch, n, k, plan.tile_n,
+            plan.splits)
     return out
 
 

@@ -164,6 +164,15 @@ def _gram_proj_call():
     return ck.gram_proj, (g, w, b), ck.gram_proj_plain
 
 
+def _gram_proj_two_bands_call():
+    """M = 150: a second, ragged band of output rows; bf16 output."""
+    rng = np.random.RandomState(8)
+    g = torch.from_numpy(rng.randn(3, 50, 512).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.randn(512, 64).astype(np.float32) * 0.05).to(torch.bfloat16)
+    b = torch.from_numpy(rng.randn(64).astype(np.float32))
+    return ck.gram_proj, (g, w, b, torch.bfloat16), ck.gram_proj_plain
+
+
 def _gram_bf16_call():
     x = torch.from_numpy(np.random.RandomState(6).randn(2, 7, 5, 16).astype(np.float32))
     return ck.patch_gram, (x.to(torch.bfloat16), 2), ck.patch_gram_plain
@@ -236,18 +245,38 @@ def test_patch_gram_keeps_bf16_and_rounds_once():
                                atol=0, rtol=0)
 
 
+def _to_device(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, device) for v in x)
+    return x
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [_gram_call, _stem_call, _gram_proj_call, _gram_bf16_call],
-                         ids=["patch_gram", "stem", "gram_proj", "patch_gram_bf16"])
+@pytest.mark.parametrize("case", [_gram_call, _stem_call, _gram_proj_call, _gram_bf16_call,
+                                  _head_call, _gram_proj_two_bands_call],
+                         ids=["patch_gram", "stem", "gram_proj", "patch_gram_bf16", "fused_head",
+                              "gram_proj_two_bands"])
 def test_kernel_matches_plain_on_card(case, cuda_device):
     wrapper, args, plain = case()
-    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
+    args = _to_device(args, cuda_device)
     ck.reset_launches()
     got = wrapper(*args)
     torch.cuda.synchronize()
     assert sum(ck.LAUNCHES.values()) == 1
     want = plain(*args)
-    if case is _gram_proj_call:  # float32 sums in another order: 1e-4 x max|y|
+    assert torch.equal(wrapper(*args), got)  # no order that depends on the run
+    if case is _head_call:  # csrc/head.cu's float32 sums in another order
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+    elif case is _gram_proj_two_bands_call:  # float32 sums in another order, rounded once:
+        # one bf16 ulp apart at most (2^-7 of the value), 1e-4 x max|y| near zero
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=1e-4 * float(want.float().abs().max()), rtol=2 ** -7)
+    elif case is _gram_proj_call:  # float32 sums in another order: 1e-4 x max|y|
         torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
     elif case is _gram_bf16_call:  # one rounding of the same float32 sums
         torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=2 ** -8)
