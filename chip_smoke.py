@@ -19,8 +19,11 @@ Phases, each of which raises on failure:
    path, and ``prob_threshold=0.99`` gives all Unknown;
 5. times (CUDA events; card name and power limit beside them): each kernel,
    its plain version and one PyTorch library call that computes the same
-   function, beside the least time the card could take; the engine's
-   images per second end to end and on device-resident batches.
+   function, beside the least time the card could take (K1: ``torch.baddbmm``
+   on the split patches, with ``torch.bmm`` and the ``split_patches`` copy
+   they need timed apart; the archived K1 in turns where ``_archive/``
+   holds it); the engine's images per second end to end and on
+   device-resident batches.
    ``--profile`` adds a ``torch.profiler`` table of device time by kernel
    over a few device-resident steps;
 6. the camera path's kernels against their plain versions on the card: the
@@ -38,7 +41,8 @@ Phases, each of which raises on failure:
 9. camera times: both camera kernels at batch 1 beside their bounds and
    plain versions, the fused head's two launches apart (and, where the
    gitignored ``_archive/`` holds the previous kernel sources, the previous
-   fused head in turns with the new one), and per-frame latency of three
+   fused trunk + Gram and fused head in turns with the new ones), and
+   per-frame latency of three
    routes: device time per
    step back to back, one step's device span on an idle card and the host
    time to enqueue it, and host wall time per frame from ``submit`` to the
@@ -68,8 +72,9 @@ Phases, each of which raises on failure:
     ``torch.bmm`` yardstick and ``torch._weight_int8pack_mm`` where this
     torch has it;
 14. the bf16 path's kernels on the card at its shapes: K1 in bf16 against
-    its plain version at batch 256 and on two ragged shapes (one bf16 ulp),
-    with its time and bound; K2 on the bf16 path's folded operands
+    its plain version at batch 256 and on two ragged shapes (atol 0, rtol
+    2^-8; two calls bit-identical), with its time, bound and yardsticks
+    (and the archived K1 in turns); K2 on the bf16 path's folded operands
     (identity affine, no LeakyReLU) at 2e-4; the bf16 ``linear`` (one
     cuBLAS call) within one bf16 ulp of the float32 product plus bias
     rounded; the bf16 token projection kernel (K5, ``gram_proj``) against
@@ -98,7 +103,8 @@ Phases, each of which raises on failure:
     per second.
 
 ``--profile`` also prints, for phases 15-17, each step's device kernels,
-kernel time and table of device time by kernel.  Host times come from runs
+kernel time and table of device time by kernel, and in phase 14 K1's bf16
+time with its work cut stage by stage.  Host times come from runs
 without ``--profile``: once a profiler session has run, the host's launch
 cost stays higher for the rest of the process.
 
@@ -250,38 +256,66 @@ def tree_nbytes(tree) -> int:
 
 
 ARCHIVE = "_archive"  # gitignored: earlier kernel versions kept for an A/B in one call
+# archived source -> the C entry points it holds and their argument types
+# (ctypes.c_void_p for pointers and the stream, c_int for sizes)
+ARCHIVED = {
+    "gram_proj_v2.cu": {"wadt_gram_proj_bf16": "PPPPPIIIIP"},
+    "head_v2.cu": {"wadt_fused_head": "PPIPPTIPPPPIPIIIIIIIIP"},
+    "patch_gram_v1.cu": {"wadt_patch_gram_f32": "PPIIIIIP", "wadt_patch_gram_bf16": "PPIIIIIP"},
+    "trunk_gram_v1.cu": {"wadt_trunk_gram_u8": "PPPPPPPPPPIIIIIIIIIIIP"},
+}
 
 
-def archived_kernels():
-    """The previous versions of K5 and K4 (``_archive/gram_proj_v2.cu`` and
-    ``_archive/head_v2.cu``, a copy of the parent commit's sources that is
-    not committed), built into one library of their own, or None where the
-    checkout has no such copy."""
+def archived_kernels() -> dict:
+    """The previous versions of the redesigned kernels that the gitignored
+    ``_archive/`` holds (copies of earlier commits' sources, not committed:
+    K5 and K4 as ``gram_proj_v2.cu`` and ``head_v2.cu``, K1 and K3 as
+    ``patch_gram_v1.cu`` and ``trunk_gram_v1.cu``; each optional), built
+    into one library of their own: entry point name -> ctypes function.
+    Empty where the checkout has none of them."""
     import ctypes
 
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
         cuda_kernels as ck,
     )
 
-    srcs = [os.path.join(ARCHIVE, f) for f in ("gram_proj_v2.cu", "head_v2.cu")]
-    if not all(os.path.isfile(f) for f in srcs):
-        return None
+    srcs = [f for f in ARCHIVED if os.path.isfile(os.path.join(ARCHIVE, f))]
+    if not srcs:
+        return {}
     out = os.path.join(ARCHIVE, "build")
     os.makedirs(out, exist_ok=True)
-    objs = [os.path.join(out, os.path.basename(f) + ".o") for f in srcs]
+    objs = [os.path.join(out, f + ".o") for f in srcs]
     nvcc = ck._nvcc()
-    ck._run_all([[nvcc, *ck._NVCC_FLAGS, "-c", f, "-o", o] for f, o in zip(srcs, objs)], "nvcc (archive)")
-    so = os.path.join(out, "libv2.so")
+    ck._run_all([[nvcc, *ck._NVCC_FLAGS, "-c", os.path.join(ARCHIVE, f), "-o", o]
+                 for f, o in zip(srcs, objs)], "nvcc (archive)")
+    so = os.path.join(out, "libarchived.so")
     ck._run_all([[nvcc, "-shared", *objs, "-o", so]], "nvcc link (archive)")
     lib = ctypes.CDLL(os.path.abspath(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wadt_gram_proj_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.wadt_fused_head.argtypes = [ptr, ptr, i32, ptr, ptr, ctypes.POINTER(ptr), i32, ptr, ptr, ptr,
-                                    ptr, i32, ptr] + [i32] * 8 + [ptr]
-    return lib
+    kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int, "T": ctypes.POINTER(ctypes.c_void_p)}
+    fns = {}
+    for f in srcs:
+        for name, sig in ARCHIVED[f].items():
+            fn = getattr(lib, name)
+            fn.argtypes = [kinds[c] for c in sig]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
 
 
-def archived_head_call(lib, tokens, fold, spec):
+def archived_call(fn, *args):
+    """A function that runs an archived kernel on the current stream and
+    raises if its launch fails."""
+    import torch
+
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"archived kernel failed: {err}")
+
+    return run
+
+
+def archived_head_call(fused_head, tokens, fold, spec):
     """A function that runs the archived K4 (two launches) on ``tokens``."""
     import ctypes
 
@@ -305,7 +339,7 @@ def archived_head_call(lib, tokens, fold, spec):
     out = torch.empty((b, ntask, kmax), dtype=torch.float32, device=tokens.device)
 
     def run():
-        err = lib.wadt_fused_head(
+        err = fused_head(
             tokens.data_ptr(), w.data_ptr(), int(q8), tp["scale"].data_ptr() if q8 else None,
             tp["b"].data_ptr(), table, len(layers), fold["queries"].data_ptr(),
             fold["heads"]["w"].data_ptr(), fold["heads"]["b"].data_ptr(), partial.data_ptr(), chunks,
@@ -397,7 +431,7 @@ def kernels_per_step(routes, profile: bool) -> None:
             print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
 
 
-def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None) -> list:
+def camera_phases(profile: bool, card: str, spec, params, routes: list, old: dict) -> list:
     """Phases 6-9 (the camera path) on the shipped ``spec`` and ``params``
     (on the card); returns the camera kernels' entries of the kernels line
     and appends each timed route to ``routes``."""
@@ -427,6 +461,8 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None
         torch.cuda.synchronize()
         k3_err = max(k3_err, max_err(got, ck.fused_trunk_gram_plain(xb, trunk_w, spec), K3_TOL,
                                      K3_TOL, f"fused_trunk_gram [{xb.shape[0]},224,224,3]"))
+        if not torch.equal(ck.fused_trunk_gram(xb, trunk_w, spec), got):
+            raise AssertionError(f"fused_trunk_gram batch {xb.shape[0]}: two calls differ")
     # ragged: a 7x7 final map, replicate-padded to 9x9 for div 3; 120 px
     # wide leaves 8 columns beyond a multiple of K = 16
     rag_spec = pmg.build_spec({"a": ["x", "y"]}, dict(
@@ -435,12 +471,16 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None
     rag_w = ck.fold_trunk_gram_weights(
         checkpoint.to_device(random_pmg_params(rag_spec, rng), dev), rag_spec)
     xr = torch.from_numpy(rng.randint(0, 256, (2, 112, 120, 3), np.uint8)).to(dev)
-    rag_err = max_err(ck.fused_trunk_gram(xr, rag_w, rag_spec),
-                      ck.fused_trunk_gram_plain(xr, rag_w, rag_spec), K3_TOL, K3_TOL,
+    got = ck.fused_trunk_gram(xr, rag_w, rag_spec)
+    rag_err = max_err(got, ck.fused_trunk_gram_plain(xr, rag_w, rag_spec), K3_TOL, K3_TOL,
                       "fused_trunk_gram ragged [2,112,120,3]")
+    if not torch.equal(ck.fused_trunk_gram(xr, rag_w, rag_spec), got):
+        raise AssertionError("fused_trunk_gram ragged: two calls differ")
     torch.cuda.synchronize()
     print(f"[6] fused_trunk_gram vs plain: max abs err {k3_err:.3e} (batch 1 and 8), "
-          f"{rag_err:.3e} (ragged), atol/rtol {K3_TOL}")
+          f"{rag_err:.3e} (ragged), atol/rtol {K3_TOL}, two calls bit-identical; clusters of "
+          f"{ck.trunk_gram_plan(spec, 224, 224).cluster} (shipped) and "
+          f"{ck.trunk_gram_plan(rag_spec, 112, 120).cluster} (ragged) blocks a patch")
 
     tokens8 = ck.fused_trunk_gram_plain(x8, trunk_w, spec)
     tokens1 = tokens8[:1].contiguous()
@@ -552,6 +592,14 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None
         # no single PyTorch call computes a conv chain and a per-patch Gram
         "library_ms": None,
     }]
+    if "wadt_trunk_gram_u8" in old:  # the archived K3 (one block per patch) in turns
+        t_old = torch.empty_like(tokens1)
+        old_ms, new_ms = in_turns(
+            archived_call(old["wadt_trunk_gram_u8"], x1.data_ptr(), *(t.data_ptr() for t in trunk_w),
+                          t_old.data_ptr(), 1, 224, 224, b0.cin, k1, k2, b0.cout, b1.cout, b2.cout, gc, div),
+            lambda: ck.fused_trunk_gram(x1, trunk_w, spec))
+        print(f"[9] fused_trunk_gram at batch 1 in turns: archived v1 {old_ms * 1e3:.1f} us, new "
+              f"{new_ms * 1e3:.1f} us ({ck.trunk_gram_plan(spec, 224, 224).cluster} blocks a patch) | {card}")
     fb = folds["bf16"]
     d, npatch, din = spec.d_model, tokens1.shape[1], tokens1.shape[2]
     ff = fb["transformer"][0]["ffn1"]["w"].shape[1]
@@ -587,8 +635,8 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old=None
     print(f"[9] fused_head at batch 1, launches apart: launch 1 {l1_ms * 1e3:.1f} us, launch 2 "
           f"{l2_ms * 1e3:.1f} us (clusters of {plan.cluster}, {plan.smem} bytes of shared memory a "
           f"block) | {card}")
-    if old is not None:  # the archived K4 (launch 2 on one block per image) in turns
-        old_ms, new_ms = in_turns(archived_head_call(old, tokens1, fb, spec),
+    if "wadt_fused_head" in old:  # the archived K4 (launch 2 on one block per image) in turns
+        old_ms, new_ms = in_turns(archived_head_call(old["wadt_fused_head"], tokens1, fb, spec),
                                   lambda: ck.fused_head(tokens1, fb, spec))
         print(f"[9] fused_head at batch 1 in turns: archived v2 {old_ms * 1e3:.1f} us, new "
               f"{new_ms * 1e3:.1f} us | {card}")
@@ -876,6 +924,81 @@ def agreement(a, b):
     return float((a.argmax(-1) == b.argmax(-1)).mean()), float(np.abs(a - b).max())
 
 
+def k1_yardsticks(z, div: int) -> dict:
+    """Device times (ms) of K1's library yardsticks on NHWC ``z``: one
+    ``torch.baddbmm`` of the split patches (P^T P times 1/area, the whole
+    arithmetic), ``torch.bmm`` (P^T P), and the ``split_patches`` copy
+    (replicate pad and split) that both need first."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import gram
+
+    patches, area = gram.split_patches(z, div)
+    p = patches.reshape(-1, area, z.shape[-1])
+    pt = p.transpose(1, 2)
+    out = torch.empty((p.shape[0], z.shape[-1], z.shape[-1]), dtype=z.dtype, device=z.device)
+    return {
+        "baddbmm": device_ms(lambda: torch.baddbmm(out, pt, p, beta=0, alpha=1.0 / area)),
+        "bmm": device_ms(lambda: torch.bmm(pt, p)),
+        "split": device_ms(lambda: gram.split_patches(z, div)),
+    }
+
+
+# csrc/patch_gram.cu's bf16 epilogue, cut stage by stage for --profile: each
+# cut replaces these source lines (and keeps the cuts before it)
+K1_CUTS = (
+    ("the certificate's sequential recomputations",
+     (("if (b0 + lane < total) {", "if (false) {"),)),
+    ("the certificate",
+     (("if (d & 0xffffu) redo |= 1u << (k * 8 + e);", ";"),
+      ("if ((d >> 16) && j + 1 < C) redo |= 1u << (k * 8 + e + 1);", ";"))),
+    ("the tensor-core products", (("const int ksteps = up(nn, 16) / 16;", "const int ksteps = 0;"),)),
+)
+
+
+def k1_bf16_cuts(z16, div: int, card: str) -> None:
+    """``--profile``: K1 in bf16 on ``z16`` with its work cut stage by stage
+    (each cut a copy of ``csrc/patch_gram.cu`` built into the gitignored
+    ``csrc/_build/cuts/``; the outputs of a cut kernel are not checked):
+    what the recomputations, the certificate and the products each cost."""
+    import ctypes
+
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    src = open(os.path.join(ck._CSRC, "patch_gram.cu")).read()
+    out = os.path.join(ck._BUILD, "cuts")
+    os.makedirs(out, exist_ok=True)
+    nvcc = ck._nvcc()
+    flags = [f for f in ck._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    cmds, sos = [], []
+    for n, (label, subs) in enumerate(K1_CUTS):
+        for old, new in subs:
+            if old not in src:
+                raise AssertionError(f"K1 cut {label!r}: the source no longer holds {old!r}")
+            src = src.replace(old, new)
+        cu, so = os.path.join(out, f"cut{n}.cu"), os.path.join(out, f"cut{n}.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        cmds.append([nvcc, *flags, "-shared", cu, "-o", so])
+        sos.append((label, so))
+    ck._run_all(cmds, "nvcc (K1 cuts)")
+    b, h, w, c = z16.shape
+    plan = ck.patch_gram_plan(b, h, w, c, div, ck._sm_count(z16.device), True)
+    g = torch.empty((b, div * div, c * c), dtype=torch.bfloat16, device=z16.device)
+    times = [("whole", device_ms(lambda: ck.patch_gram(z16, div)))]
+    for label, so in sos:
+        fn = ctypes.CDLL(os.path.abspath(so)).wadt_patch_gram_bf16
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        times.append((f"without {label}", device_ms(archived_call(
+            fn, z16.data_ptr(), g.data_ptr(), b, h, w, c, div, plan.kc, plan.band, plan.grid))))
+    print("[14] patch_gram bf16 with its work cut stage by stage (each cut keeps the earlier ones): "
+          + ", ".join(f"{label} {ms * 1e3:.1f} us" for label, ms in times) + f" | {card}")
+
+
 def in_turns(fn_a, fn_b, **kw):
     """Device times of two functions measured in turns a, b, b, a; the
     median of each one's two."""
@@ -902,7 +1025,7 @@ def run_wall(eng, frames):
 
 
 def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile: bool,
-                    old=None) -> dict:
+                    old: dict) -> dict:
     """Phases 14-15: K5 against its plain version and timed, then the PMG
     bf16 batch path on the shipped checkpoint; returns K5's entry of the
     kernels line."""
@@ -914,7 +1037,7 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
-        cuda_kernels as ck, gram, nn,
+        cuda_kernels as ck, nn,
     )
 
     dev = torch.device("cuda", 0)
@@ -939,19 +1062,28 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
         zr = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(bf16)
         k1_rag = max(k1_rag, max_err(ck.patch_gram(zr, 2).float(), ck.patch_gram_plain(zr, 2).float(),
                                      0.0, 2 ** -8, f"patch_gram bf16 {list(shape)} div 2"))
+    if not torch.equal(ck.patch_gram(z16, spec.patch_div), g16):
+        raise AssertionError("patch_gram bf16: two calls on the same inputs differ")
     k1_ms = device_ms(lambda: ck.patch_gram(z16, spec.patch_div))
     k1_bound, k1_by = bound_ms(2 * (z16.numel() + g16.numel()), 0.0,
                                bf16_flops=2.0 * BATCH * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2)
-    # partial yardstick: torch.bmm in bf16 on the already split patches (no
-    # pad/split, no 1/area)
-    p16, _ = gram.split_patches(z16, spec.patch_div)
-    p16 = p16.reshape(-1, p16.shape[-2], spec.gram_channels).contiguous()
-    p16t = p16.transpose(1, 2)
-    k1_lib = device_ms(lambda: torch.bmm(p16t, p16))
+    yard = k1_yardsticks(z16, spec.patch_div)
     print(f"[14] patch_gram in bf16 (bf16 in and out, float32 sums) vs plain: max abs err {k1_err:.3e} "
           f"at [{BATCH},14,14,{spec.gram_channels}] div {spec.patch_div}, {k1_rag:.3e} at [2,7,5,12] and "
-          f"[2,7,5,18] div 2 (atol 0, rtol 2^-8); {k1_ms * 1e3:.1f} us (bound {k1_bound * 1e3:.1f} us "
-          f"by {k1_by}), torch.bmm bf16 on the split patches {k1_lib * 1e3:.1f} us | {card}")
+          f"[2,7,5,18] div 2 (atol 0, rtol 2^-8), two calls bit-identical; {k1_ms * 1e3:.1f} us (bound "
+          f"{k1_bound * 1e3:.1f} us by {k1_by}); yardsticks in bf16 on the split patches: torch.baddbmm "
+          f"(P^T P / area) {yard['baddbmm'] * 1e3:.1f} us, torch.bmm {yard['bmm'] * 1e3:.1f} us; the "
+          f"split_patches copy they need {yard['split'] * 1e3:.1f} us | {card}")
+    if "wadt_patch_gram_bf16" in old:  # the archived K1 in bf16 (one block per patch) in turns
+        g_old = torch.empty_like(g16)
+        old_ms, new_ms = in_turns(
+            archived_call(old["wadt_patch_gram_bf16"], z16.data_ptr(), g_old.data_ptr(), BATCH, 14, 14,
+                          spec.gram_channels, spec.patch_div),
+            lambda: ck.patch_gram(z16, spec.patch_div))
+        print(f"[14] patch_gram bf16 in turns: archived v1 {old_ms * 1e3:.1f} us, new {new_ms * 1e3:.1f} us"
+              f" | {card}")
+    if profile:
+        k1_bf16_cuts(z16, spec.patch_div, card)
     # K2 as the bf16 path runs it: identity affine plus the folded bias, no
     # LeakyReLU, on the bf16-rounded folded weight
     x8 = torch.from_numpy(frames[:BATCH]).to(dev)
@@ -1031,7 +1163,7 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     # yardstick: torch.matmul of the same bf16 operands (bf16 result, no bias)
     lib_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
     m, k = g16.shape[0] * g16.shape[1], g16.shape[2]
-    if old is not None:  # the archived K5 (wmma, split K through device memory) in turns
+    if "wadt_gram_proj_bf16" in old:  # the archived K5 (wmma, split K through device memory) in turns
         n = w16.shape[1]
         splits = 10
         part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
@@ -1039,7 +1171,7 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
         stream = torch.cuda.current_stream().cuda_stream
         ring_old = itertools.cycle(copies)
         old_ms, new_ms = in_turns(
-            lambda: old.wadt_gram_proj_bf16(next(ring_old).data_ptr(), w16.data_ptr(), b32.data_ptr(),
+            lambda: old["wadt_gram_proj_bf16"](next(ring_old).data_ptr(), w16.data_ptr(), b32.data_ptr(),
                                             out_old.data_ptr(), part.data_ptr(), m, n, k, splits, stream),
             lambda: ck.gram_proj(next(rings[0]), w16, b32))
         mm_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
@@ -1249,7 +1381,7 @@ def main() -> int:
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
-        cuda_kernels as ck, gram, norms, preprocess as pre,
+        cuda_kernels as ck, norms, preprocess as pre,
     )
 
     port.config.enable_parity_precision()
@@ -1261,7 +1393,7 @@ def main() -> int:
     ck.build(verbose=True)
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
     old = archived_kernels()
-    print(f"[1] archived K5/K4 versions for an A/B: {'built' if old else 'none in this checkout'}")
+    print(f"[1] archived kernel versions for an A/B: {', '.join(sorted(old)) or 'none in this checkout'}")
 
     # -- 2. kernels against their plain versions, on the card -------------
     rng = np.random.RandomState(0)
@@ -1269,6 +1401,8 @@ def main() -> int:
     g = ck.patch_gram(z, 3)
     torch.cuda.synchronize()
     gram_err = max_err(g, ck.patch_gram_plain(z, 3), 1e-5, 1e-5, "patch_gram [256,14,14,96] div 3")
+    if not torch.equal(ck.patch_gram(z, 3), g):
+        raise AssertionError("patch_gram: two calls on the same inputs differ")
     # ragged shapes: replicate pad, partial output tiles, and (C % 4 != 0)
     # the kernel's scalar load and store path
     rag_err = 0.0
@@ -1277,8 +1411,8 @@ def main() -> int:
         rag_err = max(rag_err, max_err(ck.patch_gram(zr, div), ck.patch_gram_plain(zr, div),
                                        1e-5, 1e-5, f"patch_gram {list(shape)} div {div}"))
     torch.cuda.synchronize()
-    print(f"[2] patch_gram vs plain: max abs err {gram_err:.3e} (main shape), "
-          f"{rag_err:.3e} (ragged), atol/rtol 1e-5")
+    print(f"[2] patch_gram vs plain: max abs err {gram_err:.3e} (main shape, two calls "
+          f"bit-identical), {rag_err:.3e} (ragged), atol/rtol 1e-5")
 
     x8 = torch.from_numpy(rng.randint(0, 256, (BATCH, 224, 224, 3), np.uint8)).to(dev)
     conv_w = torch.from_numpy(rng.randn(4, 4, 3, 32).astype(np.float32) * 0.1).to(dev)
@@ -1358,9 +1492,7 @@ def main() -> int:
     nbytes = z.numel() * 4 + g.numel() * 4
     flops = 2.0 * BATCH * 9 * 25 * 96 * 96 + g.numel()
     b_ms, b_by = bound_ms(nbytes, flops)
-    patches, area = gram.split_patches(z, 3)
-    p3 = patches.reshape(-1, area, 96).contiguous()
-    p3t = p3.transpose(1, 2)
+    k1_yard = k1_yardsticks(z, 3)
     kernels.append({
         "name": "patch_gram", "route": "cuda", "source": f"{PORT}/csrc/patch_gram.cu",
         "replaces": f"{JAX_PKG}/ops/pallas_kernels.py:68",
@@ -1368,8 +1500,9 @@ def main() -> int:
         "ms": device_ms(lambda: ck.patch_gram(z, 3)),
         "plain_ms": device_ms(lambda: ck.patch_gram_plain(z, 3)),
         "bound_ms": b_ms, "bound_by": b_by,
-        # torch.bmm on the already split patches: leaves out the pad/split and the 1/area scale
-        "library_ms": device_ms(lambda: torch.bmm(p3t, p3)),
+        # torch.baddbmm (P^T P times 1/area) on the already split patches:
+        # leaves out the replicate pad and the split, timed apart below
+        "library_ms": k1_yard["baddbmm"],
     })
     nbytes = x8.numel() + wf.numel() * 4 + 2 * 32 * 4 + y.numel() * 4
     flops = 2.0 * y.numel() * 48 + 2.0 * y.numel()
@@ -1390,6 +1523,16 @@ def main() -> int:
         print(f"[5] {k['name']}: {k['ms'] * 1e3:.1f} us (bound {k['bound_ms'] * 1e3:.1f} us by "
               f"{k['bound_by']}), plain {k['plain_ms'] * 1e3:.1f} us, library "
               f"{k['library_ms'] * 1e3:.1f} us | {card}")
+    print(f"[5] patch_gram yardsticks in float32 on the split patches: torch.baddbmm (P^T P / area) "
+          f"{k1_yard['baddbmm'] * 1e3:.1f} us, torch.bmm (P^T P) {k1_yard['bmm'] * 1e3:.1f} us; the "
+          f"split_patches copy they need {k1_yard['split'] * 1e3:.1f} us | {card}")
+    if "wadt_patch_gram_f32" in old:  # the archived K1 (one block per patch) in turns
+        g_old = torch.empty_like(g)
+        old_ms, new_ms = in_turns(
+            archived_call(old["wadt_patch_gram_f32"], z.data_ptr(), g_old.data_ptr(), BATCH, 14, 14, 96, 3),
+            lambda: ck.patch_gram(z, 3))
+        print(f"[5] patch_gram float32 in turns: archived v1 {old_ms * 1e3:.1f} us, new {new_ms * 1e3:.1f} us"
+              f" ({ck.patch_gram_plan(BATCH, 14, 14, 96, 3, ck._sm_count(dev))}) | {card}")
 
     xb = torch.from_numpy(frames[:BATCH]).to(dev)
     step_ms = device_ms(lambda: eng.step(xb), reps=10, rounds=3)

@@ -138,13 +138,13 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib = ctypes.CDLL(so_path)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.wadt_patch_gram_f32, lib.wadt_patch_gram_bf16):
-            fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            fn.argtypes = [ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
         lib.wadt_stem_u8_f32.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
         ]
         lib.wadt_stem_u8_f32.restype = i32
-        lib.wadt_trunk_gram_u8.argtypes = [ptr] * 10 + [i32] * 11 + [ptr]
+        lib.wadt_trunk_gram_u8.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
         lib.wadt_trunk_gram_u8.restype = i32
         ints = ctypes.POINTER(i32)
         lib.wadt_fused_head.argtypes = [
@@ -205,13 +205,116 @@ def patch_gram_plain(x: torch.Tensor, div: int) -> torch.Tensor:
     return g.reshape(b, np_, c * c).to(x.dtype)
 
 
+class PatchGramPlan(NamedTuple):
+    """Launch plan of ``csrc/patch_gram.cu``: ``units`` = B * div^2 * ``bands``
+    (image, patch, band of ``band`` whole output rows), walked by ``grid``
+    persistent blocks (block k takes units k, k + grid, ...); a stage stages
+    up to ``kc`` pixels of a patch (``chunks`` stages a unit), each pixel a
+    row of ``ld`` elements, into one of two input slots, a stage ahead;
+    ``n_tiles`` float32 6 x 6 thread tiles (bf16: 16 x 16 warp tiles) a
+    unit; ``smem`` bytes of shared memory a block."""
+
+    ph: int
+    pw: int
+    kc: int
+    chunks: int
+    band: int
+    bands: int
+    units: int
+    grid: int
+    ld: int
+    n_tiles: int
+    smem: int
+
+
+_PG_THREADS = 256  # csrc/patch_gram.cu kThreads: 8 warps
+_PG_TILE = 6  # float32: a thread's output tile edge
+_PG_WARP_TILES = 8 * 4  # bf16: 16 x 16 tiles a unit may have (8 warps x kWarpTiles)
+_SM_SMEM = 228 * 1024  # shared memory of one SM; each block also reserves 1 KB
+_PG_BLOCKS_PER_SM = {False: 2, True: 3}  # csrc/patch_gram.cu __launch_bounds__, float32 / bf16
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _patch_gram_layout(c: int, kc: int, band: int, bf16: bool) -> Tuple[int, int, int]:
+    """(ld, n_tiles, smem) of csrc/patch_gram.cu ``layout``."""
+    es = 2 if bf16 else 4
+    ld = _up(c, 16) + 8 if bf16 else _up(c, 12)
+    if bf16:
+        g = _up(c, 16) // 16
+        n_tiles = g * (g + 1) // 2 if band >= c else (_up(band, 16) // 16) * g
+    else:
+        n = -(-c // _PG_TILE)
+        n_tiles = n * (n + 1) // 2 if band >= c else (band // _PG_TILE) * n
+    smem = 2 * kc * ld * es + 2 * _up(band * c * es, 16) + (2 * _up(4 * c, 16) if bf16 else 0)
+    return ld, n_tiles, smem
+
+
+@functools.lru_cache(maxsize=64)
+def patch_gram_plan(b: int, h: int, w: int, c: int, div: int, sms: int,
+                    bf16: bool = False) -> PatchGramPlan:
+    """The launch plan of K1 for x [b, h, w, c] and a div x div grid on a
+    card of ``sms`` SMs: one band of all C rows where its tiles fit the
+    block (the upper triangle of float32 6 x 6 tiles in 256 threads, or of
+    bf16 16 x 16 tiles, four a warp), else bands of whole tile rows; the widest
+    stage of 64, 32 or 16 pixels (no wider than the patch) whose shared
+    memory fits 227 KB; as many blocks an SM as fit, up to the kernel's
+    launch bounds (two in float32, three in bf16), never more blocks than
+    units.  (At the main shape, [256, 14, 14, 96] div 3 on 132 SMs: 2,304
+    units of one 32-pixel stage, 264 blocks in float32 and 396 in bf16.)
+    Raises ValueError for a C too wide for the kernel."""
+    ph, pw = -(-h // div), -(-w // div)
+    area = ph * pw
+    if bf16:
+        groups = _up(c, 16) // 16
+        rows = (_PG_WARP_TILES // groups) * 16
+        band = c if groups * (groups + 1) // 2 <= _PG_WARP_TILES else rows
+    else:
+        n = -(-c // _PG_TILE)
+        rows = (_PG_THREADS // n) * _PG_TILE
+        band = c if n * (n + 1) // 2 <= _PG_THREADS else rows
+    if band == 0:
+        raise ValueError(f"patch_gram: C = {c} is too wide for the kernel")
+    bands = -(-c // band)
+    for kc in (64, 32, 16):
+        if kc > 16 and kc // 2 >= _up(area, 16):
+            continue
+        ld, n_tiles, smem = _patch_gram_layout(c, kc, band, bf16)
+        if smem <= _SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"patch_gram: C = {c} needs {smem} bytes of shared memory a block; "
+                         f"the limit is {_SMEM_MAX}")
+    units = b * div * div * bands
+    per_sm = next(n for n in range(_PG_BLOCKS_PER_SM[bf16], 0, -1)
+                  if n * (smem + 1024) <= _SM_SMEM or n == 1)
+    return PatchGramPlan(ph, pw, kc, -(-area // kc), band, bands, units,
+                         min(units, per_sm * sms), ld, n_tiles, smem)
+
+
+def patch_gram_tiles(c: int, bf16: bool = False) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """(edge, tiles): the output tiles of one band of all C rows, on and
+    above the diagonal, in the order ``csrc/patch_gram.cu`` hands them out.
+    float32: 6 x 6 thread tiles, thread q the q-th, diagonal d = tj - ti
+    after diagonal; bf16: 16 x 16 warp tiles, tile q to warp q % 8, row by
+    row.  Each tile is written as it is and, off the diagonal, transposed."""
+    edge = 16 if bf16 else _PG_TILE
+    n = -(-c // edge)
+    if bf16:
+        return edge, tuple((i, j) for i in range(n) for j in range(i, n))
+    return edge, tuple((i, i + d) for d in range(n) for i in range(n - d))
+
+
 def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     """Replicate-pad, split into div*div row-major patches, per-patch
     ``P^T P / area`` summed in float32 -> [B, div*div, C*C] of x's dtype
     (bf16: rounded once, to nearest even).
 
-    CPU tensor: the plain version.  CUDA tensor: the ``patch_gram`` kernel,
-    float32 or bf16 NHWC contiguous only.
+    CPU tensor: the plain version.  CUDA tensor: the ``patch_gram`` kernel on
+    :func:`patch_gram_plan`'s persistent grid, float32 or bf16 NHWC
+    contiguous only.
     """
     if x.device.type == "cpu":
         return patch_gram_plain(x, div)
@@ -224,9 +327,11 @@ def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     out = torch.empty((b, div * div, c * c), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = patch_gram_plan(b, h, w, c, div, _sm_count(x.device), dtype == torch.bfloat16)
     lib = build()
     fn = lib.wadt_patch_gram_bf16 if dtype == torch.bfloat16 else lib.wadt_patch_gram_f32
-    _launch("patch_gram", fn, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, div)
+    _launch("patch_gram", fn, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, div, plan.kc,
+            plan.band, plan.grid)
     return out
 
 
@@ -398,6 +503,131 @@ def fused_trunk_gram_plain(x8: torch.Tensor, weights, spec) -> torch.Tensor:
     return patch_gram_plain(z, spec.patch_div)
 
 
+class TrunkGramPlan(NamedTuple):
+    """Launch plan of ``csrc/trunk_gram.cu`` for one spec and frame size:
+    one cluster of ``cluster`` blocks per (image, patch) of the ``ph`` x
+    ``pw`` patches on the ``hf`` x ``wf`` final grid; block r computes the
+    patch's pixels [pix[r], pix[r+1]) (row-major, replicate-padded pixels
+    included) through the four GEMMs and the Gram's rows [rows[r],
+    rows[r+1]).  ``widths``: the GEMM widths padded to 16 (conv1's depth
+    k1*k1*cin, c0, c1, c2, gc); ``seg``: byte offsets of the four GEMMs'
+    weights (each followed by its float32 bias) in the packed weight buffer,
+    its size last; ``smem`` bytes of shared memory a block."""
+
+    hf: int
+    wf: int
+    ph: int
+    pw: int
+    cluster: int
+    pix: Tuple[int, ...]
+    rows: Tuple[int, ...]
+    widths: Tuple[int, ...]
+    seg: Tuple[int, ...]
+    smem: int
+
+
+_TRUNK_MAX_CLUSTER = 8  # the portable cluster size
+
+
+def _trunk_dims(spec):
+    b0, b1, b2 = spec.plan
+    return b0.kernel, b1.kernel, b0.cin, b0.cout, b1.cout, b2.cout, spec.gram_channels
+
+
+def trunk_gram_plan(spec, h: int, w: int) -> TrunkGramPlan:
+    """The launch plan of K3 for ``spec`` on h x w frames: the fewest blocks
+    (at most 8) that give each block the fewest of a patch's pixels, in
+    even contiguous shares, and even shares of the Gram's rows.  (Shipped
+    spec at 224 px: 5 x 5 patches, clusters of 7 blocks of 3-4 pixels.)
+    Raises ValueError where a block's shared memory would pass 227 KB."""
+    if not supports_fused_trunk_gram(spec):
+        raise ValueError(
+            "the fused trunk kernel needs a [k=s p0, k=s p0, 1x1] trunk plan without SE"
+        )
+    k1, k2, cin, c0, c1, c2, gc = _trunk_dims(spec)
+    K, div = k1 * k2, spec.patch_div
+    hf, wf = h // K, w // K
+    ph, pw = -(-hf // div), -(-wf // div)
+    area = ph * pw
+    most = -(-area // _TRUNK_MAX_CLUSTER)  # the fewest pixels a block can have
+    cluster = -(-area // most)
+    pix = tuple(r * area // cluster for r in range(cluster + 1))
+    rows = tuple(r * gc // cluster for r in range(cluster + 1))
+    kd0p, c0p, c1p, c2p, gcp = (_up(v, 16) for v in (k1 * k1 * cin, c0, c1, c2, gc))
+    cells = k2 * k2
+    seg = [0]
+    for r, c in ((kd0p, c0p), (cells * c0p, c1p), (c1p, c2p), (c2p, gcp)):
+        seg.append(seg[-1] + r * (c + 8) * 2 + c * 4)
+    mpix = -(-area // cluster)
+    m1, m2 = _up(mpix * cells, 16), _up(mpix, 16)
+    smem = (seg[-1] + m1 * (kd0p + 8) * 2 + m2 * (cells * c0p + 8) * 2 + m2 * (c1p + 8) * 2
+            + m2 * (c2p + 8) * 2 + area * gcp * 4 + 4 * 8 + _up(K * cin * 4, 16))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"fused_trunk_gram: the spec needs {smem} bytes of shared memory a block; "
+                         f"the limit is {_SMEM_MAX}")
+    return TrunkGramPlan(hf, wf, ph, pw, cluster, pix, rows, (kd0p, c0p, c1p, c2p, gcp),
+                         tuple(seg), smem)
+
+
+def pack_trunk_gram_weights(weights, spec) -> torch.Tensor:
+    """A :func:`fold_trunk_gram_weights` fold in ``csrc/trunk_gram.cu``'s
+    shared-memory layout, as one uint8 tensor on the fold's device: for
+    conv1 (the dense (0, 0) block of W0bd), conv2, the 1x1 conv and
+    ``chan_proj`` in turn, the bf16 weight [rows, cols + 8] and then the
+    float32 bias [cols], every width padded to 16 with zeros (conv2's rows
+    per sub-cell)."""
+    w0bd, b0, w2, b2, w3, b3, wcp, bcp = weights
+    k1, k2, cin, c0, c1, c2, gc = _trunk_dims(spec)
+    K, cells = k1 * k2, k2 * k2
+    kd0p, c0p, c1p, c2p, gcp = (_up(v, 16) for v in (k1 * k1 * cin, c0, c1, c2, gc))
+    # row (dy*k1 + dx)*cin + ci of conv1's block is row (dy*K + dx)*cin + ci of W0bd
+    idx = torch.tensor([(dy * K + dx) * cin + ci for dy in range(k1) for dx in range(k1)
+                        for ci in range(cin)], device=w0bd.device)
+    pieces = []
+    for w, b, rows, cols in ((w0bd[idx, :c0], b0[:c0], kd0p, c0p),
+                             (w2.reshape(cells, c0, c1), b2, cells * c0p, c1p),
+                             (w3, b3, c1p, c2p), (wcp, bcp, c2p, gcp)):
+        wp = torch.zeros((rows, cols + 8), dtype=torch.bfloat16, device=w.device)
+        if w.ndim == 3:  # conv2: each sub-cell's c0 rows at a multiple of c0p
+            wp.view(cells, c0p, cols + 8)[:, :c0, :c1] = w
+        else:
+            wp[:w.shape[0], :w.shape[1]] = w
+        bp = torch.zeros(cols, dtype=torch.float32, device=w.device)
+        bp[:b.shape[0]] = b
+        pieces += [wp.reshape(-1).view(torch.uint8), bp.view(torch.uint8)]
+    return torch.cat(pieces)
+
+
+_trunk_cache: Dict[int, Tuple[Any, Tuple, torch.Tensor]] = {}
+_TRUNK_CACHE_SIZE = 8
+
+
+def _trunk_gram_buffer(weights, spec, dev: torch.device) -> torch.Tensor:
+    """The fold's checked, packed weight buffer: built once per fold object
+    and kept while the fold's tensors keep their storage (a fold whose
+    tensors are replaced is checked and packed again)."""
+    key = (tuple(t.data_ptr() for t in weights), _trunk_dims(spec), dev)
+    hit = _trunk_cache.get(id(weights))
+    if hit is not None and hit[0] is weights and hit[1] == key:
+        return hit[2]
+    k1, k2, cin, c0, c1, c2, gc = _trunk_dims(spec)
+    K = k1 * k2
+    shapes = (
+        (K * K * cin, k2 * k2 * c0), (k2 * k2 * c0,), (k2 * k2 * c0, c1), (c1,),
+        (c1, c2), (c2,), (c2, gc), (gc,),
+    )
+    if len(weights) != len(shapes):
+        raise ValueError(f"fused_trunk_gram: expected 8 folded arrays, got {len(weights)}")
+    for i, (t, shape) in enumerate(zip(weights, shapes)):
+        _check_cuda(f"fused_trunk_gram weight {i}", t,
+                    torch.bfloat16 if i % 2 == 0 else torch.float32, dev, shape)
+    buf = pack_trunk_gram_weights(weights, spec)
+    if len(_trunk_cache) >= _TRUNK_CACHE_SIZE:
+        _trunk_cache.pop(next(iter(_trunk_cache)))
+    _trunk_cache[id(weights)] = (weights, key, buf)
+    return buf
+
+
 def fused_trunk_gram(x8: torch.Tensor, weights, spec) -> torch.Tensor:
     """Raw uint8 NHWC images [B, H, W, cin] -> per-patch Gram tokens
     [B, div*div, gc*gc] through the whole trunk and ``chan_proj``, on a
@@ -405,17 +635,18 @@ def fused_trunk_gram(x8: torch.Tensor, weights, spec) -> torch.Tensor:
     of K = k1*k2 are ignored, as the strided convolutions ignore them.
 
     CPU tensor: the plain version.  CUDA tensor: the ``fused_trunk_gram``
-    kernel, which reads the raw frame (no space-to-depth copy).
+    kernel, which reads the raw frame (no space-to-depth copy), one cluster
+    of :func:`trunk_gram_plan`'s blocks per patch, on the fold packed once
+    by :func:`pack_trunk_gram_weights`.
     """
     if x8.device.type == "cpu":
         return fused_trunk_gram_plain(x8, weights, spec)
     _require_cuda(x8, "fused_trunk_gram")
     if not supports_fused_trunk_gram(spec):
         raise ValueError(
-            "the fused trunk kernel needs a [k=s p0, k=s p0, 1x1] trunk plan without SE"
+            "the fused trunk kernel needs a [k=s pad0, k=s pad0, 1x1] trunk plan without SE"
         )
-    b0, b1, b2 = spec.plan
-    k1, k2, cin = b0.kernel, b1.kernel, b0.cin
+    k1, k2, cin, c0, c1, c2, gc = _trunk_dims(spec)
     K = k1 * k2
     if x8.ndim != 4:
         raise ValueError(f"fused_trunk_gram: expected uint8 NHWC, got {tuple(x8.shape)}")
@@ -426,22 +657,13 @@ def fused_trunk_gram(x8: torch.Tensor, weights, spec) -> torch.Tensor:
         raise ValueError(
             f"fused_trunk_gram: image {tuple(x8.shape)} does not fit cin={cin}, K={K}"
         )
-    c0, c1, c2, gc = b0.cout, b1.cout, b2.cout, spec.gram_channels
-    shapes = (
-        (K * K * cin, k2 * k2 * c0), (k2 * k2 * c0,), (k2 * k2 * c0, c1), (c1,),
-        (c1, c2), (c2,), (c2, gc), (gc,),
-    )
-    if len(weights) != len(shapes):
-        raise ValueError(f"fused_trunk_gram: expected 8 folded arrays, got {len(weights)}")
-    for i, (t, shape) in enumerate(zip(weights, shapes)):
-        _check_cuda(f"fused_trunk_gram weight {i}", t,
-                    torch.bfloat16 if i % 2 == 0 else torch.float32, dev, shape)
+    plan = trunk_gram_plan(spec, h, w)
+    buf = _trunk_gram_buffer(weights, spec, dev)
     div = spec.patch_div
     out = torch.empty((b, div * div, gc * gc), dtype=torch.float32, device=dev)
     lib = build()
-    _launch("fused_trunk_gram", lib.wadt_trunk_gram_u8, dev, x8.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(),
-            b, h, w, cin, k1, k2, c0, c1, c2, gc, div)
+    _launch("fused_trunk_gram", lib.wadt_trunk_gram_u8, dev, x8.data_ptr(), buf.data_ptr(),
+            out.data_ptr(), b, h, w, cin, k1, k2, c0, c1, c2, gc, div, plan.cluster)
     return out
 
 

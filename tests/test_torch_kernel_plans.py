@@ -10,6 +10,16 @@
   :func:`pack_head_shares` packs them so that the shares, read back block
   by block and assembled by column, give the fold's own matrices and
   ``fused_head_plain``'s logits bit for bit.
+- K1 (``csrc/patch_gram.cu``): :func:`patch_gram_plan`'s persistent grid
+  walks every (image, patch, band) once and fits the block's shared memory,
+  at the main shape, at batch 1 and at each PMG fixture's map; the
+  upper-triangle-plus-mirror tile walk (:func:`patch_gram_tiles`) writes
+  each of the C x C outputs once.
+- K3 (``csrc/trunk_gram.cu``): :func:`trunk_gram_plan`'s pixel shares cover
+  each patch once, replicate-padded pixels included, on at most 8 blocks
+  whose shared memory fits; :func:`pack_trunk_gram_weights` lays the fold
+  out as the kernel reads it; and the split, emulated block by block on the
+  CPU, gives ``fused_trunk_gram_plain``'s Gram bit for bit.
 
 The kernels themselves run on the card only (``chip_smoke.py``,
 ``tests/test_torch_kernels.py::test_kernel_matches_plain_on_card``).
@@ -25,6 +35,9 @@ import torch
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import checkpoint
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.gram import split_patches
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import leaky_relu
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import s2d_pack
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 PMG_FIXTURES = ["pmg_shipped", "pmg_deep_plan", "pmg_no_transformer", "pmg_tiny_instance_se"]
@@ -153,3 +166,212 @@ def test_packed_head_shares_walk_equals_plain(name, cluster):
     want = ck.fused_head_plain(tokens, fold, spec)
     got = ck.fused_head_plain(tokens, dict(fold, transformer=walked), spec)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K1 (csrc/patch_gram.cu): persistent grid and the upper-triangle tile walk
+# ---------------------------------------------------------------------------
+
+
+def _gram_map_shape(name, size=224):
+    """[H, W, C] of the map a PMG fixture's spec hands to K1 at ``size`` px."""
+    sp = _spec(name)
+    side = size
+    for b in sp.plan:
+        side = (side + 2 * b.pad - b.kernel) // b.stride + 1
+    return side, side, sp.gram_channels, sp.patch_div
+
+
+def _k1_shapes():
+    """(B, H, W, C, div): the main shape, batch 1, and each PMG fixture's
+    map at batch 2 and 256."""
+    shapes = [(256, 14, 14, 96, 3), (1, 14, 14, 96, 3)]
+    for name in PMG_FIXTURES:
+        h, w, c, div = _gram_map_shape(name)
+        shapes += [(2, h, w, c, div), (256, h, w, c, div)]
+    return shapes
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,div", _k1_shapes())
+def test_patch_gram_plan_walks_every_item_once(b, h, w, c, div, bf16):
+    plan = ck.patch_gram_plan(b, h, w, c, div, H100_SMS, bf16)
+    assert plan.units == b * div * div * plan.bands
+    assert (plan.bands - 1) * plan.band < c <= plan.bands * plan.band
+    # block k takes units k, k + grid, ...: every (image, patch, band) once
+    seen = np.zeros(plan.units, np.int64)
+    for k in range(plan.grid):
+        seen[k::plan.grid] += 1
+    assert (seen == 1).all()
+    per_sm = 3 if bf16 else 2  # the kernel's launch bounds
+    assert 1 <= plan.grid <= min(plan.units, per_sm * H100_SMS)
+    assert plan.smem <= 227 * 1024
+    if plan.grid > H100_SMS:  # n blocks an SM, each with its 1 KB reserve
+        assert -(-plan.grid // H100_SMS) * (plan.smem + 1024) <= 228 * 1024
+    # stages of whole 16-pixel k-steps that cover the patch
+    area = plan.ph * plan.pw
+    assert plan.kc % 16 == 0 and (plan.chunks - 1) * plan.kc < area <= plan.chunks * plan.kc
+    if (b, h, w, c, div) == (256, 14, 14, 96, 3):
+        assert plan.bands == 1 and plan.chunks == 1 and plan.grid == per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("c", [96, 32, 12, 18])
+def test_patch_gram_mirror_walk_writes_each_output_once(c, bf16):
+    edge, tiles = ck.patch_gram_tiles(c, bf16)
+    plan = ck.patch_gram_plan(2, 14, 14, c, 3, H100_SMS, bf16)
+    assert plan.bands == 1 and len(tiles) == plan.n_tiles
+    writes = np.zeros((c, c), np.int64)
+    for ti, tj in tiles:
+        assert tj >= ti
+        for x in range(edge):
+            for y in range(edge):
+                i, j = ti * edge + x, tj * edge + y
+                if i < c and j < c:
+                    writes[i, j] += 1
+                    if ti != tj:  # the mirror tile
+                        writes[j, i] += 1
+    assert (writes == 1).all()
+
+
+def test_patch_gram_plan_refuses_a_width_it_cannot_hold():
+    with pytest.raises(ValueError, match="too wide"):
+        ck.patch_gram_plan(2, 14, 14, 5000, 3, H100_SMS)
+
+
+# ---------------------------------------------------------------------------
+# K3 (csrc/trunk_gram.cu): one cluster per patch, pixel and row shares
+# ---------------------------------------------------------------------------
+
+RAGGED_TRUNK = dict(ndf=16, patch_size=64, patch_div=3, gram_channels=32, d_model=64,
+                    transformer_layers=0, use_token_attention=False)  # chip_smoke.py [6]
+
+
+def _trunk_cases():
+    """(label, spec, H, W): the shipped spec, the ragged spec of
+    chip_smoke.py [6], and each PMG fixture spec the fused kernel takes."""
+    cases = [("ragged 112x120", pmg.build_spec({"a": ["x", "y"]}, RAGGED_TRUNK), 112, 120)]
+    for name in PMG_FIXTURES:
+        sp = _spec(name)
+        if ck.supports_fused_trunk_gram(sp):
+            cases.append((name, sp, 224, 224))
+    return cases
+
+
+TRUNK_CASES = _trunk_cases()
+
+
+def test_trunk_cases_hold_the_shipped_spec():
+    assert {label for label, *_ in TRUNK_CASES} >= {"pmg_shipped", "pmg_no_transformer",
+                                                     "ragged 112x120"}
+
+
+@pytest.mark.parametrize("label,spec,h,w", TRUNK_CASES, ids=[c[0] for c in TRUNK_CASES])
+def test_trunk_gram_plan_shares_cover_each_patch_once(label, spec, h, w):
+    plan = ck.trunk_gram_plan(spec, h, w)
+    K, div = spec.plan[0].kernel * spec.plan[1].kernel, spec.patch_div
+    assert (plan.hf, plan.wf) == (h // K, w // K)
+    area = plan.ph * plan.pw
+    assert 1 <= plan.cluster <= 8 and plan.smem <= 227 * 1024
+    for bounds, n in ((plan.pix, area), (plan.rows, spec.gram_channels)):
+        assert len(bounds) == plan.cluster + 1 and bounds[0] == 0 and bounds[-1] == n
+        assert all(a <= b for a, b in zip(bounds, bounds[1:]))
+    shares = np.diff(plan.pix)
+    assert shares.min() >= 1 and shares.max() == -(-area // 8)  # the fewest pixels a block
+    assert plan.cluster == -(-area // shares.max())  # on the fewest blocks
+    # the blocks' pixels, clamped to the final grid, are the replicate-padded
+    # patches of the plain version, pixel for pixel
+    index = torch.arange(plan.hf * plan.wf, dtype=torch.float32).reshape(1, plan.hf, plan.wf, 1)
+    want, want_area = split_patches(index, div)
+    assert want_area == area
+    for p in range(div * div):
+        pr, pc = divmod(p, div)
+        got = []
+        for r in range(plan.cluster):
+            for q in range(plan.pix[r], plan.pix[r + 1]):
+                fy = min(pr * plan.ph + q // plan.pw, plan.hf - 1)
+                fx = min(pc * plan.pw + q % plan.pw, plan.wf - 1)
+                got.append(fy * plan.wf + fx)
+        assert got == want[0, p, :, 0].long().tolist()
+
+
+def _trunk_fold(spec, seed=0):
+    rng = np.random.RandomState(seed)
+    params = {"trunk": [], "chan_proj": {
+        "w": torch.from_numpy(rng.randn(1, 1, spec.trunk_channels, spec.gram_channels).astype(np.float32)
+                              * spec.trunk_channels ** -0.5),
+        "b": torch.from_numpy(rng.randn(spec.gram_channels).astype(np.float32) * 0.1)}}
+    for b in spec.plan:
+        params["trunk"].append({
+            "conv": {"w": torch.from_numpy(rng.randn(b.kernel, b.kernel, b.cin, b.cout).astype(np.float32)
+                                           * (b.kernel * b.kernel * b.cin) ** -0.5)},
+            "norm": {k: torch.from_numpy(v.astype(np.float32)) for k, v in {
+                "scale": rng.rand(b.cout) + 0.5, "bias": rng.randn(b.cout) * 0.1,
+                "mean": rng.randn(b.cout) * 0.1, "var": rng.rand(b.cout) + 0.5}.items()}})
+    return ck.fold_trunk_gram_weights(params, spec)
+
+
+@pytest.mark.parametrize("label,spec,h,w", TRUNK_CASES, ids=[c[0] for c in TRUNK_CASES])
+def test_packed_trunk_weights_hold_the_fold(label, spec, h, w):
+    """The packed buffer, read back at the plan's offsets, is the fold's
+    conv1 block, W2, W3 and Wcp bit for bit, with zeros in every pad."""
+    weights = _trunk_fold(spec)
+    plan = ck.trunk_gram_plan(spec, h, w)
+    buf = ck.pack_trunk_gram_weights(weights, spec)
+    assert buf.dtype == torch.uint8 and buf.numel() == plan.seg[-1]
+    assert all(o % 16 == 0 for o in plan.seg)
+    w0bd, b0, w2, b2, w3, b3, wcp, bcp = weights
+    b0p, b1p, b2p = spec.plan
+    k1, k2, cin, c0 = b0p.kernel, b1p.kernel, b0p.cin, b0p.cout
+    K, cells = k1 * k2, k2 * k2
+    kd0p, c0p, c1p, c2p, gcp = plan.widths
+    conv1 = torch.stack([w0bd[(dy * K + dx) * cin + ci, :c0] for dy in range(k1) for dx in range(k1)
+                         for ci in range(cin)])
+    conv2 = torch.zeros((cells * c0p, b1p.cout), dtype=torch.bfloat16)
+    conv2.view(cells, c0p, -1)[:, :c0] = w2.reshape(cells, c0, -1)
+    for g, (wt, bias, rows, cols) in enumerate(((conv1, b0[:c0], kd0p, c0p), (conv2, b2, cells * c0p, c1p),
+                                                (w3, b3, c1p, c2p), (wcp, bcp, c2p, gcp))):
+        seg = buf[plan.seg[g]:plan.seg[g + 1]]
+        wp = seg[:rows * (cols + 8) * 2].view(torch.bfloat16).reshape(rows, cols + 8)
+        bp = seg[rows * (cols + 8) * 2:].view(torch.float32)
+        want = torch.zeros((rows, cols + 8), dtype=torch.bfloat16)
+        want[:wt.shape[0], :wt.shape[1]] = wt
+        assert torch.equal(wp.view(torch.int16), want.view(torch.int16))
+        assert bp.numel() == cols and torch.equal(bp[:bias.numel()], bias)
+        assert not bp[bias.numel():].any()
+
+
+def _emulate_trunk_gram(x8, weights, spec, plan):
+    """K3's split on the CPU: each block of each patch's cluster runs the
+    plain arithmetic on its own pixels, zero rows padding them to 16 as the
+    kernel's GEMM tiles do; z is gathered in pixel order and the Gram taken
+    as the plain version takes it."""
+    w0, b0, w2, b2, w3, b3, wcp, bcp = weights
+    K, div = spec.plan[0].kernel * spec.plan[1].kernel, spec.patch_div
+    z16 = s2d_pack(x8, K)[:, :plan.hf, :plan.wf]
+    zall = torch.zeros((x8.shape[0], div * div, plan.ph * plan.pw, spec.gram_channels))
+    for b in range(x8.shape[0]):
+        for p in range(div * div):
+            pr, pc = divmod(p, div)
+            for r in range(plan.cluster):
+                pix = list(range(plan.pix[r], plan.pix[r + 1]))
+                rows = torch.zeros((-(-len(pix) // 16) * 16, z16.shape[-1]), dtype=z16.dtype)
+                rows[:len(pix)] = torch.stack([z16[b, min(pr * plan.ph + q // plan.pw, plan.hf - 1),
+                                                   min(pc * plan.pw + q % plan.pw, plan.wf - 1)]
+                                               for q in pix])
+                a = ck._bf16_round(leaky_relu(torch.matmul(rows.to(torch.float32), w0.float()) + b0))
+                bb = ck._bf16_round(leaky_relu(torch.matmul(a, w2.float()) + b2))
+                c = ck._bf16_round(leaky_relu(torch.matmul(bb, w3.float()) + b3))
+                zall[b, p, plan.pix[r]:plan.pix[r + 1]] = (torch.matmul(c, wcp.float()) + bcp)[:len(pix)]
+    g = torch.einsum("bpnc,bpnd->bpcd", zall, zall) * (1.0 / float(plan.ph * plan.pw))
+    return g.reshape(x8.shape[0], div * div, -1)
+
+
+@pytest.mark.parametrize("label,spec,h,w", [c for c in TRUNK_CASES if c[0] != "pmg_no_transformer"],
+                         ids=[c[0] for c in TRUNK_CASES if c[0] != "pmg_no_transformer"])
+def test_trunk_gram_split_emulation_equals_plain(label, spec, h, w):
+    weights = _trunk_fold(spec, seed=1)
+    x8 = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (1, h, w, 3), np.uint8))
+    plan = ck.trunk_gram_plan(spec, h, w)
+    got = _emulate_trunk_gram(x8, weights, spec, plan)
+    assert torch.equal(got, ck.fused_trunk_gram_plain(x8, weights, spec))
