@@ -17,9 +17,10 @@ Params are a nested dict of tensors with the JAX package's tree layout
 leaf for leaf onto the other (``engine.checkpoint.params_from_jax``).
 
 On a bf16 param tree (``ops.nn.cast_tree``) the forward runs in bf16 as
-the JAX package's does: the Gram is rounded to bf16 and ``token_proj``
-runs in the ``gram_proj`` kernel (K5) on the card, its plain version on
-the CPU.
+the JAX package's does: from uint8 the first block (stem, batch norm,
+LeakyReLU) runs in the stem kernel's bf16 mode (K2), the Gram is rounded
+to bf16 and ``token_proj`` runs in the ``gram_proj`` kernel (K5) on the
+card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -235,26 +236,34 @@ def supports_packed_input(spec: Spec) -> bool:
     return b0.kernel == b0.stride and b0.pad == 0
 
 
-def _stem_fuses_norm(spec: Spec, dtype: torch.dtype) -> bool:
-    """The stem kernel applies batch norm and the LeakyReLU itself in
-    float32 runs; bf16 runs round its output and apply them in bf16."""
-    return spec.norm == "batch" and dtype == torch.float32
+def _stem_fuses_norm(spec: Spec) -> bool:
+    """The stem kernel applies batch norm and the LeakyReLU itself: in a
+    float32 run folded into its scale and shift, in a bf16 run in bf16
+    after rounding the sum.  Other norms follow the kernel."""
+    return spec.norm == "batch"
 
 
 def fold_stem(
     params: Dict[str, Any], spec: Spec, dtype: torch.dtype = torch.float32
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, Optional[torch.Tensor]]:
     """The first trunk block as the stem kernel's operands.
 
     The uint8 normalize affine is folded into the weight and a bias,
-    ``(u8*scale - shift) @ W == u8 @ (scale*W) + (b - shift@W)``.  For batch
-    norm in a float32 run the inference affine joins the bias into the
-    kernel's scale/shift and the kernel applies the LeakyReLU; otherwise the
-    kernel's affine is the identity plus the bias, and the norm and LeakyReLU
-    follow the kernel.  As in the JAX package, the folded weight is rounded
-    to the conv weight's own type (bf16 on a bf16 tree) and held in float32
-    for the kernel; the bias stays float32.  Returns {"w": [k*k*cin, cout],
-    "scale", "shift": [cout]}.
+    ``(u8*scale - shift) @ W == u8 @ (scale*W) + (b - shift@W)``.  As in the
+    JAX package, the folded weight is rounded to the conv weight's own type
+    (bf16 on a bf16 tree) and held in float32 for the kernel; the bias
+    stays float32.
+
+    - float32 run: {"w", "scale", "shift"}.  For batch norm the inference
+      affine joins the bias into the kernel's scale/shift and the kernel
+      applies the LeakyReLU; otherwise scale is 1 and shift the bias, and
+      the norm and LeakyReLU follow the kernel.
+    - bf16 run (a bf16 tree): {"w", "bias", "scale", "shift"}: for batch
+      norm, scale and shift are the bf16 affine that
+      ``norms.batch_norm_affine`` gives on the bf16 params, computed once
+      here with the same operations on the params' device, and the kernel
+      applies them and the LeakyReLU to its bf16 sum; otherwise both are
+      None and the norm and LeakyReLU follow the kernel.
     """
     if not supports_packed_input(spec):
         raise ValueError("the first trunk block overlaps; use apply on normalized input")
@@ -266,20 +275,26 @@ def fold_stem(
     bf = -(shift @ w0f)
     if p0["conv"].get("b") is not None:
         bf = bf + p0["conv"]["b"].float()
-    wf = (scale[:, None] * w0f).to(w0.dtype).float()
-    if _stem_fuses_norm(spec, dtype):
-        s, t = batch_norm_affine(p0["norm"])
-        t = bf * s + t
-    else:
-        s, t = torch.ones_like(bf), bf
-    return {"w": wf.contiguous(), "scale": s.contiguous(), "shift": t.contiguous()}
+    wf = (scale[:, None] * w0f).to(w0.dtype).float().contiguous()
+    fused = _stem_fuses_norm(spec)
+    if dtype == torch.float32:
+        if fused:
+            s, t = batch_norm_affine(p0["norm"])
+            t = bf * s + t
+        else:
+            s, t = torch.ones_like(bf), bf
+        return {"w": wf, "scale": s.contiguous(), "shift": t.contiguous()}
+    s = t = None
+    if fused:
+        s, t = (v.contiguous() for v in batch_norm_affine(p0["norm"]))
+    return {"w": wf, "bias": bf.contiguous(), "scale": s, "shift": t}
 
 
 def packed_trunk_features(
     params: Dict[str, Any],
     x8: torch.Tensor,
     spec: Spec,
-    stem: Optional[Dict[str, torch.Tensor]] = None,
+    stem: Optional[Dict[str, Optional[torch.Tensor]]] = None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Trunk forward from uint8 -> feature map [B, h, w, C] of ``dtype``.
@@ -289,9 +304,9 @@ def packed_trunk_features(
     runs in the stem kernel on ``stem``, the operands from
     :func:`fold_stem` (folded here when not given; a caller that runs many
     batches folds once, as the fold's host-to-device constants would
-    otherwise synchronize every batch).  In bf16 the kernel's float32
-    output is rounded to bf16 and the norm and LeakyReLU run in bf16 on the
-    bf16 params, as the JAX package's activation chain does.
+    otherwise synchronize every batch).  In bf16 the kernel writes its sum
+    rounded to bf16 and, for batch norm, the norm and LeakyReLU in bf16 on
+    the bf16 params, as the JAX package's activation chain computes them.
     """
     if stem is None:
         stem = fold_stem(params, spec, dtype)
@@ -299,10 +314,11 @@ def packed_trunk_features(
     k = b0.kernel
     if x8.shape[-1] == k * k * b0.cin and k > 1:
         x8 = s2d_unpack(x8, k)
-    fused = _stem_fuses_norm(spec, dtype)
-    y = cuda_kernels.stem(x8, stem["w"], stem["scale"], stem["shift"], k, leaky=fused)
+    fused = _stem_fuses_norm(spec)
+    y = cuda_kernels.stem(x8, stem["w"], stem["scale"], stem["shift"], k, leaky=fused,
+                          out_dtype=dtype, bias=stem.get("bias"))
     if not fused:
-        y = leaky_relu(apply_norm(y.to(dtype), params["trunk"][0]["norm"], spec.norm), 0.2)
+        y = leaky_relu(apply_norm(y, params["trunk"][0]["norm"], spec.norm), 0.2)
     for pp, bk in zip(params["trunk"][1:], spec.plan[1:]):
         y = conv2d(y, pp["conv"], stride=bk.stride, padding=bk.pad)
         y = leaky_relu(apply_norm(y, pp["norm"], spec.norm), 0.2)

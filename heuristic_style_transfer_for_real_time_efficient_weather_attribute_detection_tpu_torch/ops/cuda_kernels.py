@@ -140,10 +140,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         for fn in (lib.wadt_patch_gram_f32, lib.wadt_patch_gram_bf16):
             fn.argtypes = [ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
-        lib.wadt_stem_u8_f32.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr
-        ]
-        lib.wadt_stem_u8_f32.restype = i32
+        lib.wadt_stem_u8.argtypes = [ptr] * 6 + [i32] * 13 + [ptr]
+        lib.wadt_stem_u8.restype = i32
         lib.wadt_trunk_gram_u8.argtypes = [ptr] * 3 + [i32] * 12 + [ptr]
         lib.wadt_trunk_gram_u8.restype = i32
         ints = ctypes.POINTER(i32)
@@ -341,50 +339,221 @@ def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
 
 
 def stem_plain(
-    x8: torch.Tensor, w2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-    k: int, leaky: bool = True,
+    x8: torch.Tensor, w2d: torch.Tensor, scale: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], k: int, leaky: bool = True,
+    out_dtype: torch.dtype = torch.float32, bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch stem: space-to-depth pack, one GEMM, affine, LeakyReLU."""
+    """Plain PyTorch stem: space-to-depth pack, one GEMM, affine, LeakyReLU.
+
+    bf16 (``out_dtype``): the float32 GEMM plus ``bias`` rounded to bf16,
+    then ``y * scale + shift`` and the LeakyReLU as bf16 operations (each
+    rounds once), the norm left out where ``scale`` is None."""
     u = s2d_pack(x8, k).to(torch.float32)
-    y = torch.matmul(u, w2d) * scale + shift
+    if out_dtype == torch.bfloat16:
+        y = (torch.matmul(u, w2d) + bias).to(torch.bfloat16)
+        if scale is not None:
+            y = y * scale + shift
+    else:
+        y = torch.matmul(u, w2d) * scale + shift
     return leaky_relu(y, 0.2) if leaky else y
 
 
-def stem(
-    x8: torch.Tensor, w2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-    k: int, leaky: bool = True,
-) -> torch.Tensor:
-    """uint8 NHWC [B,H,W,cin] -> float32 [B,H/k,W/k,cout]:
-    ``act(scale * (s2d(x) @ w2d) + shift)``, act = LeakyReLU(0.2) if ``leaky``.
+class StemPlan(NamedTuple):
+    """Launch plan of ``csrc/stem.cu``: tiles of ``rows`` whole output rows
+    (``tiles`` of them over the B * H/k rows), walked by ``grid`` persistent
+    blocks (block k takes tiles k, k + grid, ...) through a ring of
+    ``stages`` input slots of ``stage_bytes``; ``chunks`` 32-channel
+    chunks; ``bulk``: each output row's
+    input run arrives by one ``cp.async.bulk`` (else the producer warp
+    copies its bytes: the plain path); ``tma``: whole 16-pixel m-tiles
+    leave by tensor stores from shared memory (else, and for a tile's last
+    partial m-tile, straight from the fragments); ``smem`` bytes a block."""
 
-    ``w2d`` is the kernel == stride == k conv weight as [k*k*cin, cout] in
-    (dy, dx, ci) row order, with the normalize already folded in.
-    CPU tensor: the plain version.  CUDA tensor: the ``stem`` kernel.
+    rows: int
+    tiles: int
+    stages: int
+    grid: int
+    chunks: int
+    bulk: bool
+    tma: bool
+    stage_bytes: int
+    smem: int
+
+    @property
+    def path(self) -> str:
+        return f"{'bulk' if self.bulk else 'plain'} loads, {'tensor' if self.tma else 'direct'} stores"
+
+
+_STEM_BLOCKS_PER_SM = 3  # csrc/stem.cu __launch_bounds__
+_STEM_STAGES = 3  # slots of the input ring (3 beat 4 and 2 at the main shape)
+_STEM_CONSUMERS = 4  # consumer warps a block, each with
+_STEM_OUT_BUFS = 4  # output buffers of 16 pixels x 32 channels
+_STEM_K_STEPS = 3  # csrc/stem.cu kKS: 16-deep k-steps, 4 words of 4 bytes each
+_STEM_MAX_COUT = 128  # four consumer warps of 32 channels
+_STEM_TILES_PER_BLOCK = 8  # fewer tiles a block leave a long tail
+
+
+def _stem_words(k: int, cin: int) -> Tuple[int, int]:
+    """(words a pixel's input row, words a pixel): 4-byte words of k*cin bytes."""
+    wpr = -(-(k * cin) // 4)
+    return wpr, k * wpr
+
+
+def _stem_chunks(cout: int) -> int:
+    n = -(-cout // 32)
+    return 1 if n <= 1 else 2 if n <= 2 else 4
+
+
+def _stem_layout(w: int, cin: int, k: int, rows: int, stages: int, chunks: int,
+                 bf16: bool) -> Tuple[int, int]:
+    """(stage_bytes, smem) of csrc/stem.cu ``layout``."""
+    stage = _up(rows * k * w * cin + 16, 128)
+    out = _up(stages * stage, 1024) + _STEM_CONSUMERS * _STEM_OUT_BUFS * 16 * 32 * (2 if bf16 else 4)
+    table = out + 3 * chunks * 32 * 4
+    return stage, _up(table + 4 * rows * (w // k), 16) + 16 * stages + 1024
+
+
+@functools.lru_cache(maxsize=64)
+def stem_plan(b: int, h: int, w: int, cin: int, k: int, cout: int, sms: int,
+              aligned: bool = True, bf16: bool = False) -> StemPlan:
+    """The launch plan of K2 for uint8 x [b, h, w, cin], a k x k stride-k
+    stem to ``cout`` channels (float32 or ``bf16`` out), on a card of
+    ``sms`` SMs: of the tile heights (4, 2 or 1 output rows) and rings (3
+    or 2 slots) whose shared memory lets the most blocks share an SM (at
+    most three), the most rows that still give each block of a full grid
+    at least 8 tiles, else one row, each with the most slots that fit; as
+    many blocks as fit, never more than the tiles.  The bulk path needs x
+    16-byte aligned (``aligned``) and k*w*cin and h*w*cin multiples of 16;
+    the tensor stores need cout 32, 64 or 128.  (Main shape, [256, 224,
+    224, 3] -> 32 on 132 SMs: 3,584 tiles of 4 rows, 3 slots, 396 blocks;
+    batch 1: 56 tiles of one row on 56 SMs.)  Raises ValueError for a stem
+    the kernel does not take."""
+    if _stem_words(k, cin)[1] > 4 * _STEM_K_STEPS or cout > _STEM_MAX_COUT or cout < 1:
+        raise ValueError(
+            f"stem: the kernel takes at most {4 * _STEM_K_STEPS} 4-byte words of input a pixel "
+            f"(k*ceil(k*cin/4)) and 1 to {_STEM_MAX_COUT} channels; got k={k}, cin={cin}, "
+            f"cout={cout}"
+        )
+    nrows = b * (h // k)
+    chunks = _stem_chunks(cout)
+    bulk = aligned and (k * w * cin) % 16 == 0 and (h * w * cin) % 16 == 0
+
+    def per_sm(smem: int) -> int:
+        return next(n for n in range(_STEM_BLOCKS_PER_SM, 0, -1) if n * (smem + 1024) <= _SM_SMEM or n == 1)
+
+    fits = []  # (blocks an SM, rows, stages): each rows' most stages that fit the most blocks
+    for r in (4, 2, 1):
+        shapes = [(st, _stem_layout(w, cin, k, r, st, chunks, bf16)[1]) for st in (_STEM_STAGES, 2)]
+        shapes = [(per_sm(sm), st) for st, sm in shapes if sm <= _SMEM_MAX]
+        if shapes:
+            n, st = max(shapes)
+            fits.append((n, r, st))
+    if not fits:
+        raise ValueError(f"stem: an output row's input ({k * w * cin} bytes) does not fit "
+                         f"the kernel's shared memory")
+    most = max(n for n, _, _ in fits)
+    fits = [(r, st) for n, r, st in fits if n == most]
+    full = most * sms * _STEM_TILES_PER_BLOCK
+    rows, stages = next(((r, st) for r, st in fits if -(-nrows // r) >= full), fits[-1])
+    stage_bytes, smem = _stem_layout(w, cin, k, rows, stages, chunks, bf16)
+    tiles = -(-nrows // rows)
+    return StemPlan(rows, tiles, stages, min(tiles, most * sms), chunks, bulk, cout == 32 * chunks,
+                    stage_bytes, smem)
+
+
+def stem_k_order(k: int, cin: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The stem kernel's K order, for each k index of its mma k-steps (16 a
+    step): (dy, j, row), the byte that the kernel reads at dy * W*cin + j
+    under a pixel's first staged byte, and the row of ``w2d`` that it meets
+    (dy * k*cin + j), or -1 for a zero row.  A pixel's input is k rows of
+    k*cin bytes cut into 4-byte words; word 4s + t of k-step s (t = lane %
+    4) feeds the A fragment's columns 2t, 2t+1 (its bytes 0, 1) and 2t+8,
+    2t+9 (bytes 2, 3).  A byte past k*cin in a row's last word, and every
+    byte of a word past the pixel's last (read at dy = 0), meets a zero row."""
+    span = k * cin
+    wpr, words = _stem_words(k, cin)
+    order = []
+    for kk in range(16 * _STEM_K_STEPS):
+        s, r = divmod(kk, 16)
+        wi = 4 * s + (r % 8) // 2
+        byte = r % 2 + (2 if r >= 8 else 0)
+        if wi >= words:
+            order.append((0, byte, -1))
+            continue
+        dy, jw = divmod(wi, wpr)
+        j = 4 * jw + byte
+        order.append((dy, j, dy * span + j if j < span else -1))
+    return tuple(order)
+
+
+def stem_weight_split(w2d: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The stem kernel's split of a float32 weight into bf16 parts, hi =
+    bf16(w), mid = bf16(w - hi), lo = bf16(w - hi - mid), each difference
+    exact in float32; the three sum to w exactly (8 + 8 + 8 significant
+    bits).  The bf16 mode's weight is bf16-valued: it takes hi alone."""
+    out, rest = [], w2d.to(torch.float32)
+    for _ in range(3):
+        p = rest.to(torch.bfloat16)
+        out.append(p)
+        rest = rest - p.to(torch.float32)
+    return tuple(out)
+
+
+def stem(
+    x8: torch.Tensor, w2d: torch.Tensor, scale: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], k: int, leaky: bool = True,
+    out_dtype: torch.dtype = torch.float32, bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """uint8 NHWC [B,H,W,cin] -> [B,H/k,W/k,cout] of ``out_dtype``.
+
+    float32: ``act(scale * (s2d(x) @ w2d) + shift)``, act = LeakyReLU(0.2)
+    if ``leaky``; ``bias`` None.  bf16 (the bf16 batch path): ``y0 =
+    bf16(s2d(x) @ w2d + bias)``, then, where ``scale`` and ``shift`` (bf16,
+    the batch norm's affine) are given, ``bf16(bf16(y0 * scale) + shift)``,
+    then the LeakyReLU in bf16: each step rounds once, as the chain of
+    PyTorch bf16 operations does.  ``w2d`` is the kernel == stride == k
+    conv weight as float32 [k*k*cin, cout] in (dy, dx, ci) row order, with
+    the normalize folded in (bf16-valued in bf16: the kernel takes it as
+    bf16).  CPU tensor: the plain version.  CUDA tensor: the ``stem``
+    kernel on :func:`stem_plan`'s plan.
     """
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stem: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    bf16 = out_dtype == torch.bfloat16
+    if bf16 and (bias is None or (scale is None) != (shift is None)):
+        raise ValueError("stem: bf16 takes a bias, and scale and shift both or neither")
+    if not bf16 and (bias is not None or scale is None or shift is None):
+        raise ValueError("stem: float32 takes scale and shift and no bias")
     if x8.device.type == "cpu":
-        return stem_plain(x8, w2d, scale, shift, k, leaky)
+        return stem_plain(x8, w2d, scale, shift, k, leaky, out_dtype, bias)
     _require_cuda(x8, "stem")
     if x8.ndim != 4:
         raise ValueError(f"stem: expected uint8 NHWC, got {tuple(x8.shape)}")
     b, h, w, cin = x8.shape
     cout = w2d.shape[-1]
-    if w2d.shape != (k * k * cin, cout) or scale.shape != (cout,) or shift.shape != (cout,):
-        raise ValueError(
-            f"stem: weight {tuple(w2d.shape)}, scale {tuple(scale.shape)}, shift "
-            f"{tuple(shift.shape)} do not fit k={k}, cin={cin}"
-        )
+    dev = x8.device
+    if w2d.shape != (k * k * cin, cout):
+        raise ValueError(f"stem: weight {tuple(w2d.shape)} does not fit k={k}, cin={cin}")
     if h < k or w < k:
         raise ValueError(f"stem: image {h}x{w} is smaller than the kernel {k}")
-    _check_cuda("stem x", x8, torch.uint8, x8.device)
-    for name, t in (("w", w2d), ("scale", scale), ("shift", shift)):
-        _check_cuda(f"stem {name}", t, torch.float32, x8.device)
-    out = torch.empty((b, h // k, w // k, cout), dtype=torch.float32, device=x8.device)
+    _check_cuda("stem x", x8, torch.uint8, dev)
+    _check_cuda("stem w", w2d, torch.float32, dev)
+    vec_dtype = torch.bfloat16 if bf16 else torch.float32
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t is not None:
+            _check_cuda(f"stem {name}", t, vec_dtype, dev, (cout,))
+    if bias is not None:
+        _check_cuda("stem bias", bias, torch.float32, dev, (cout,))
+    out = torch.empty((b, h // k, w // k, cout), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    plan = stem_plan(b, h, w, cin, k, cout, _sm_count(dev), x8.data_ptr() % 16 == 0, bf16)
+    mode = 0 if not bf16 else 2 if scale is not None else 1
     lib = build()
-    _launch("stem", lib.wadt_stem_u8_f32, x8.device,
-            x8.data_ptr(), w2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), b, h, w, cin, k, cout, int(leaky))
+    _launch("stem", lib.wadt_stem_u8, dev, x8.data_ptr(), w2d.data_ptr(),
+            None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, cin, k, cout, mode,
+            int(leaky), plan.rows, plan.stages, plan.grid, int(plan.bulk), int(plan.tma))
     return out
 
 

@@ -30,7 +30,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     enable_parity_precision,
 )
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import checkpoint as tckpt
-from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine.executor import Engine
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine.executor import Engine, to_device
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import get_family
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import nn as tnn
@@ -215,6 +215,50 @@ def test_engine_bf16_params_stay_f32():
         Engine("pmg", tspec, tparams, dtype=torch.float16, device="cpu")
 
 
+@pytest.mark.parametrize("norm", ["batch", "instance"])
+def test_bf16_packed_trunk_features_equal_the_old_chain(norm):
+    """The bf16 trunk from uint8, with the stem's cast, batch norm and
+    LeakyReLU now in the stem (its plain version here), gives the bits of
+    the chain that ran them as separate bf16 passes: the float32 stem with
+    the identity affine, ``.to(bf16)``, ``batch_norm_infer`` recomputing
+    its affine on the bf16 params, ``leaky_relu``; then the other blocks."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.norms import (
+        apply_norm,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        packed_affine,
+    )
+
+    spec = pmg.build_spec(TASKS, {**TINY["pmg"], "norm": norm})
+    rng = np.random.RandomState(11)
+    params = {"trunk": [{
+        "conv": {"w": torch.from_numpy(rng.randn(b.kernel, b.kernel, b.cin, b.cout).astype(np.float32)
+                                       * (b.kernel * b.kernel * b.cin) ** -0.5)},
+        "norm": {n: torch.from_numpy(v.astype(np.float32)) for n, v in {
+            "scale": rng.rand(b.cout) + 0.5, "bias": rng.randn(b.cout) * 0.1,
+            "mean": rng.randn(b.cout) * 0.1, "var": rng.rand(b.cout) + 0.5}.items()}}
+        for b in spec.plan]}
+    p16 = tnn.cast_tree(params, BF16)
+    x8 = torch.from_numpy(rng.randint(0, 256, (3, 64, 64, 3), np.uint8))
+    got = pmg.packed_trunk_features(p16, x8, spec, dtype=BF16)
+
+    b0 = spec.plan[0]
+    k = b0.kernel
+    p0 = p16["trunk"][0]
+    w0f = p0["conv"]["w"].reshape(-1, b0.cout).float()
+    scale, shift = (torch.as_tensor(a) for a in packed_affine(k))
+    bias = -(shift @ w0f)
+    wf = (scale[:, None] * w0f).to(BF16).float()
+    y = ck.stem_plain(x8, wf, torch.ones_like(bias), bias, k, leaky=False)
+    y = tnn.leaky_relu(apply_norm(y.to(BF16), p0["norm"], spec.norm), 0.2)
+    for pp, bk in zip(p16["trunk"][1:], spec.plan[1:]):
+        y = tnn.conv2d(y, pp["conv"], stride=bk.stride, padding=bk.pad)
+        y = tnn.leaky_relu(apply_norm(y, pp["norm"], spec.norm), 0.2)
+    assert got.dtype == BF16 and got.shape == y.shape
+    assert torch.equal(got.view(torch.int16), y.view(torch.int16))
+
+
 # -- (d) the bf16 Engine against the JAX float32 Engine ------------------------
 
 
@@ -345,3 +389,26 @@ def test_linear_bf16_on_card_within_one_ulp(bias, cuda_device):
     got = tnn.linear(torch.from_numpy(x).to(cuda_device, BF16),
                      {n: torch.from_numpy(v).to(cuda_device, BF16) for n, v in p.items()})
     _assert_within_one_ulp(got.cpu(), want, slack=192 * 2.0 ** -24 * (np.abs(x) @ np.abs(p["w"])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["batch", "instance"])
+def test_bf16_stem_on_card_rounds_as_the_chain(norm, cuda_device):
+    """The bf16 stem kernel: its sum rounded to bf16 (y0) within one bf16
+    ulp of the plain version's, and, for batch norm, the norm and LeakyReLU
+    in the kernel bit for bit the bf16 chain applied to the kernel's own y0."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
+
+    spec = pmg.build_spec(TASKS, {**TINY["pmg"], "norm": norm})
+    _, _, _, tparams = _models("pmg")
+    p16 = tnn.cast_tree(to_device(tparams, cuda_device), BF16)
+    st = pmg.fold_stem(p16, spec, BF16)
+    x8 = torch.from_numpy(np.random.RandomState(12).randint(0, 256, (4, 64, 64, 3), np.uint8)).to(cuda_device)
+    k = spec.plan[0].kernel
+    y0 = ck.stem(x8, st["w"], None, None, k, leaky=False, out_dtype=BF16, bias=st["bias"])
+    want = ck.stem_plain(x8, st["w"], None, None, k, leaky=False, out_dtype=BF16, bias=st["bias"])
+    torch.testing.assert_close(y0.float(), want.float(), atol=2e-4, rtol=2.0 ** -7)
+    if norm == "batch":
+        y = ck.stem(x8, st["w"], st["scale"], st["shift"], k, out_dtype=BF16, bias=st["bias"])
+        chain = tnn.leaky_relu(y0 * st["scale"] + st["shift"], 0.2)
+        assert torch.equal(y.view(torch.int16), chain.view(torch.int16))

@@ -20,6 +20,15 @@
   whose shared memory fits; :func:`pack_trunk_gram_weights` lays the fold
   out as the kernel reads it; and the split, emulated block by block on the
   CPU, gives ``fused_trunk_gram_plain``'s Gram bit for bit.
+- K2 (``csrc/stem.cu``): :func:`stem_plan`'s persistent grid walks every
+  tile of whole output rows once, covers each output row once and fits
+  the block's shared memory, at the main shape, at batch 1, at each PMG
+  fixture's stem and at chip_smoke.py's two ragged shapes;
+  :func:`stem_weight_split` splits a float32 weight into three bf16 parts
+  that sum to it exactly; and the tile product, emulated on the staged
+  bytes in :func:`stem_k_order`'s permuted, zero-padded K order (a pad
+  column reads whatever byte lies there), equals the plain GEMM in
+  float64.
 
 The kernels themselves run on the card only (``chip_smoke.py``,
 ``tests/test_torch_kernels.py::test_kernel_matches_plain_on_card``).
@@ -375,3 +384,122 @@ def test_trunk_gram_split_emulation_equals_plain(label, spec, h, w):
     plan = ck.trunk_gram_plan(spec, h, w)
     got = _emulate_trunk_gram(x8, weights, spec, plan)
     assert torch.equal(got, ck.fused_trunk_gram_plain(x8, weights, spec))
+
+
+# ---------------------------------------------------------------------------
+# K2 (csrc/stem.cu): persistent tiles of whole output rows, the weight
+# split, the permuted K order
+# ---------------------------------------------------------------------------
+
+STEM_RAGGED = [(2, 30, 30, 3, 4, 16), (2, 32, 32, 3, 4, 12)]  # chip_smoke.py [2]
+
+
+def _stem_shapes():
+    """(B, H, W, cin, k, cout): the main shape, batch 1 (the camera
+    route), each PMG fixture's stem at 224 px at batch 2 and 256, and the
+    ragged shapes."""
+    shapes = [(256, 224, 224, 3, 4, 32), (1, 224, 224, 3, 4, 32)]
+    for name in PMG_FIXTURES:
+        b0 = _spec(name).plan[0]
+        shapes += [(b, 224, 224, b0.cin, b0.kernel, b0.cout) for b in (2, 256)]
+    return shapes + STEM_RAGGED
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+@pytest.mark.parametrize("b,h,w,cin,k,cout", _stem_shapes())
+def test_stem_plan_covers_every_row_once_and_fits(b, h, w, cin, k, cout, bf16):
+    plan = ck.stem_plan(b, h, w, cin, k, cout, H100_SMS, True, bf16)
+    nrows = b * (h // k)
+    assert plan.rows in (4, 2, 1) and plan.tiles == -(-nrows // plan.rows)
+    # block g takes tiles g, g + grid, ...: every tile once, every output row once
+    rows = np.zeros(nrows, np.int64)
+    for g in range(plan.grid):
+        for tile in range(g, plan.tiles, plan.grid):
+            rows[tile * plan.rows:min((tile + 1) * plan.rows, nrows)] += 1
+    assert (rows == 1).all()
+    assert 1 <= plan.grid <= min(plan.tiles, 3 * H100_SMS)
+    assert plan.stages in (2, 3) and plan.smem <= 227 * 1024
+    assert plan.stage_bytes % 128 == 0 and plan.stage_bytes >= plan.rows * k * w * cin + 16
+    assert -(-plan.grid // H100_SMS) * (plan.smem + 1024) <= 228 * 1024
+    assert plan.chunks * 32 >= cout and 4 % plan.chunks == 0
+    assert plan.bulk == ((k * w * cin) % 16 == 0 and (h * w * cin) % 16 == 0)
+    assert plan.tma == (cout in (32, 64, 128))  # whole 32-channel boxes
+    if b == 1:  # the camera route's batch 1 spreads over one SM per output row
+        assert plan.grid == h // k >= 56
+    if (b, h, w, cin, k, cout) == (256, 224, 224, 3, 4, 32):
+        # three blocks an SM, each a ring of three 4-row tiles
+        assert plan.bulk and plan.tma and plan.rows == 4 and plan.stages == 3
+        assert plan.grid == 3 * H100_SMS
+        assert plan.path == "bulk loads, tensor stores"
+
+
+def test_stem_plan_names_the_paths_where_bulk_and_tensor_rules_fail():
+    assert ck.stem_plan(*STEM_RAGGED[0], H100_SMS).path == "plain loads, direct stores"  # 360-byte runs
+    assert ck.stem_plan(*STEM_RAGGED[1], H100_SMS).path == "bulk loads, direct stores"  # 12 channels
+    assert not ck.stem_plan(256, 224, 224, 3, 4, 32, H100_SMS, aligned=False).bulk
+
+
+@pytest.mark.parametrize("k,cin,cout", [(4, 4, 32), (8, 3, 32), (4, 3, 129)])
+def test_stem_plan_refuses_what_the_kernel_does_not_take(k, cin, cout):
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ck.stem_plan(2, 64, 64, cin, k, cout, H100_SMS)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 3e4])
+def test_stem_weight_split_is_exact(scale):
+    w = torch.from_numpy(np.random.RandomState(4).randn(48, 32).astype(np.float32) * scale)
+    hi, mid, lo = ck.stem_weight_split(w)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.double() + mid.double() + lo.double(), w.double())
+    assert (mid.float().abs() <= hi.float().abs() * 2.0 ** -8).all()
+    # a bf16-valued weight (the bf16 mode's, which takes hi alone) is all hi
+    hi, mid, lo = ck.stem_weight_split(w.to(torch.bfloat16).float())
+    assert torch.equal(hi, w.to(torch.bfloat16)) and not mid.any() and not lo.any()
+
+
+def _emulate_stem_product(x8, w2d, k, plan):
+    """K2's products on the CPU in float64: each tile's output rows staged
+    as the kernel stages them (each row's k input rows as one run, 16 bytes
+    of slack after the last, filled with 0xA5), each pixel's A row read at
+    the kernel's offsets in :func:`stem_k_order`, B the weight's split
+    parts in the same order with zero rows, summed over the three parts."""
+    b, h, w, cin = x8.shape
+    hp, wp = h // k, w // k
+    order = ck.stem_k_order(k, cin)
+    rows_idx = torch.tensor([r if r >= 0 else 0 for _, _, r in order])
+    live = torch.tensor([r >= 0 for _, _, r in order], dtype=torch.float64)
+    parts = ck.stem_weight_split(w2d)
+    bmat = sum(p.double()[rows_idx] for p in parts) * live[:, None]
+    flat = x8.reshape(b * h, w * cin)
+    out = torch.zeros((b * hp * wp, w2d.shape[1]), dtype=torch.float64)
+    nrows = b * hp
+    for tile in range(plan.tiles):
+        r0 = tile * plan.rows
+        runs = [flat[(rr // hp) * h + (rr % hp) * k:(rr // hp) * h + (rr % hp) * k + k].reshape(-1)
+                for rr in range(r0, min(r0 + plan.rows, nrows))]
+        stage = torch.cat(runs + [torch.full((16,), 0xA5, dtype=torch.uint8)]).double()
+        npx = len(runs) * wp
+        pixoff = torch.tensor([(p // wp) * k * w * cin + (p % wp) * k * cin for p in range(npx)])
+        offs = torch.tensor([dy * w * cin + j for dy, j, _ in order])
+        a = stage[pixoff[:, None] + offs[None, :]]
+        out[r0 * wp:r0 * wp + npx] = a @ bmat
+    return out.reshape(b, hp, wp, -1)
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout", [(2, 224, 224, 3, 4, 32), (2, 64, 64, 3, 4, 64)]
+                         + STEM_RAGGED + [(2, 14, 13, 3, 3, 8), (3, 12, 12, 4, 2, 16)])
+def test_stem_k_order_emulation_equals_plain(b, h, w, cin, k, cout):
+    rng = np.random.RandomState(b * 100 + cout)
+    x8 = torch.from_numpy(rng.randint(0, 256, (b, h, w, cin), np.uint8))
+    w2d = torch.from_numpy(rng.randn(k * k * cin, cout).astype(np.float32) * 0.01)
+    plan = ck.stem_plan(b, h, w, cin, k, cout, H100_SMS)
+    order = ck.stem_k_order(k, cin)
+    assert len(order) == 16 * 3  # three k-steps
+    assert sorted(r for _, _, r in order if r >= 0) == list(range(k * k * cin))  # each row once
+    got = _emulate_stem_product(x8, w2d, k, plan)
+    want = torch.matmul(s2d_pack(x8, k).double(), w2d.double())
+    torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
+    # and the plain version, the same sum in float32
+    one = torch.ones(cout)
+    plain = ck.stem_plain(x8, w2d, one, torch.zeros(cout), k, leaky=False)
+    torch.testing.assert_close(plain.double(), want, atol=1e-5, rtol=1e-5)

@@ -16,6 +16,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import gram as tgram
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import norms as tnorms
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import leaky_relu as tleaky_relu
 
 GRAM_SHAPES = [(14, 14, 96, 3), (8, 8, 32, 4), (7, 5, 16, 2)]
 
@@ -104,6 +105,118 @@ def test_stem_plain_identity_affine_matches_conv():
     op = _port_stem_operands(conv_w, bn, k, norm="instance")
     got = ck.stem_plain(torch.from_numpy(imgs), op["w"], op["scale"], op["shift"], k, leaky=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+def _bf16_chain(acc, bias, s, t, leaky=True):
+    """The bf16 path's chain as PyTorch runs it on bf16 tensors: the float32
+    sum plus bias cast, then ``batch_norm_infer``'s ``y * s + t`` and the
+    LeakyReLU, each a bf16 operation."""
+    y = (acc + bias).to(torch.bfloat16)
+    if s is not None:
+        y = y * s + t
+    return tleaky_relu(y, 0.2) if leaky else y
+
+
+def _emulated_epilogue(acc, bias, s, t, leaky=True):
+    """csrc/stem.cu's bf16 epilogue in float32 tensors, rounded to bf16
+    after each step: one float32 operation and one round to nearest even
+    per step, as ``__fadd_rn`` / ``__fmul_rn`` and ``__float2bfloat16_rn``
+    compute it."""
+    def r(v):
+        return v.to(torch.bfloat16).float()
+
+    y = r(acc + bias)
+    if s is not None:
+        y = r(r(y * s.float()) + t.float())
+    if leaky:
+        y = torch.where(y >= 0, y, r(y * 0.2))
+    return y
+
+
+def _near_midpoints(n, rng):
+    """float32 values at bf16 rounding midpoints and one float32 ulp either
+    side of them, of both signs and across exponents."""
+    base = torch.from_numpy((rng.randn(n) * 4.0 ** rng.randint(-6, 6, n)).astype(np.float32))
+    base = base.to(torch.bfloat16).float()
+    mid = base + torch.sign(base) * torch.ldexp(torch.ones(n), torch.frexp(base).exponent - 9)
+    up = torch.nextafter(mid, torch.full_like(mid, float("inf")))
+    down = torch.nextafter(mid, torch.full_like(mid, -float("inf")))
+    return torch.cat([mid, up, down])
+
+
+@pytest.mark.parametrize("case", ["seeded", "zeros", "negatives", "midpoints"])
+@pytest.mark.parametrize("norm", [True, False], ids=["batch_norm", "no_norm"])
+def test_stem_bf16_epilogue_emulation_equals_bf16_chain(case, norm):
+    """The kernel's bf16 epilogue, step by step in float32 with a rounding
+    after each, gives the PyTorch bf16 chain's bits, on seeded values,
+    zeros, negatives and sums one float32 ulp either side of bf16 rounding
+    midpoints (the sum, the product y0 * s and y1 + t all meet ties)."""
+    rng = np.random.RandomState(["seeded", "zeros", "negatives", "midpoints"].index(case))
+    c = 32
+    if case == "midpoints":
+        acc = _near_midpoints(3 * 64 * c, rng).reshape(-1, c)
+        bias = torch.zeros(c)
+    else:
+        acc = torch.from_numpy(rng.randn(512, c).astype(np.float32) * 3)
+        bias = torch.from_numpy(rng.randn(c).astype(np.float32))
+        if case == "zeros":
+            acc, bias = torch.zeros_like(acc), torch.zeros_like(bias)
+            acc[::2] = -0.0
+        elif case == "negatives":
+            acc, bias = -acc.abs() - 1, -bias.abs()
+    bn = {k: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16) for k, v in {
+        "scale": rng.rand(c) + 0.5, "bias": rng.randn(c) * 0.1,
+        "mean": rng.randn(c) * 0.1, "var": rng.rand(c) + 0.5}.items()}
+    s, t = tnorms.batch_norm_affine(bn) if norm else (None, None)
+    if norm:
+        assert s.dtype == t.dtype == torch.bfloat16
+    want = _bf16_chain(acc, bias, s, t)
+    got = _emulated_epilogue(acc, bias, s, t)
+    assert torch.equal(got.view(torch.int32), want.float().view(torch.int32))
+
+
+def _bf16_stem_case(norm="batch"):
+    """The bf16 fold of _stem_case's block on a bf16 tree."""
+    imgs, conv_w, bn, k = _stem_case(True)
+    spec = tpmg.Spec(tasks=None, ndf=conv_w.shape[-1], patch_size=8, norm=norm)
+    params = {"trunk": [{"conv": {"w": torch.from_numpy(conv_w).to(torch.bfloat16)},
+                         "norm": {n: torch.from_numpy(v).to(torch.bfloat16) for n, v in bn.items()}}]}
+    return torch.from_numpy(imgs), tpmg.fold_stem(params, spec, torch.bfloat16), params, k
+
+
+@pytest.mark.parametrize("norm", ["batch", "instance"])
+def test_stem_plain_bf16_is_the_old_chain(norm):
+    """bf16 stem_plain = the float32 stem with the identity affine, cast to
+    bf16, then (batch norm) ``batch_norm_infer`` on the bf16 params and the
+    LeakyReLU: the chain the bf16 path ran before the kernel took it in."""
+    x8, st, params, k = _bf16_stem_case(norm)
+    assert (st["scale"] is None) == (norm != "batch")
+    fused = norm == "batch"
+    got = ck.stem_plain(x8, st["w"], st["scale"], st["shift"], k, leaky=fused,
+                        out_dtype=torch.bfloat16, bias=st["bias"])
+    cout = st["w"].shape[1]
+    want = ck.stem_plain(x8, st["w"], torch.ones(cout), st["bias"], k, leaky=False).to(torch.bfloat16)
+    if fused:
+        want = tleaky_relu(tnorms.batch_norm_infer(want, params["trunk"][0]["norm"]), 0.2)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_stem_bf16_cpu_takes_plain_version_and_checks_its_operands():
+    x8, st, _, k = _bf16_stem_case()
+    ck.reset_launches()
+    args = (x8, st["w"], st["scale"], st["shift"], k)
+    got = ck.stem(*args, out_dtype=torch.bfloat16, bias=st["bias"])
+    assert ck.LAUNCHES["stem"] == 0
+    assert torch.equal(got, ck.stem_plain(*args, out_dtype=torch.bfloat16, bias=st["bias"]))
+    with pytest.raises(ValueError, match="bias"):
+        ck.stem(*args, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="both or neither"):
+        ck.stem(x8, st["w"], st["scale"], None, k, out_dtype=torch.bfloat16, bias=st["bias"])
+    with pytest.raises(ValueError, match="no bias"):
+        ck.stem(*args, bias=st["bias"])
+    with pytest.raises(ValueError, match="out_dtype"):
+        ck.stem(*args, out_dtype=torch.float16, bias=st["bias"])
 
 
 def _gram_call():
