@@ -89,9 +89,11 @@ Phases, each of which raises on failure:
     in bf16; two calls bit-identical; bf16 output within one bf16 ulp) and
     on six shapes that take every tile width, ragged M and K tails, within
     1e-4 x max|y|; its time with the Gram read from device memory (four
-    rotating copies), its plain version's, ``torch.matmul`` of the same
-    bf16 operands, its bound, the host time of one call, and the previous
-    K5 in turns where ``_archive/`` holds it;
+    rotating copies), its plain version's, ``torch.addmm`` of the same bf16
+    operands and the bias (K5's function in one library call, held to the
+    plain version within K5's bf16-out limit) and ``torch.matmul`` without
+    the bias, its bound, the host time of one call, and the previous K5 in
+    turns where ``_archive/`` holds it;
 15. PMG bf16 batch: ``Engine(dtype=torch.bfloat16)`` on the shipped
     checkpoint at batch 256 over phase 4's 600 frames, launch counts reset
     just before; K5 and K1 must have launched.  Argmax agreement (at least
@@ -110,7 +112,23 @@ Phases, each of which raises on failure:
     images per second;
 17. RTM bf16 batch at phase 12's width and batch: argmax agreement and
     probability drift against the float32 run, device step time and images
-    per second.
+    per second;
+18. the evaluation path on the shipped PMG at batch 256: ``evaluate`` over
+    600 seeded in-memory frames with seeded labels (about 10 % missing, one
+    task with two classes present) through the port's ``BatchLoader``, in
+    float32, in bf16 and with ``scan_chunk=2``, launch counts reset just
+    before each; (a) metrics_test.json equals the metrics of ``Engine.run``
+    on the same frames exactly, (b) test_loss its loss accounting, (c) the
+    ``scan_chunk=2`` run the per-batch bytes, (d) K2 and K1 (and K5 in bf16)
+    launched once a batch, (e) probabilities on 16 frames within 1e-3 of
+    the port's CPU path in float32 (0.05 in bf16); ``run_benchmark`` with
+    auto-mapping, ``run_inference`` and ``test_folder_predictions`` on 64
+    seeded PNGs and one ``WatchFolderService`` poll cycle at batch 1, (f)
+    their artifacts equal to what ``Engine.run`` gives on the decoded
+    frames; evaluate's images per second end to end against ``Engine.run``'s
+    in turns, and the watch service's wall time for one frame.  Where the
+    machine has no matplotlib, a recording stand-in for ``matplotlib.pyplot``
+    checks that every ROC figure was asked for (none is drawn).
 
 ``--profile`` also prints, for phases 15-17, each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
@@ -118,7 +136,9 @@ time with its work cut stage by stage.  Host times come from runs
 without ``--profile``: once a profiler session has run, the host's launch
 cost stays higher for the rest of the process.
 
-Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
+Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (K1's,
+K2's and K5's entries also hold ``eval_launches``, their launches on each
+path of phase 18), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when no CUDA card is available or the
@@ -1314,12 +1334,22 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     # timed with G read from device memory: 4 rotating copies, 170 MB, over
     # three times the 50 MB L2; W (3.5 MB) stays in L2 as it does between batches
     copies = [g16.clone() for _ in range(4)]
-    rings = [itertools.cycle(copies) for _ in range(3)]
+    rings = [itertools.cycle(copies) for _ in range(4)]
     k5_ms = device_ms(lambda: ck.gram_proj(next(rings[0]), w16, b32))
     plain_ms = device_ms(lambda: ck.gram_proj_plain(next(rings[1]), w16, b32))
-    # yardstick: torch.matmul of the same bf16 operands (bf16 result, no bias)
-    lib_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
     m, k = g16.shape[0] * g16.shape[1], g16.shape[2]
+    # the library call that computes K5's function: torch.addmm of the bf16
+    # operands and the bias in bf16, float32 sums (split-K reductions in
+    # bf16 are off: enable_parity_precision), the bias added, one rounding;
+    # held to the plain version's bf16 output within K5's bf16-out limit.
+    # torch.matmul (no bias) is the earlier yardstick, printed beside it.
+    b16 = b32.to(bf16)
+    y_mm = torch.addmm(b16, g16.reshape(m, k), w16).reshape(y16.shape)
+    torch.cuda.synchronize()
+    addmm_err = max_err(y_mm.float(), ck.gram_proj_plain(g16, w16, b32, torch.bfloat16).float(),
+                        K5_TOL * ymax, 2 ** -7, "torch.addmm bf16 (K5's function) vs gram_proj plain")
+    lib_ms = device_ms(lambda: torch.addmm(b16, next(rings[2]).reshape(m, k), w16))
+    mm_ms = device_ms(lambda: torch.matmul(next(rings[3]), w16))
     if "wadt_gram_proj_bf16" in old:  # the archived K5 (wmma, split K through device memory) in turns
         n = w16.shape[1]
         splits = 10
@@ -1331,9 +1361,8 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
             lambda: old["wadt_gram_proj_bf16"](next(ring_old).data_ptr(), w16.data_ptr(), b32.data_ptr(),
                                             out_old.data_ptr(), part.data_ptr(), m, n, k, splits, stream),
             lambda: ck.gram_proj(next(rings[0]), w16, b32))
-        mm_ms = device_ms(lambda: torch.matmul(next(rings[2]), w16))
         print(f"[14] gram_proj in turns, G from device memory: archived v2 {old_ms * 1e3:.1f} us, new "
-              f"{new_ms * 1e3:.1f} us; torch.matmul bf16 {mm_ms * 1e3:.1f} us | {card}")
+              f"{new_ms * 1e3:.1f} us | {card}")
     t0 = time.perf_counter()
     for _ in range(100):
         ck.gram_proj(g16, w16, b32)
@@ -1345,8 +1374,10 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     b_ms, b_by = bound_ms(nbytes, 0.0, bf16_flops=2.0 * m * k * n)
     print(f"[14] gram_proj at batch {BATCH} [{m},{k}] x [{k},{n}] bf16, G from device memory: "
           f"{k5_ms * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), plain {plain_ms * 1e3:.1f} us, "
-          f"torch.matmul bf16 {lib_ms * 1e3:.1f} us; host time of one wrapper call (tensor maps "
-          f"encoded, launch enqueued) {host_us:.1f} us | {card}")
+          f"torch.addmm bf16 with the bias (K5's function, bf16 out; vs plain {addmm_err:.3e}, limit "
+          f"{K5_TOL} x max|y| + one bf16 ulp) {lib_ms * 1e3:.1f} us, torch.matmul bf16 (no bias) "
+          f"{mm_ms * 1e3:.1f} us; host time of one wrapper call (tensor maps encoded, launch "
+          f"enqueued) {host_us:.1f} us | {card}")
 
     # -- 15. PMG bf16 batch ----------------------------------------------------
     ck.reset_launches()
@@ -1518,6 +1549,356 @@ def rtm_bf16_phase(card: str, f32: dict, profile: bool) -> None:
           f"img/s | {card}")
     if profile:
         profile_step(f"[17] RTM bf16 step at batch {RTM_BATCH}", lambda: eng16.step(xb))
+
+
+class PyplotRecorder:
+    """Stand-in for ``matplotlib.pyplot`` on a machine without matplotlib:
+    every call is recorded and returns the recorder (``subplots`` a pair of
+    it); nothing is drawn.  ``saved`` lists the paths of the figures asked
+    for."""
+
+    def __init__(self):
+        self.saved = []
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+    def __getattr__(self, name):
+        def call(*args, **kwargs):
+            if name == "savefig":
+                self.saved.append(args[0])
+            return (self, self) if name == "subplots" else self
+
+        return call
+
+
+def pyplot_stand_in():
+    """None where matplotlib imports; else a recorder put into
+    ``sys.modules`` as ``matplotlib`` and ``matplotlib.pyplot``."""
+    import types
+
+    try:
+        import matplotlib  # noqa: F401
+        return None
+    except ImportError:
+        rec = PyplotRecorder()
+        mod = types.ModuleType("matplotlib")
+        mod.use = lambda *args, **kwargs: None
+        mod.pyplot = rec
+        sys.modules["matplotlib"] = mod
+        sys.modules["matplotlib.pyplot"] = rec
+        return rec
+
+
+class FrameDataset:
+    """In-memory frames and labels behind the loader's dataset contract
+    (``paths()``, ``load(i)``, ``task_names``): no decode sets the pace."""
+
+    def __init__(self, frames, labels, task_names):
+        self.frames, self.labels, self.task_names = frames, labels, list(task_names)
+
+    def paths(self):
+        return [f"frame{i:04d}" for i in range(len(self.frames))]
+
+    def load(self, i):
+        return self.frames[i], self.labels[i]
+
+
+def eval_labels(tasks, n: int, rng):
+    """Seeded labels [n, T]: about 10 % IGNORE_INDEX, and the first task of
+    three or more classes with only two of them present."""
+    import numpy as np
+
+    lab = np.stack([rng.randint(0, k, n) for k in tasks.num_classes], axis=1).astype(np.int32)
+    two = next(i for i, k in enumerate(tasks.num_classes) if k >= 3)
+    lab[:, two] = rng.choice([0, 2], n)
+    lab[rng.rand(*lab.shape) < 0.1] = -100
+    return lab
+
+
+def recomputed_metrics(eng, frames, labels, roc_dir: str) -> dict:
+    """metrics_test.json as ``evaluate`` should write it, from ``Engine.run``
+    on the same frames, batch by batch: the same metric functions on the
+    same rows, and the reference's loss accounting (per batch, the sum of
+    the labeled tasks' mean losses, times the batch's rows)."""
+    import numpy as np
+
+    out = eng.run(frames, labels, collect=("probs", "preds"))
+    loss_sum, total = 0.0, 0
+    for s in range(0, len(frames), eng.batch_size):
+        r = eng.run(frames[s: s + eng.batch_size], labels[s: s + eng.batch_size], collect=())
+        per_task = r["loss_per_task"].astype(np.float32)  # float32, as the step wrote it
+        loss_sum += float(np.sum(per_task[r["count_per_task"] > 0])) * len(frames[s: s + eng.batch_size])
+        total += len(frames[s: s + eng.batch_size])
+    metrics = recomputed_metrics_only(eng.tasks, out, labels, roc_dir)
+    f1 = float(np.mean([m["f1_score"] for m in metrics.values()]))
+    return {"test_loss": loss_sum / total, "overall_f1": f1, "tasks": metrics}, out
+
+
+def recomputed_metrics_only(tasks, out, labels, roc_dir: str) -> dict:
+    """Each task's metric dict from ``Engine.run``'s probs and preds on the
+    labeled rows, with the ROC artifacts under ``roc_dir``."""
+    import numpy as np
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import (
+        metrics as um,
+    )
+
+    metrics = {}
+    for ti, task in enumerate(tasks.names):
+        m = labels[:, ti] != -100
+        k = tasks.num_classes[ti]
+        metrics[task] = um.task_metrics_and_roc(
+            task, tasks.class_names[ti], out["preds"][m, ti].astype(np.int64),
+            labels[m, ti].astype(np.int64), out["probs"][m, ti, :k].astype(np.float64), roc_dir)
+    return metrics
+
+
+def same_json(path: str, root: str, want, want_root: str) -> bool:
+    """The JSON file equals ``want`` exactly once each side's output
+    directory is replaced by one placeholder."""
+    with open(path) as f:
+        got = json.loads(f.read().replace(root, "<out>"))
+    return got == json.loads(json.dumps(want).replace(want_root, "<out>"))
+
+
+def evaluation_phase(card: str, eng32) -> dict:
+    """Phase 18: the evaluation workloads on the shipped PMG at batch 256
+    (evaluate in float32, bf16 and with scan_chunk=2; run_benchmark,
+    run_inference, test_folder_predictions and one watch-folder poll
+    cycle), each checked against ``Engine.run``; returns each path's
+    launch counts, read just after the path with the counts reset just
+    before it."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.data import (
+        BatchLoader,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        load_image_uint8,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import (
+        benchmark, evaluate, inference,
+    )
+
+    recorder = pyplot_stand_in()
+    if recorder is not None:
+        print("[18] matplotlib is not installed here: the ROC PNGs were not drawn; a recording "
+              "stand-in for matplotlib.pyplot checks that a figure was asked for on every curve")
+    spec = eng32.spec
+    tasks = spec.tasks
+    rng = np.random.RandomState(18)
+    frames = rng.randint(0, 256, (N_FRAMES, 224, 224, 3), np.uint8)
+    labels = eval_labels(tasks, N_FRAMES, rng)
+    dataset = FrameDataset(frames, labels, tasks.names)
+    n_batches = -(-N_FRAMES // BATCH)
+    eng16 = executor.Engine("pmg", spec, eng32.params, batch_size=BATCH, dtype=torch.bfloat16)
+    counts = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        def figures_ok(pngs):
+            if recorder is None:
+                return all(os.path.exists(p) for p in pngs)
+            return set(pngs) <= set(recorder.saved)
+
+        def run_eval(label, eng, **kw):
+            out_dir = os.path.join(tmp, label)
+            ck.reset_launches()
+            loss, metrics, f1, _ = evaluate.evaluate(eng, BatchLoader(dataset, batch_size=BATCH),
+                                                     out_dir, **kw)
+            torch.cuda.synchronize()
+            counts[label] = dict(ck.LAUNCHES)
+            want = {"stem": n_batches, "patch_gram": n_batches,
+                    "gram_proj": n_batches if eng.dtype == torch.bfloat16 else 0}
+            got = {name: counts[label][name] for name in want}
+            if got != want:  # (d) one launch of each a batch: no plain version stood in
+                raise AssertionError(f"evaluate {label}: launches {got}, want {want}")
+            return out_dir, loss
+
+        drift, out_rows = {}, {}
+        for label, eng in (("float32", eng32), ("bf16", eng16)):
+            out_dir, loss = run_eval(label, eng)
+            want, out = recomputed_metrics(eng, frames, labels, os.path.join(tmp, f"{label}_want", "roc"))
+            out_rows[label] = out
+            path = os.path.join(out_dir, "metrics_test.json")
+            if not same_json(path, out_dir, want, os.path.join(tmp, f"{label}_want")):  # (a)
+                raise AssertionError(f"evaluate {label}: metrics_test.json differs from the metrics "
+                                     f"of Engine.run on the same frames")
+            if loss != want["test_loss"]:  # (b)
+                raise AssertionError(f"evaluate {label}: test_loss {loss} != {want['test_loss']}")
+            pngs = [m["roc_png"] for m in json.load(open(path))["tasks"].values() if m["roc_png"]]
+            if len(pngs) != len(tasks) or not figures_ok(pngs):
+                raise AssertionError(f"evaluate {label}: ROC figures {pngs}")
+            cpu = executor.Engine("pmg", spec, eng32.params, batch_size=16, dtype=eng.dtype,
+                                  device="cpu").run(frames[:16])["probs"]
+            drift[label] = float(np.abs(out["probs"][:16] - cpu).max())  # (e)
+            limit = 1e-3 if label == "float32" else 0.05
+            if drift[label] > limit:
+                raise AssertionError(f"evaluate {label}: card vs CPU probabilities differ by "
+                                     f"{drift[label]} (limit {limit})")
+        sc_dir, _ = run_eval("float32 scan_chunk=2", eng32, scan_chunk=2)
+        with open(os.path.join(tmp, "float32", "metrics_test.json")) as f:
+            per_batch = json.loads(f.read().replace(os.path.join(tmp, "float32"), "<out>"))
+        if not same_json(os.path.join(sc_dir, "metrics_test.json"), sc_dir, per_batch, "<out>"):  # (c)
+            raise AssertionError("evaluate scan_chunk=2: metrics_test.json differs from per-batch")
+        for csv_path in glob.glob(os.path.join(tmp, "float32", "roc", "*.csv")):
+            with open(csv_path, "rb") as a, open(os.path.join(sc_dir, "roc", os.path.basename(csv_path)),
+                                                  "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"evaluate scan_chunk=2: {os.path.basename(csv_path)} differs")
+        print(f"[18] evaluate on the shipped PMG, {N_FRAMES} in-memory frames at batch {BATCH} "
+              f"(BatchLoader), 12 tasks, ~10 % labels missing: metrics_test.json equals the metrics "
+              f"of Engine.run on the same frames (a) and test_loss its loss accounting (b), exactly, "
+              f"in float32 and bf16; scan_chunk=2 gives the same bytes (c); launches a run "
+              f"{ {k: {n: v[n] for n in ('stem', 'patch_gram', 'gram_proj')} for k, v in counts.items()} } "
+              f"(d); card vs CPU probabilities on 16 frames: float32 {drift['float32']:.3e} (limit "
+              f"1e-3), bf16 {drift['bf16']:.3e} (limit 0.05) (e)")
+
+        # end to end: evaluate (loader, engine, metrics, artifacts) against
+        # Engine.run on the same frames in memory, in turns, median of 3
+        for label, eng in (("float32", eng32), ("bf16", eng16)):
+            t_eval, t_run = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                evaluate.evaluate(eng, BatchLoader(dataset, batch_size=BATCH), os.path.join(tmp, "timed"))
+                t_eval.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run(frames, labels)
+                t_run.append(time.perf_counter() - t0)
+            e, r = statistics.median(t_eval), statistics.median(t_run)
+            # the host's metric work alone: the metric functions and ROC
+            # artifacts evaluate runs after the last batch
+            t0 = time.perf_counter()
+            recomputed_metrics_only(eng.tasks, out_rows[label], labels, os.path.join(tmp, "timed_m"))
+            m_ms = (time.perf_counter() - t0) * 1e3
+            print(f"[18] {label}: evaluate end to end {N_FRAMES / e:,.0f} img/s ({e * 1e3:.1f} ms; "
+                  f"runs {[round(t * 1e3, 1) for t in t_eval]} ms; of which the metrics and ROC "
+                  f"artifacts alone take {m_ms:.1f} ms), Engine.run on the same frames "
+                  f"{N_FRAMES / r:,.0f} img/s ({r * 1e3:.1f} ms; runs {[round(t * 1e3, 1) for t in t_run]}"
+                  f" ms), in turns, median of 3 | {card}")
+
+        # the folder, benchmark and watch paths on 64 seeded PNGs in
+        # class-named folders (320x256, and 300x240 ones that are resized)
+        bench = ["sun", "rain", "snow", "fog"]
+        folder = os.path.join(tmp, "bench")
+        for i in range(64):
+            w, h = (320, 256) if i % 2 == 0 else (300, 240)
+            d = os.path.join(folder, bench[i % 4])
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(os.path.join(d, f"img{i:02d}.png"))
+        names = list(tasks.class_names[0])
+        perm = rng.permutation(len(names))
+        mapping = {tasks.names[0]: {b: [names[j] for j in perm[i::4]] for i, b in enumerate(bench)},
+                   "Light Conditions": {"day": ["Day"], "night": []}}  # no such folders: one class
+        mapping_path = os.path.join(tmp, "mapping.json")
+        with open(mapping_path, "w") as f:
+            json.dump(mapping, f)
+        ck.reset_launches()
+        summary = benchmark.run_benchmark(eng32, folder, mapping_path, os.path.join(tmp, "b"),
+                                          os.path.join(tmp, "b", "roc"), auto_mapping=True)
+        inf = inference.run_inference(eng32, folder, os.path.join(tmp, "inf"))
+        fold = inference.test_folder_predictions(eng32, folder, os.path.join(tmp, "fold"))
+        torch.cuda.synchronize()
+        counts["benchmark + folder"] = dict(ck.LAUNCHES)
+        per_run = -(-64 // BATCH)  # each of the three workloads runs every image once
+        if (counts["benchmark + folder"]["stem"] != 3 * per_run
+                or counts["benchmark + folder"]["patch_gram"] != 3 * per_run):
+            raise AssertionError(f"benchmark + folder launches {counts['benchmark + folder']}")
+        images = benchmark.walk_benchmark_folder(folder, {t: list(m) for t, m in mapping.items()})
+        decoded = np.stack([load_image_uint8(p) for p, _ in images])
+        probs = eng32.run(decoded, collect=("probs",))["probs"]
+        want_summary = {}
+        os.makedirs(os.path.join(tmp, "b_want"))
+        for task, tmap in mapping.items():
+            ti = tasks.names.index(task)
+            p = probs[:, ti, : tasks.num_classes[ti]]
+            bnames = list(tmap)
+            gt = np.asarray([bnames.index(top) if top in bnames else len(bnames) - 1
+                             for _, top in images])
+            conf = (benchmark._one_hot(p.argmax(1), tasks.num_classes[ti]).T
+                    @ benchmark._one_hot(gt, len(bnames))).astype(np.int64)
+            assign, _ = benchmark.auto_map_task(conf)
+            want_summary[task] = benchmark._task_summary(
+                task, bnames, gt, p @ benchmark._one_hot(np.asarray(assign), len(bnames)),
+                os.path.join(tmp, "b_want"))
+        with open(os.path.join(tmp, "b", "benchmark_summary.json")) as f:
+            if json.load(f) != json.loads(json.dumps(want_summary)) or summary != want_summary:  # (f)
+                raise AssertionError("run_benchmark: summary differs from Engine.run's on the decoded frames")
+        with open(os.path.join(tmp, "b", "best_mapping.json")) as f:
+            best = json.load(f)
+        if sorted(c for v in best[tasks.names[0]].values() for c in v) != sorted(names):
+            raise AssertionError(f"best_mapping.json: not every model class mapped once: {best}")
+        pngs = [os.path.join(tmp, "b", "roc", f"roc_{t.replace(' ', '_')}.png") for t in mapping]
+        if not figures_ok(pngs):
+            raise AssertionError(f"run_benchmark: ROC figures {pngs}")
+        paths = [p for p, _ in images]
+        by_path = {p: inference._pred_entry(eng32, probs[i]) for i, p in enumerate(paths)}
+        with open(os.path.join(tmp, "inf", "inference_results.json")) as f:
+            if json.load(f) != by_path or inf != by_path:  # (f)
+                raise AssertionError("run_inference: predictions differ from Engine.run's")
+        with open(os.path.join(tmp, "fold", "all_predictions.json")) as f:
+            allp = json.load(f)
+        if allp != {os.path.relpath(p, folder): e for p, e in by_path.items()}:  # (f)
+            raise AssertionError("test_folder_predictions: predictions differ from Engine.run's")
+        if set(fold) != set(tasks.names) or any(set(v) != {"by_class", "f1_score", "global_f1"}
+                                               for v in fold.values()):
+            raise AssertionError(f"folder_predictions.json schema: {fold}")
+        print(f"[18] run_benchmark (auto-mapping, 2 tasks), run_inference and test_folder_predictions on "
+              f"64 PNGs (decode, resize, crop): summaries and predictions equal Engine.run's on the "
+              f"decoded frames (f); launches {counts['benchmark + folder']}")
+
+        # one watch-folder poll cycle at batch 1, engine warmed up first
+        eng1 = executor.Engine("pmg", spec, eng32.params, batch_size=1)
+        eng1.run(decoded[:1])
+        watch, wout = os.path.join(tmp, "watch"), os.path.join(tmp, "watch_out")
+        os.makedirs(watch)
+        frame = os.path.join(watch, "2026-10-17_12-00-00.png")
+        shutil.copy(paths[0], frame + ".tmp")
+        svc = inference.WatchFolderService(eng1, [watch], [0.005], wout)
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        svc.start(block=False)
+        t0 = time.perf_counter()
+        os.replace(frame + ".tmp", frame)
+        last = os.path.join(wout, "watch", "last_prediction.json")
+        while not os.path.exists(last) and time.perf_counter() - t0 < 60:
+            time.sleep(0.0005)
+        wall = time.perf_counter() - t0
+        svc.stop()
+        for t in svc.threads:
+            t.join(timeout=10)
+            if t.is_alive():
+                raise AssertionError("watch service thread did not stop")
+        counts["watch batch 1"] = dict(ck.LAUNCHES)
+        with open(last) as f:
+            got = json.load(f)
+        want = inference._pred_entry(eng1, eng1.run(load_image_uint8(frame)[None])["probs"][0])
+        if (got != {"timestamp": "2026-10-17_12-00-00", "image": os.path.basename(frame), "prediction": want}
+                or counts["watch batch 1"]["stem"] != 1 or counts["watch batch 1"]["patch_gram"] != 1):
+            raise AssertionError(f"watch service: {got}, launches {counts['watch batch 1']}")
+        with open(os.path.join(wout, "watch", "prediction_history.csv")) as f:
+            if len(f.read().splitlines()) != 2:
+                raise AssertionError("watch service: prediction_history.csv is not a header and one row")
+        print(f"[18] watch-folder service, batch 1: last_prediction.json and prediction_history.csv "
+              f"in the JAX schema, the prediction equal to Engine.run's (f); launches "
+              f"{counts['watch batch 1']}; {wall * 1e3:.1f} ms from the frame's rename to "
+              f"last_prediction.json on disk (5 ms poll interval; decode, step, JSON, CSV) | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if recorder is not None:
+            del sys.modules["matplotlib"], sys.modules["matplotlib.pyplot"]
+    return counts
 
 
 def main() -> int:
@@ -1805,10 +2186,20 @@ def main() -> int:
     kernels.insert(4, k5)
     stem16["launches"] = launches16["stem"]
     parent_step_ab(card)
-    del eng
     pm_phase(card, args.profile)
     rtm_bf16_phase(card, rtm_f32, args.profile)
     del rtm_f32
+    eval_counts = evaluation_phase(card, eng)
+    del eng
+    # each kernel's launches on the evaluation paths of phase 18 (K2's
+    # float32 and bf16 modes count under one wrapper, split by path here)
+    for k in kernels:
+        name = {"stem_bf16": "stem"}.get(k["name"], k["name"])
+        if name in ("stem", "patch_gram", "gram_proj"):
+            k["eval_launches"] = {
+                path: c[name] for path, c in eval_counts.items()
+                if not (k["name"] == "stem" and path == "bf16")
+                and not (k["name"] == "stem_bf16" and path != "bf16") and c[name]}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,9 +6,12 @@ It stands beside the JAX package
 which stays the reference: same public functions, same layouts (NHWC
 activations, stacked ``[B, T, Kmax]`` logits), same param tree.  It imports
 neither JAX nor anything of the JAX package.  Ported so far: the PMG, PM
-and RTM families, batch inference (``Engine.run`` on uint8 frames, float32
-or bf16) and the float32 camera path (``workloads.stream.StreamPredictor``),
-with six hand-written CUDA kernels (``ops/cuda_kernels.py``).
+and RTM families (random init or a ``.pth``), batch inference (``Engine.run``
+and ``run_stream`` on uint8 frames, float32 or bf16), the evaluation
+workloads (``workloads.evaluate``, ``benchmark``, ``inference``: metrics
+computed in numpy), the data loader (``data``) and the float32 camera
+path (``workloads.stream.StreamPredictor``), with six hand-written CUDA
+kernels (``ops/cuda_kernels.py``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 
@@ -31,21 +34,26 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
       discovered next to ``model_path``.
     - ``model_path``: a torch ``.pth`` or ``.npz`` state dict, loaded
       strictly; for PM the checkpoint's own SE blocks decide
-      ``attn_use_se``.  Randomly initialized params are not ported yet.
+      ``attn_use_se``.  ``None`` builds randomly initialized params
+      (``init(torch.Generator().manual_seed(0), spec)``).
     - ``engine_kwargs``: forwarded to :class:`Engine` (``batch_size``,
       ``dtype``, ``prob_threshold``, ``packed``, ``device`` ...).
     """
     import os
+
+    import torch
 
     from .config import default_tasks_path, load_hparams, load_tasks
     from .engine import checkpoint
     from .engine.executor import Engine
     from .models import get_family
 
+    # falsy paths ("" from an unset shell variable) mean "no checkpoint"
     model_path = model_path or None
-    if model_path is None:
+    if model_path is not None and os.path.isdir(model_path):
         raise NotImplementedError(
-            "load_engine needs a checkpoint: random init is not ported yet"
+            f"{model_path} is a directory: native (Orbax) checkpoints are not "
+            "ported yet (ROADMAP.md A15)"
         )
     if tasks is None:
         tasks = default_tasks_path()
@@ -57,9 +65,14 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
         hparams = load_hparams(os.fspath(hparams), model_path)
     else:
         hparams = dict(hparams)
-    state = checkpoint.load_state_dict(model_path)
-    if family.lower() == "pm":
-        hparams["attn_use_se"] = checkpoint.checkpoint_has_se(state)
-    spec = get_family(family).build_spec(tasks, hparams)
-    params = checkpoint.convert(family, state, spec)
+    mod = get_family(family)
+    if model_path is None:
+        spec = mod.build_spec(tasks, hparams)
+        params = mod.init(torch.Generator().manual_seed(0), spec)
+    else:
+        state = checkpoint.load_state_dict(model_path)
+        if family.lower() == "pm":
+            hparams["attn_use_se"] = checkpoint.checkpoint_has_se(state)
+        spec = mod.build_spec(tasks, hparams)
+        params = checkpoint.convert(family, state, spec)
     return Engine(family, spec, params, **engine_kwargs)

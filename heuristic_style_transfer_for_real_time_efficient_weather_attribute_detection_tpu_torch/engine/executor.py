@@ -194,16 +194,31 @@ class Engine:
         out.update({k: v.float() for k, v in aux.items()})
         return out
 
-    def step(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-        """One forward on exactly one batch of uint8 images (numpy or a
-        tensor); results stay on the device."""
+    def _upload(self, images, labels: Optional[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """uint8 images [..., H, W, C] and their labels [..., T] (IGNORE
+        when None) on the device."""
         x = torch.as_tensor(images).to(self.device, non_blocking=True)
         if labels is None:
-            y = torch.full((x.shape[0], len(self.tasks)), IGNORE_INDEX, dtype=torch.int32,
+            y = torch.full(x.shape[:-3] + (len(self.tasks),), IGNORE_INDEX, dtype=torch.int32,
                            device=self.device)
         else:
             y = torch.as_tensor(labels).to(self.device, non_blocking=True)
-        return self._step(x, y)
+        return x, y
+
+    def step(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """One forward on exactly one batch of uint8 images (numpy or a
+        tensor); results stay on the device."""
+        return self._step(*self._upload(images, labels))
+
+    @torch.inference_mode()
+    def step_scan(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+        """k micro-batches stacked ``[k, batch_size, ...]`` in one call: one
+        upload, then the k steps back to back.  Results stay on the device,
+        each leaf stacked ``[k, batch_size, ...]`` (per-task aggregates
+        ``[k, T]``), and equal k calls of :meth:`step` bit for bit."""
+        x, y = self._upload(images, labels)
+        outs = [self._step(x[i], y[i]) for i in range(x.shape[0])]
+        return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
     def warmup(self, img_size: int = 224) -> None:
         z = np.zeros((self.batch_size, img_size, img_size, 3), np.uint8)
@@ -232,6 +247,9 @@ class Engine:
             event.synchronize()
         return {k: v.numpy() for k, v in host.items()}
 
+    def _validate_and_pack(self, images: np.ndarray) -> np.ndarray:
+        return validate_and_pack(images, self.pack_k)
+
     def dispatch(
         self,
         images: np.ndarray,
@@ -241,7 +259,7 @@ class Engine:
         """Enqueue one micro-batch (<= batch_size uint8 frames, raw or
         packed) and start copying its results to the host; returns a handle
         for :meth:`fetch`."""
-        images = validate_and_pack(images, self.pack_k)
+        images = self._validate_and_pack(images)
         n = images.shape[0]
         if n > self.batch_size:
             raise ValueError(f"micro-batch {n} > engine batch {self.batch_size}")
@@ -270,14 +288,15 @@ class Engine:
     ) -> Dict[str, np.ndarray]:
         """Forward N images (any N) -> host dict of stacked arrays [N, ...].
 
-        Up to 4 batches stay in flight: each batch's results start copying
+        Up to 4 dispatches stay in flight: each one's results start copying
         to the host as soon as its forward is enqueued, and the oldest is
         drained only then.  ``measure_time`` returns per-batch wall times
-        under "times" (it synchronizes every batch).  ``scan_chunk`` is
-        accepted for interface parity and ignored: results are the same.
+        under "times" (it synchronizes every batch).  ``scan_chunk=k`` runs
+        k full micro-batches per dispatch through :meth:`step_scan` (one
+        upload, one copy back); the tail goes batch by batch, and
+        ``measure_time`` turns it off.  Results are the same either way.
         """
-        del scan_chunk
-        images = validate_and_pack(images, self.pack_k)
+        images = self._validate_and_pack(images)
         n = images.shape[0]
         bs = self.batch_size
         outs: Dict[str, List[np.ndarray]] = {k: [] for k in collect}
@@ -285,31 +304,47 @@ class Engine:
         counts = np.zeros(len(self.tasks), np.int64)
         times: List[float] = []
         keys = set(collect) | (set(_UNBATCHED) if labels is not None else set())
-        inflight: List[Tuple[int, Dict, object]] = []
+        inflight: List[Tuple[int, Dict, object, bool]] = []
 
         def _drain_one() -> None:
-            take, host, event = inflight.pop(0)
+            take, host, event, scanned = inflight.pop(0)
             out = self._wait_host(host, event)
             for k in collect:
-                outs[k].append(out[k][:take])
+                v = out[k]
+                if scanned:  # [k, bs, ...] -> [k*bs, ...]
+                    v = v.reshape((-1,) + v.shape[2:])
+                outs[k].append(v[:take])
             if labels is not None:
                 cnt = out["count_per_task"].astype(np.int64)
-                np.add(loss_sums, out["loss_per_task"] * cnt, out=loss_sums)
+                contrib = out["loss_per_task"] * cnt
+                if scanned:  # per-task aggregates come back [k, T]
+                    cnt, contrib = cnt.sum(axis=0), contrib.sum(axis=0)
+                np.add(loss_sums, contrib, out=loss_sums)
                 np.add(counts, cnt, out=counts)
 
-        for s in range(0, n, bs):
+        def _submit(take: int, host, event, scanned: bool) -> None:
+            inflight.append((take, host, event, scanned))
+            if len(inflight) >= 4:
+                _drain_one()
+
+        start = 0
+        k = self.resolve_scan_chunk(scan_chunk)
+        if k > 1 and not measure_time:
+            start = (n // (k * bs)) * k * bs
+            for s in range(0, start, k * bs):
+                stack = images[s : s + k * bs].reshape((k, bs) + images.shape[1:])
+                lab = labels[s : s + k * bs].reshape(k, bs, -1) if labels is not None else None
+                _submit(k * bs, *self._to_host_async(self.step_scan(stack, lab), keys), True)
+        for s in range(start, n, bs):
             e = min(s + bs, n)
             chunk, lab = pad_batch(images[s:e], bs, labels[s:e] if labels is not None else None)
             t0 = time.perf_counter()
-            res = self.step(chunk, lab)
-            host, event = self._to_host_async(res, keys)
+            host, event = self._to_host_async(self.step(chunk, lab), keys)
             if measure_time:
                 if event is not None:
                     event.synchronize()
                 times.append(time.perf_counter() - t0)
-            inflight.append((e - s, host, event))
-            if len(inflight) >= 4:
-                _drain_one()
+            _submit(e - s, host, event, False)
         while inflight:
             _drain_one()
         result = {k: np.concatenate(v, axis=0) for k, v in outs.items() if v}
@@ -319,6 +354,94 @@ class Engine:
         if measure_time:
             result["times"] = np.asarray(times)
         return result
+
+    def resolve_scan_chunk(self, scan_chunk) -> int:
+        """Micro-batches per dispatch: an int passes through; ``None`` and
+        ``"off"`` are 1; ``"auto"`` is 1 as well, because the port has no
+        measured record of a better k yet (ROADMAP.md A10)."""
+        if scan_chunk in (None, "off", "auto"):
+            return 1
+        return int(scan_chunk)
+
+    def run_stream(
+        self,
+        batches,
+        collect: Sequence[str] = ("probs",),
+        scan_chunk="auto",
+        depth: int = 3,
+    ) -> Tuple[Dict[str, np.ndarray], List]:
+        """Drive a loader's ``(imgs, labels, extra)`` batches through the
+        engine: consecutive full micro-batches go k at a time through
+        :meth:`step_scan`, with up to ``depth`` dispatches in flight; short
+        or tail batches flush the buffered full ones first and then go
+        alone, so row order is kept.  Returns ``(stacked result dict,
+        flattened extras)``, the extras (e.g. the kept paths of a
+        ``skip_errors`` loader) aligned with the result rows.
+
+        On an empty stream the standard keys come back with their real
+        trailing shapes (``probs``/``logits`` [0, T, Kmax],
+        ``preds``/``max_probs`` [0, T]); capture-tap keys, whose shapes are
+        model-internal, as a bare ``[0]`` float32 array.
+        """
+        k = self.resolve_scan_chunk(scan_chunk)
+        outs: Dict[str, List[np.ndarray]] = {c: [] for c in collect}
+        extras: List = []
+        inflight: List[Tuple[object, bool]] = []
+        buf: List[np.ndarray] = []
+
+        def _drain_one() -> None:
+            handle, scanned = inflight.pop(0)
+            out = self.fetch(handle)
+            for c in collect:
+                v = out[c]
+                outs[c].append(v.reshape((-1,) + v.shape[2:]) if scanned else v)
+
+        def _submit(handle, scanned: bool) -> None:
+            inflight.append((handle, scanned))
+            if len(inflight) >= depth:
+                _drain_one()
+
+        def _flush_buf() -> None:
+            while buf:
+                _submit(self.dispatch(buf.pop(0), collect=collect), False)
+
+        for item in batches:
+            if len(item) > 2 and item[2] is not None:
+                extras.extend(item[2])
+            imgs = self._validate_and_pack(item[0])
+            if k > 1 and imgs.shape[0] == self.batch_size:
+                buf.append(imgs)
+                if len(buf) == k:
+                    res = self.step_scan(np.stack(buf))
+                    buf.clear()
+                    _submit((k,) + self._to_host_async(res, collect), True)
+            else:
+                _flush_buf()
+                _submit(self.dispatch(imgs, collect=collect), False)
+        _flush_buf()
+        while inflight:
+            _drain_one()
+        result = {
+            c: (np.concatenate(v, axis=0) if v else self._empty_result(c))
+            for c, v in outs.items()
+        }
+        return result, extras
+
+    def _empty_result(self, key: str) -> np.ndarray:
+        """[0, ...] empty in the step's output layout for the standard keys,
+        so that e.g. ``probs[:, t]`` on an empty stream is an empty slice;
+        capture-tap keys, whose shapes are model-internal, get a bare [0]
+        float32 array."""
+        t, kmax = self._mask.shape
+        if key in ("probs", "logits"):
+            return np.zeros((0, t, kmax), np.float32)
+        if key == "preds":
+            return np.zeros((0, t), np.int32)
+        if key == "max_probs":
+            return np.zeros((0, t), np.float32)
+        if key in _UNBATCHED:
+            return np.zeros((t,), np.float32)
+        return np.zeros((0,), np.float32)
 
     def predict_dict(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """{task: probs [N, K_t]}, the reference's per-task dict contract."""

@@ -3,6 +3,8 @@ package."""
 
 from __future__ import annotations
 
+from typing import Any, Dict, Mapping
+
 from . import pm, pmg, rtm
 
 FAMILIES = {"pmg": pmg, "pm": pm, "rtm": rtm}
@@ -13,3 +15,7 @@ def get_family(name: str):
         return FAMILIES[name.lower()]
     except KeyError:
         raise ValueError(f"unknown model family {name!r}; choose from {sorted(FAMILIES)}")
+
+
+def build_spec(family: str, tasks: Mapping[str, Any], hparams: Dict[str, Any]):
+    return get_family(family).build_spec(tasks, hparams)

@@ -31,8 +31,8 @@ from typing import Any, Dict, Mapping, Sequence, Tuple
 import torch
 
 from ..config import TaskSpec
-from ..ops.nn import init_conv, init_linear, init_norm
-from .trunk import apply_trunk, trunk_plan
+from ..ops.nn import init_conv, init_linear
+from .trunk import apply_trunk, init_trunk, trunk_plan
 
 DEFAULTS = dict(
     ndf=64,
@@ -89,11 +89,7 @@ def init(g: torch.Generator, spec: Spec) -> Dict[str, Any]:
     t = spec.tasks
     c = spec.trunk_channels
     nt, kmax = len(t), t.max_classes
-    params: Dict[str, Any] = {"trunk": [
-        {"conv": init_conv(g, b.kernel, b.kernel, b.cin, b.cout, bias=True),
-         "norm": init_norm(b.cout, spec.norm)}
-        for b in spec.plan
-    ]}
+    params: Dict[str, Any] = {"trunk": init_trunk(g, spec.plan, spec.norm, conv_bias=True)}
     hid = max(c // 16, 1)
     heads = {
         "se1_w": torch.zeros(nt, c, hid), "se1_b": torch.zeros(nt, hid),

@@ -34,10 +34,11 @@ from ..config import TaskSpec
 from ..ops import cuda_kernels
 from ..ops.attention import stacked_task_heads, task_query_pool, transformer_encoder
 from ..ops.gram import patch_gram_tokens
-from ..ops.nn import cast_tree, conv2d, leaky_relu, linear, se_block
+from ..ops.nn import cast_tree, conv2d, init_conv, init_linear, init_se, leaky_relu, linear, se_block
 from ..ops.norms import apply_norm, batch_norm_affine
 from ..ops.preprocess import packed_affine, s2d_unpack
-from .trunk import apply_trunk, trunk_plan
+from ..utils.reporting import count
+from .trunk import apply_trunk, init_trunk, trunk_plan
 
 DEFAULTS = dict(
     ndf=64,
@@ -104,6 +105,47 @@ def build_spec(tasks: Mapping[str, Any], hparams: Dict[str, Any]) -> Spec:
         use_token_attention=bool(h["use_token_attention"]),
         use_channel_attention=bool(h["use_channel_attention"]),
     )
+
+
+def init(g: torch.Generator, spec: Spec) -> Dict[str, Any]:
+    """Random params (CPU float32) drawn from the generator ``g``, in the
+    JAX package's tree: bias-free trunk convolutions, ``chan_proj``,
+    ``token_proj``, standard-normal ``queries``, a bias-free ``se`` when the
+    spec uses channel attention, transformer layers with zero attention
+    biases, identity norms and an FFN of ``2 * d_model``, and the task heads
+    stacked and zero-padded to Kmax."""
+    t = spec.tasks
+    d = spec.d_model
+    params: Dict[str, Any] = {
+        "trunk": init_trunk(g, spec.plan, spec.norm, conv_bias=False),
+        "chan_proj": init_conv(g, 1, 1, spec.trunk_channels, spec.gram_channels),
+        "token_proj": init_linear(g, spec.token_dim_in, d),
+        "queries": torch.randn(len(t), d, generator=g),
+    }
+    if spec.use_channel_attention:
+        params["se"] = init_se(g, spec.trunk_channels)
+    if spec.has_transformer:
+        layers = []
+        for _ in range(spec.transformer_layers):
+            attn = {n: init_linear(g, d, d, bias=False)["w"] for n in ("wq", "wk", "wv")}
+            attn.update({n: torch.zeros(d) for n in ("bq", "bk", "bv")})
+            attn.update(wo=init_linear(g, d, d, bias=False)["w"], bo=torch.zeros(d))
+            layers.append({
+                "attn": attn,
+                "norm1": {"scale": torch.ones(d), "bias": torch.zeros(d)},
+                "norm2": {"scale": torch.ones(d), "bias": torch.zeros(d)},
+                "ffn1": init_linear(g, d, 2 * d),
+                "ffn2": init_linear(g, 2 * d, d),
+            })
+        params["transformer"] = layers
+    kmax = t.max_classes
+    hw = torch.zeros(len(t), d, kmax)
+    hb = torch.zeros(len(t), kmax)
+    for i, k in enumerate(t.num_classes):
+        p = init_linear(g, d, k)
+        hw[i, :, :k], hb[i, :k] = p["w"], p["b"]
+    params["heads"] = {"w": hw, "b": hb}
+    return params
 
 
 def apply(
@@ -344,3 +386,12 @@ def apply_packed(
     logits, head_aux = head_apply(params, y, spec, capture)
     aux.update(head_aux)
     return logits, aux
+
+
+def trunk_features(params: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """Trunk-only forward on normalized NHWC images (the style-transfer tap)."""
+    return apply_trunk(params["trunk"], x, spec.plan, spec.norm)
+
+
+def count_params(params) -> int:
+    return count(params)

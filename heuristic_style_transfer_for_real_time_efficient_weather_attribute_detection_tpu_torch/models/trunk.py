@@ -12,7 +12,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
-from ..ops.nn import conv2d, leaky_relu
+from ..ops.nn import conv2d, init_conv, init_norm, leaky_relu
 from ..ops.norms import apply_norm
 
 
@@ -42,6 +42,17 @@ def trunk_plan(
         cin, nf, rf = nf, nf * 2, rf / stride
     blocks.append(ConvBlock(cin, nf, final_kernel, 1, final_pad))
     return tuple(blocks)
+
+
+def init_trunk(
+    g: torch.Generator, plan: Tuple[ConvBlock, ...], norm: str, conv_bias: bool
+) -> List[Dict]:
+    """Random trunk params drawn from ``g``, one {conv, norm} per planned block."""
+    return [
+        {"conv": init_conv(g, b.kernel, b.kernel, b.cin, b.cout, bias=conv_bias),
+         "norm": init_norm(b.cout, norm)}
+        for b in plan
+    ]
 
 
 def apply_trunk(

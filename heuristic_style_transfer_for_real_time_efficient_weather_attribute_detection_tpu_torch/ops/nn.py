@@ -53,6 +53,13 @@ def init_linear(g: torch.Generator, cin: int, cout: int, bias: bool = True) -> D
     return p
 
 
+def init_se(g: torch.Generator, c: int) -> Dict[str, Dict]:
+    """Bias-free Squeeze-and-Excitation params (PMG's): ``fc1`` [c, c/16]
+    and ``fc2`` [c/16, c]."""
+    hid = max(1, c // 16)
+    return {"fc1": init_linear(g, c, hid, bias=False), "fc2": init_linear(g, hid, c, bias=False)}
+
+
 def init_batch_norm(c: int) -> Dict[str, torch.Tensor]:
     """Identity affine, zero mean and unit variance."""
     return {"scale": torch.ones(c), "bias": torch.zeros(c), "mean": torch.zeros(c),

@@ -17,10 +17,20 @@ from PIL import Image
 
 from ..config import DEFAULT_IMG_SIZE, DEFAULT_RESIZE, IMAGENET_MEAN, IMAGENET_STD
 
+VALID_EXTS = {".jpg", ".jpeg", ".png", ".bmp"}
+_IMAGE_SUFFIXES = tuple(sorted(VALID_EXTS))
+
 _SCALE = (1.0 / (255.0 * np.asarray(IMAGENET_STD, np.float32))).astype(np.float32)
 _SHIFT = (
     np.asarray(IMAGENET_MEAN, np.float32) / np.asarray(IMAGENET_STD, np.float32)
 ).astype(np.float32)
+
+
+def is_image_name(fn: str) -> bool:
+    """Name-suffix image filter (``fn.lower().endswith(...)``): a dotfile
+    named exactly ".jpg" counts as an image, unlike the splitext test of
+    ``data.collect_image_paths``."""
+    return fn.lower().endswith(_IMAGE_SUFFIXES)
 
 
 def resize_shorter(img: Image.Image, size: int = DEFAULT_RESIZE) -> Image.Image:
@@ -58,6 +68,19 @@ def load_image_uint8(
     img = img.convert("RGB")
     img = center_crop(resize_shorter(img, resize), img_size)
     return np.asarray(img, dtype=np.uint8)
+
+
+def load_image_normalized(path_or_img, img_size: int = DEFAULT_IMG_SIZE) -> np.ndarray:
+    """The whole reference transform on the host -> HWC float32 (parity path)."""
+    arr = load_image_uint8(path_or_img, img_size).astype(np.float32) / 255.0
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+    return (arr - mean) / std
+
+
+def normalize_uint8_host(x: np.ndarray) -> np.ndarray:
+    """numpy twin of ``normalize_uint8``: the same folded affine, float32."""
+    return x.astype(np.float32) * _SCALE - _SHIFT
 
 
 def normalize_uint8(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -117,4 +140,25 @@ def s2d_unpack(z: torch.Tensor, k: int) -> torch.Tensor:
         .permute(0, 1, 3, 2, 4, 5)
         .reshape(b, hp * k, wp * k, c)
         .contiguous()
+    )
+
+
+def s2d_pack_uint8(u8: np.ndarray, k: int) -> np.ndarray:
+    """Host space-to-depth pack, uint8 NHWC -> [B, H/k, W/k, k*k*C] (the
+    JAX package's PMG wire format; trailing rows and columns beyond a
+    multiple of ``k`` are cropped)."""
+    b, h, w, c = u8.shape
+    hp, wp = h // k, w // k
+    u8 = u8[:, : hp * k, : wp * k]
+    return np.ascontiguousarray(
+        u8.reshape(b, hp, k, wp, k, c).transpose(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, k * k * c)
+    )
+
+
+def s2d_unpack_uint8(z8: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of ``s2d_pack_uint8``: [B, Hp, Wp, k*k*C] -> uint8 NHWC."""
+    b, hp, wp, cc = z8.shape
+    c = cc // (k * k)
+    return np.ascontiguousarray(
+        z8.reshape(b, hp, wp, k, k, c).transpose(0, 1, 3, 2, 4, 5).reshape(b, hp * k, wp * k, c)
     )

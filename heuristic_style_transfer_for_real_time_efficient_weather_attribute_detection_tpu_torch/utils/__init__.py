@@ -1,1 +1,2 @@
-"""Utilities of the port: golden-fixture parity walks."""
+"""Utilities of the port: golden-fixture parity walks, metrics in numpy,
+parameter counts."""

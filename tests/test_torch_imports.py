@@ -13,7 +13,7 @@ from tests.conftest import REPO
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"
-FORBIDDEN = re.compile(rf"\bjax\b|\bwadt\b|{JAX_PKG}(?!_torch)")
+FORBIDDEN = re.compile(rf"\bjax\b|\bwadt\b|\bsklearn\b|{JAX_PKG}(?!_torch)")
 
 
 def _run(code, cwd=REPO, env_extra=None):
@@ -31,7 +31,8 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "wadt"
-             or n == "{JAX_PKG}" or n.startswith("{JAX_PKG}."))
+             or n == "{JAX_PKG}" or n.startswith("{JAX_PKG}.")
+             or n == "sklearn" or n.startswith("sklearn."))
 assert not bad, bad
 print("ok", len([n for n in sys.modules if n.startswith("{PORT}")]))
 """
@@ -82,6 +83,36 @@ def test_bf16_and_pm_modules_are_scanned_and_clean(rel):
     """The bf16 and PM slice's modules are among those the scan reads, and
     each imports without JAX."""
     test_rtm_modules_are_scanned_and_clean(rel)
+
+
+EVAL_MODULES = ["models/trunk.py", "models/pmg.py", "ops/preprocess.py", "data/__init__.py",
+                "data/dataset.py", "utils/metrics.py", "utils/reporting.py",
+                "workloads/evaluate.py", "workloads/benchmark.py", "workloads/inference.py"]
+
+
+def _module(rel):
+    return f"{PORT}." + rel[:-3].replace("/", ".").replace(".__init__", "")
+
+
+@pytest.fixture(scope="module")
+def eval_imports():
+    """One fresh interpreter imports the evaluation slice's modules and
+    lists what it loaded of JAX, scikit-learn and the JAX package."""
+    mods = ", ".join(_module(rel) for rel in EVAL_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", EVAL_MODULES)
+def test_evaluation_modules_are_scanned_and_clean(rel, eval_imports):
+    """The evaluation slice's modules are among those the scan reads, and
+    import without JAX or scikit-learn (their metrics are numpy)."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert eval_imports == "[]"
 
 
 def test_gram_proj_source_is_built_and_noted():
