@@ -101,9 +101,13 @@ Phases, each of which raises on failure:
     float32 run, the shipped fixture in
     bf16 (argmax on decisive samples, drift <= 0.05), device step time (in
     turns with float32), the host's enqueue time of one step, and
-    end-to-end images per second beside the float32 engine's; where the
-    gitignored ``_archive/parent/`` holds a parent commit's port, that
-    port's PMG step and this tree's in turns, each in its own process;
+    end-to-end images per second beside the float32 engine's; the host
+    time of one call of K1, K2 and K5 through its ``wadt_torch`` operator
+    and through its launcher alone, in turns (what the operator's dispatch
+    adds to a step); where the gitignored ``_archive/parent/`` holds a
+    parent commit's port, that port's PMG step and this tree's in turns,
+    each in its own process (device time and the host's enqueue of one
+    step);
 16. PM: the five PM golden fixtures on the card at 2e-4, ``pm_small``'s
     attention (2e-4) and task embeddings (2e-3); the PM headline spec
     (``pm.build_spec`` on the 12-task registry: ndf 64, patch 70, instance
@@ -128,7 +132,23 @@ Phases, each of which raises on failure:
     frames; evaluate's images per second end to end against ``Engine.run``'s
     in turns, and the watch service's wall time for one frame.  Where the
     machine has no matplotlib, a recording stand-in for ``matplotlib.pyplot``
-    checks that every ROC figure was asked for (none is drawn).
+    checks that every ROC figure was asked for (none is drawn);
+19. the deployment path on the shipped PMG at batch 32: (a)
+    ``save_torch_checkpoint`` -> ``load_engine(.pth)`` and ``save_native``
+    -> ``load_engine(dir)``, probabilities bit for bit the original's on 96
+    seeded frames; (b) the CLI's ``--mode export`` in float32 and in bf16
+    (one subprocess each), each artifact reloaded by ``ExportedPredictor``
+    and run on the 96 frames: preds equal to ``Engine.run``'s, logits
+    within 1e-5 x max|logit| (bit-equality printed), K1 and K2 (and K5 in
+    bf16) launched by the artifact once a batch, its device step in turns
+    with the engine's, the host's enqueue of one step of each, and both end
+    to end; (c) ``InferenceServer`` on 127.0.0.1 over the float32 ``Engine``
+    and over the bf16 artifact: 64 seeded PNG ``/predict`` requests from 8
+    client threads of a client process, each response's
+    classes equal to ``Engine.run``'s on its decoded frame and its
+    probabilities within 1e-5, ``/healthz`` and ``/stats`` checked;
+    requests per second, p50 and p99 latency from ``/stats``, the
+    kernels' launches and the host's decode time of one request.
 
 ``--profile`` also prints, for phases 15-17, each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
@@ -137,8 +157,8 @@ without ``--profile``: once a profiler session has run, the host's launch
 cost stays higher for the rest of the process.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (K1's,
-K2's and K5's entries also hold ``eval_launches``, their launches on each
-path of phase 18), the
+K2's and K5's entries also hold ``eval_launches`` and ``deploy_launches``,
+their launches on each path of phases 18 and 19), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when no CUDA card is available or the
@@ -342,7 +362,7 @@ PARENT = os.path.join(ARCHIVE, "parent")  # gitignored: a parent commit's port, 
 # run in a process of its own from a checkout's root: that checkout's PMG
 # batch step at batch 256 in float32 and bf16 (phase 15's timing), as JSON
 STEP_AB = """
-import json, os, sys
+import json, os, statistics, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np, torch
 import chip_smoke as cs
@@ -355,7 +375,21 @@ eng = port.load_engine("pmg", os.path.join(cs.FIXTURES, "pmg_shipped.pth"), meta
 eng16 = executor.Engine("pmg", eng.spec, eng.params, batch_size=cs.BATCH, dtype=torch.bfloat16)
 xb = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (cs.BATCH, 224, 224, 3), np.uint8)).cuda()
 f32, b16 = cs.in_turns(lambda: eng.step(xb), lambda: eng16.step(xb), reps=1, rounds=10)
-print(json.dumps([f32, b16]))
+
+
+def enqueue_ms(e):  # host time to enqueue one step behind a sleep (phase 15's measure)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        e.step(xb)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+print(json.dumps([f32, b16, enqueue_ms(eng), enqueue_ms(eng16)]))
 """
 
 
@@ -372,10 +406,11 @@ def parent_step_ab(card: str) -> None:
         out = subprocess.run([sys.executable, "-c", STEP_AB], cwd=root, capture_output=True, text=True,
                              timeout=600, check=True)
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-    (p1, p2), (c1, c2), (c3, c4), (p3, p4) = runs
+    (p1, p2, pe1, pe2), (c1, c2, ce1, ce2), (c3, c4, ce3, ce4), (p3, p4, pe3, pe4) = runs
     print(f"[15] PMG batch step at batch {BATCH}, the parent's port ({PARENT}) against this tree in turns: "
-          f"float32 {p1:.3f} / {p3:.3f} -> {c1:.3f} / {c3:.3f} ms, bf16 {p2:.3f} / {p4:.3f} -> "
-          f"{c2:.3f} / {c4:.3f} ms | {card}")
+          f"device float32 {p1:.3f} / {p3:.3f} -> {c1:.3f} / {c3:.3f} ms, bf16 {p2:.3f} / {p4:.3f} -> "
+          f"{c2:.3f} / {c4:.3f} ms; host enqueue of one step float32 {pe1:.3f} / {pe3:.3f} -> "
+          f"{ce1:.3f} / {ce3:.3f} ms, bf16 {pe2:.3f} / {pe4:.3f} -> {ce2:.3f} / {ce4:.3f} ms | {card}")
 
 
 def archived_kernels() -> dict:
@@ -1419,17 +1454,8 @@ def pmg_bf16_phases(card: str, eng32, frames, out32, big, wall32: float, profile
     # one step at a time behind the sleep: ten queued bf16 steps (~190
     # launches each) fill the launch queue, and the host's pace leaks in
     step32, step16 = in_turns(lambda: eng32.step(xb), lambda: eng16.step(xb), reps=1, rounds=10)
-    enqueue = {}
-    for label, e in (("float32", eng32), ("bf16", eng16)):
-        times = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(50_000_000)
-            t0 = time.perf_counter()
-            e.step(xb)
-            times.append(time.perf_counter() - t0)
-        enqueue[label] = statistics.median(times)
-    torch.cuda.synchronize()
+    enqueue = {label: enqueue_ms(lambda e=e: e.step(xb), reps=10) / 1e3
+               for label, e in (("float32", eng32), ("bf16", eng16))}
     wall16, _ = run_wall(eng16, big)
     print(f"[15] engine step on a device-resident batch of {BATCH}, in turns: float32 {step32:.3f} ms "
           f"= {BATCH / step32 * 1e3:,.0f} img/s, bf16 {step16:.3f} ms = {BATCH / step16 * 1e3:,.0f} img/s "
@@ -1901,6 +1927,329 @@ def evaluation_phase(card: str, eng32) -> dict:
     return counts
 
 
+def enqueue_ms(fn, reps: int = 20) -> float:
+    """Median host time to enqueue one call of ``fn`` behind a sleep kernel
+    (so the queue is empty and the card busy), in ms (phase 15's measure)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def dispatch_cost(card: str) -> dict:
+    """Phase 15: host time of one call of K1, K2 and K5 at the main shapes
+    through its wrapper (the ``wadt_torch`` operator's dispatch, then the
+    launcher) and through the launcher alone, in turns (operator, launcher,
+    launcher, operator; each the mean of 100 calls, median of 5 rounds)."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    rng = np.random.RandomState(15)
+    dev = torch.device("cuda", 0)
+    z = torch.from_numpy(rng.randn(BATCH, 14, 14, 96).astype(np.float32)).to(dev)
+    x8 = torch.from_numpy(rng.randint(0, 256, (BATCH, 224, 224, 3), np.uint8)).to(dev)
+    w, s, t = (torch.from_numpy(a.astype(np.float32)).to(dev)
+               for a in (rng.randn(48, 32) * 0.01, rng.rand(32) + 0.5, rng.randn(32)))
+    g16 = torch.from_numpy(rng.randn(BATCH, 9, 9216).astype(np.float32)).to(dev).to(torch.bfloat16)
+    w16 = torch.from_numpy(rng.randn(9216, 192).astype(np.float32) * 0.01).to(dev).to(torch.bfloat16)
+    b = torch.from_numpy(rng.randn(192).astype(np.float32)).to(dev)
+    cases = {
+        "patch_gram": (lambda: ck.patch_gram(z, 3), lambda: ck._patch_gram_launch(z, 3)),
+        "stem": (lambda: ck.stem(x8, w, s, t, 4), lambda: ck._stem_launch(x8, w, s, t, 4, True, False, None)),
+        "gram_proj": (lambda: ck.gram_proj(g16, w16, b, torch.bfloat16),
+                      lambda: ck._gram_proj_launch(g16, w16, b, True)),
+    }
+
+    def host_us(fn, n=100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return per
+
+    out = {}
+    for name, (op, raw) in cases.items():
+        op(), raw()
+        rounds = [(host_us(op), host_us(raw), host_us(raw), host_us(op)) for _ in range(5)]
+        out[name] = (statistics.median((a + d) / 2 for a, _, _, d in rounds),
+                     statistics.median((b_ + c) / 2 for _, b_, c, _ in rounds))
+    print("[15] host time of one call, through the wadt_torch operator -> the launcher alone, in turns: "
+          + ", ".join(f"{k} {o:.1f} -> {r:.1f} us" for k, (o, r) in out.items())
+          + f"; the operator's dispatch adds {sum(o - r for o, r in list(out.values())[:2]) / 1e3:.3f} ms "
+          f"to a float32 step (K1, K2) and {sum(o - r for o, r in out.values()) / 1e3:.3f} ms to a "
+          f"bf16 one (K1, K2, K5) | {card}")
+    return out
+
+
+DEPLOY_BATCH = 32
+DEPLOY_FRAMES = 96
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 8
+EXPORT_LOGIT_TOL = 1e-5  # times max|logit| of Engine.run
+SERVE_PROB_TOL = 1e-5
+
+
+# run in a process of its own, so that the clients do not share the
+# server's interpreter lock: POST each file to /predict from N threads (each
+# request with a timeout); writes the responses, errors and wall seconds
+CLIENTS = """
+import json, sys, threading, time, urllib.request
+port, clients, paths, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+bodies = []
+for p in json.load(open(paths)):
+    with open(p, "rb") as f:
+        bodies.append(f.read())
+res, errors = [None] * len(bodies), []
+
+
+def client(idx):
+    for i in idx:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=bodies[i], method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                res[i] = [r.status, json.loads(r.read())]
+        except Exception as e:
+            errors.append(f"request {i}: {e!r}")
+
+
+threads = [threading.Thread(target=client, args=(range(c, len(bodies), clients),)) for c in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+wall = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump({"responses": res, "errors": errors, "wall": wall,
+               "alive": any(t.is_alive() for t in threads)}, f)
+"""
+
+
+def post_all(port_no: int, paths, clients: int, work: str):
+    """POST each file to ``/predict`` from ``clients`` threads of a client
+    process; returns (responses in file order, wall seconds)."""
+    paths_json, out_json = os.path.join(work, "client_paths.json"), os.path.join(work, "client_out.json")
+    with open(paths_json, "w") as f:
+        json.dump(list(paths), f)
+    subprocess.run([sys.executable, "-c", CLIENTS, str(port_no), str(clients), paths_json, out_json],
+                   check=True, timeout=600)
+    with open(out_json) as f:
+        got = json.load(f)
+    if got["errors"] or got["alive"]:
+        raise AssertionError(f"/predict clients failed: {got['errors'][:4]}, threads alive {got['alive']}")
+    return got["responses"], got["wall"]
+
+
+def get_json(port_no: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port_no}{path}", timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def deployment_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 19: the deployment path on the shipped PMG at batch 32:
+    (a) ``.pth`` export and the native directory, each reloaded by
+    ``load_engine``, bit for bit the original's probabilities on 96 frames;
+    (b) the CLI's ``--mode export`` in float32 and bf16 (a subprocess each),
+    each artifact reloaded by ``ExportedPredictor`` and run on the 96 frames
+    against ``Engine.run`` (preds equal, logits within 1e-5 x max|logit|),
+    with the artifact's own launches of K1, K2 (and K5 in bf16); (c)
+    ``InferenceServer`` over the float32 ``Engine`` and over the bf16
+    artifact, 64 seeded PNG requests from 8 client threads, each response
+    against ``Engine.run`` on its decoded frame.  Returns each path's launch
+    counts, read just after the path with the counts reset just before it.
+    (``device="cpu"`` rehearses the phase on the plain versions.)"""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine.export import (
+        ExportedPredictor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        load_image_uint8,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.serve import (
+        InferenceServer,
+    )
+
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    pth = os.path.join(FIXTURES, "pmg_shipped.pth")
+    eng = port.load_engine("pmg", pth, meta["tasks"], meta["hparams"], batch_size=DEPLOY_BATCH,
+                           device=device)
+    eng16 = executor.Engine("pmg", eng.spec, eng.params, batch_size=DEPLOY_BATCH, dtype=torch.bfloat16,
+                            device=device)
+    frames = np.random.RandomState(19).randint(0, 256, (DEPLOY_FRAMES, 224, 224, 3), np.uint8)
+    want = {"float32": eng.run(frames, collect=("probs", "preds", "logits")),
+            "bf16": eng16.run(frames, collect=("probs", "preds", "logits"))}
+    n_batches = -(-DEPLOY_FRAMES // DEPLOY_BATCH)
+    counts = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_19_")
+    try:
+        # -- (a) checkpoints --------------------------------------------------
+        saved = {"pth": os.path.join(tmp, "pmg.pth"), "native": os.path.join(tmp, "native")}
+        checkpoint.save_torch_checkpoint("pmg", eng.params, eng.spec, saved["pth"])
+        checkpoint.save_native(eng.params, saved["native"])
+        for label, path in saved.items():
+            again = port.load_engine("pmg", path, meta["tasks"], meta["hparams"], batch_size=DEPLOY_BATCH,
+                                     device=device)
+            if not np.array_equal(again.run(frames)["probs"], want["float32"]["probs"]):
+                raise AssertionError(f"load_engine({label}) gives other probabilities than the original")
+            del again
+        print(f"[19] (a) save_torch_checkpoint -> load_engine(.pth) and save_native -> load_engine(dir): "
+              f"probs on {DEPLOY_FRAMES} frames bit for bit the original engine's")
+
+        # -- (b) export through the CLI, reload, run --------------------------
+        tasks_json, hparams_json = os.path.join(tmp, "tasks.json"), os.path.join(tmp, "hparams.json")
+        with open(tasks_json, "w") as f:
+            json.dump(meta["tasks"], f)
+        with open(hparams_json, "w") as f:
+            json.dump({"hparams": meta["hparams"]}, f)
+        preds = {}
+        for label, flags in (("float32", []), ("bf16", ["--bf16"])):
+            art = os.path.join(tmp, f"artifact_{label}")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "weather_torch.py", "pmg", "--mode", "export",
+                            "--build_classifier", tasks_json, "--config_path", hparams_json,
+                            "--model_path", pth, "--batch_size", str(DEPLOY_BATCH), "--export_dir", art,
+                            "--save_dir", os.path.join(tmp, "cli"), "--parity_precision", "--device", device,
+                            *flags],
+                           check=True, timeout=600, capture_output=True, text=True)
+            export_s = time.perf_counter() - t0
+            pred = ExportedPredictor(art, device=device)
+            pred.warmup()
+            ck.reset_launches()
+            got = pred.run(frames, collect=("probs", "preds", "logits"))
+            torch.cuda.synchronize()
+            counts[f"artifact {label}"] = launches = dict(ck.LAUNCHES)
+            ref = want[label]
+            err = float(np.abs(got["logits"] - ref["logits"]).max())
+            scale = float(np.abs(ref["logits"]).max())
+            if not np.array_equal(got["preds"], ref["preds"]) or err > EXPORT_LOGIT_TOL * scale:
+                raise AssertionError(f"{label} artifact vs Engine.run: logits err {err} (max|logit| "
+                                     f"{scale}), preds equal {np.array_equal(got['preds'], ref['preds'])}")
+            need = ("patch_gram", "stem") + (("gram_proj",) if label == "bf16" else ())
+            if any(launches[k] != n_batches for k in need):
+                raise AssertionError(f"{label} artifact: launches {launches}, want {n_batches} of {need}")
+            live = eng if label == "float32" else eng16
+            xb = torch.from_numpy(frames[:DEPLOY_BATCH]).to(device)
+
+            def run_artifact(p=pred, x=xb):
+                with torch.inference_mode():
+                    return p._call(x)
+
+            step_live, step_art = in_turns(lambda e=live, x=xb: e.step(x), run_artifact, reps=5)
+            enq_live, enq_art = (enqueue_ms(fn) for fn in (lambda e=live, x=xb: e.step(x), run_artifact))
+            walls = {}
+            for what, fn in (("Engine.run", lambda e=live: e.run(frames)),
+                             ("ExportedPredictor.run", lambda p=pred: p.run(frames))):
+                ts = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    ts.append(time.perf_counter() - t0)
+                walls[what] = statistics.median(ts)
+            print(f"[19] (b) {label} artifact (CLI --mode export in {export_s:.1f} s, "
+                  f"{os.path.getsize(os.path.join(art, 'forward.pt2')) / 1e6:.1f} MB): vs Engine.run on "
+                  f"{DEPLOY_FRAMES} frames preds equal, max logit err {err:.3e} (limit "
+                  f"{EXPORT_LOGIT_TOL} x {scale:.3f}), logits bit-equal {err == 0.0}; launches by the "
+                  f"artifact {launches} ({n_batches} batches); device step at batch {DEPLOY_BATCH}, in "
+                  f"turns: Engine {step_live:.3f} ms, artifact {step_art:.3f} ms; host enqueue of one "
+                  f"step: Engine {enq_live:.3f} ms, artifact {enq_art:.3f} ms; end to end on "
+                  f"{DEPLOY_FRAMES} host frames: Engine.run {DEPLOY_FRAMES / walls['Engine.run']:,.0f} "
+                  f"img/s, ExportedPredictor.run {DEPLOY_FRAMES / walls['ExportedPredictor.run']:,.0f} "
+                  f"img/s | {card}")
+            preds[label] = pred
+
+        # -- (c) HTTP serving ---------------------------------------------------
+        rng = np.random.RandomState(1919)
+        paths = []
+        for i in range(SERVE_REQUESTS):
+            paths.append(os.path.join(tmp, f"request_{i:02d}.png"))
+            Image.fromarray(rng.randint(0, 256, (256, 320, 3), np.uint8)).save(paths[-1])
+        decode_s = []
+        for path in paths:
+            with open(path, "rb") as f:
+                body = f.read()
+            t0 = time.perf_counter()
+            load_image_uint8(Image.open(io.BytesIO(body)))
+            decode_s.append(time.perf_counter() - t0)
+        decoded = np.stack([load_image_uint8(p) for p in paths])
+        tasks = eng.spec.tasks
+        for label, target, live in (("float32 Engine", eng, eng), ("bf16 artifact", preds["bf16"], eng16)):
+            ref = live.run(decoded)
+            srv = InferenceServer(target, host="127.0.0.1", port=0, prob_threshold=0.5).start()
+            try:
+                ck.reset_launches()
+                out, wall = post_all(srv.port, paths, SERVE_CLIENTS, tmp)
+                counts[f"serve {label}"] = launches = dict(ck.LAUNCHES)
+                hz = get_json(srv.port, "/healthz")
+                stats = get_json(srv.port, "/stats")[1]
+            finally:
+                srv.stop()
+            if hz != (200, {"status": "ok", "model": "pmg", "tasks": len(tasks), "batch_size": DEPLOY_BATCH}):
+                raise AssertionError(f"/healthz: {hz}")
+            if stats.get("n") != SERVE_REQUESTS:
+                raise AssertionError(f"/stats: {stats}")
+            perr = 0.0
+            for i, (code, body) in enumerate(out):
+                if code != 200 or list(body["prediction"]) != list(tasks.names):
+                    raise AssertionError(f"{label} /predict {i}: {code} {body}")
+                for ti, t in enumerate(tasks.names):
+                    p = body["prediction"][t]
+                    k = tasks.num_classes[ti]
+                    pred_i = int(ref["preds"][i, ti])
+                    cls = "Unknown" if pred_i < 0 else tasks.class_names[ti][pred_i]
+                    got_p = np.asarray([p["probs"][c] for c in tasks.class_names[ti]])
+                    perr = max(perr, float(np.abs(got_p - ref["probs"][i, ti, :k]).max()))
+                    if p["predicted_class"] != cls:
+                        raise AssertionError(f"{label} /predict {i} task {t}: {p['predicted_class']} "
+                                             f"vs Engine.run's {cls}")
+            if perr > SERVE_PROB_TOL:
+                raise AssertionError(f"{label} /predict probabilities {perr} from Engine.run's")
+            need = ("patch_gram", "stem") + (("gram_proj",) if "bf16" in label else ())
+            if any(launches[k] == 0 for k in need):
+                raise AssertionError(f"{label} server: launches {launches}")
+            print(f"[19] (c) InferenceServer over the {label}: {SERVE_REQUESTS} PNG /predict requests "
+                  f"from {SERVE_CLIENTS} client threads of a client process, classes equal "
+                  f"Engine.run's on the decoded "
+                  f"frames, max prob err {perr:.3e} (limit {SERVE_PROB_TOL}); /healthz and /stats ok; "
+                  f"{SERVE_REQUESTS / wall:,.1f} requests/s, latency p50 {stats['p50'] * 1e3:.2f} ms, "
+                  f"p99 {stats['p99'] * 1e3:.2f} ms (/stats); launches {launches} ({SERVE_REQUESTS / max(1, launches['stem']):.1f} requests a batch); "
+                  f"host decode of one request (PNG 320x256 -> 224 crop) "
+                  f"{statistics.median(decode_s) * 1e3:.2f} ms (median) | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2185,12 +2534,14 @@ def main() -> int:
     launches16, k5 = pmg_bf16_phases(card, eng, frames, out, big, wall5, args.profile, old)
     kernels.insert(4, k5)
     stem16["launches"] = launches16["stem"]
+    dispatch_cost(card)
     parent_step_ab(card)
     pm_phase(card, args.profile)
     rtm_bf16_phase(card, rtm_f32, args.profile)
     del rtm_f32
     eval_counts = evaluation_phase(card, eng)
     del eng
+    deploy_counts = deployment_phase(card)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:
@@ -2200,6 +2551,14 @@ def main() -> int:
                 path: c[name] for path, c in eval_counts.items()
                 if not (k["name"] == "stem" and path == "bf16")
                 and not (k["name"] == "stem_bf16" and path != "bf16") and c[name]}
+    # and on the deployment paths of phase 19 (the artifacts and the servers)
+    for k in kernels:
+        name = {"stem_bf16": "stem"}.get(k["name"], k["name"])
+        if name in ("stem", "patch_gram", "gram_proj"):
+            k["deploy_launches"] = {
+                path: c[name] for path, c in deploy_counts.items()
+                if c[name] and (k["name"] != "stem" or "bf16" not in path)
+                and (k["name"] != "stem_bf16" or "bf16" in path)}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,12 +6,17 @@ It stands beside the JAX package
 which stays the reference: same public functions, same layouts (NHWC
 activations, stacked ``[B, T, Kmax]`` logits), same param tree.  It imports
 neither JAX nor anything of the JAX package.  Ported so far: the PMG, PM
-and RTM families (random init or a ``.pth``), batch inference (``Engine.run``
+and RTM families (random init, a ``.pth``/``.npz`` or a native directory;
+``.pth`` export, non-strict loading), batch inference (``Engine.run``
 and ``run_stream`` on uint8 frames, float32 or bf16), the evaluation
 workloads (``workloads.evaluate``, ``benchmark``, ``inference``: metrics
 computed in numpy), the data loader (``data``) and the float32 camera
-path (``workloads.stream.StreamPredictor``), with six hand-written CUDA
-kernels (``ops/cuda_kernels.py``).
+path (``workloads.stream.StreamPredictor``), the deployment path (the AOT
+serving artifact ``engine.export``, the micro-batcher ``engine.serving``,
+the HTTP server ``workloads.serve``) and the CLI (``cli.py``,
+``weather_torch.py``), with six hand-written CUDA kernels
+(``ops/cuda_kernels.py``; K1, K2 and K5 also as ``torch.ops.wadt_torch``
+operators).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 
@@ -33,9 +38,11 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
     - ``hparams``: dict or JSON path; when omitted, sidecar JSONs are
       discovered next to ``model_path``.
     - ``model_path``: a torch ``.pth`` or ``.npz`` state dict, loaded
-      strictly; for PM the checkpoint's own SE blocks decide
-      ``attn_use_se``.  ``None`` builds randomly initialized params
-      (``init(torch.Generator().manual_seed(0), spec)``).
+      strictly (for PM the checkpoint's own SE blocks decide
+      ``attn_use_se``), or a directory written by
+      ``engine.checkpoint.save_native``, checked against the spec's tree
+      (a JAX Orbax directory is refused).  ``None`` builds randomly
+      initialized params (``init(torch.Generator().manual_seed(0), spec)``).
     - ``engine_kwargs``: forwarded to :class:`Engine` (``batch_size``,
       ``dtype``, ``prob_threshold``, ``packed``, ``device`` ...).
     """
@@ -50,11 +57,6 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
 
     # falsy paths ("" from an unset shell variable) mean "no checkpoint"
     model_path = model_path or None
-    if model_path is not None and os.path.isdir(model_path):
-        raise NotImplementedError(
-            f"{model_path} is a directory: native (Orbax) checkpoints are not "
-            "ported yet (ROADMAP.md A15)"
-        )
     if tasks is None:
         tasks = default_tasks_path()
     if isinstance(tasks, (str, os.PathLike)):
@@ -69,6 +71,11 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
     if model_path is None:
         spec = mod.build_spec(tasks, hparams)
         params = mod.init(torch.Generator().manual_seed(0), spec)
+    elif os.path.isdir(model_path):
+        spec = mod.build_spec(tasks, hparams)
+        params = checkpoint.load_native(
+            model_path, like=mod.init(torch.Generator().manual_seed(0), spec)
+        )
     else:
         state = checkpoint.load_state_dict(model_path)
         if family.lower() == "pm":

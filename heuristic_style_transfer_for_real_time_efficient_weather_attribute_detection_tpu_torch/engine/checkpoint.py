@@ -7,12 +7,25 @@ conv OIHW -> HWIO, Linear [out, in] -> [in, out], the packed transformer
 axis and zero-padded to Kmax.  RTM backbones arrive under three key
 schemas (``truncated_encoder.<seq>.``, ``backbone.``, raw ResNet roots),
 all accepted.  PM checkpoints carry SE weights or not
-(``checkpoint_has_se``).  Loading is strict: a missing key raises.
+(``checkpoint_has_se``).  ``convert`` is strict by default (a missing key
+raises); ``strict=False`` fills missing tensors from the port's own
+``init`` and prints the missing and unexpected keys, as the JAX package does.
+
+The reverse direction, ``export_state_dict`` / ``save_torch_checkpoint``,
+writes the reference's exact key schema (``.pth`` or ``.npz``).  The port's
+native format (``save_native`` / ``load_native``) is a directory holding
+``params.pt`` (``torch.save`` of the param tree as CPU tensors, read back
+with ``weights_only=True``) and ``native_meta.json`` (a format version and
+the tree's key -> shape and dtype manifest).  A native directory that the
+JAX package wrote with Orbax is refused with the way across: a ``.pth``
+from the JAX package's ``save_torch_checkpoint``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional
+import json
+import os
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -332,27 +345,347 @@ def sniff_family(state: Mapping[str, Any]) -> Optional[str]:
     return None
 
 
-def convert(family: str, state: StateDict, spec) -> Dict[str, Any]:
-    """Strict state dict -> params.  A missing key raises; when the key
-    schema belongs to another family, the error names it."""
+# ---------------------------------------------------------------------------
+# Reverse conversion: params -> the reference's state dict (interop/export)
+# ---------------------------------------------------------------------------
+
+
+def _np(x) -> np.ndarray:
+    """A float32 numpy copy of a tensor on any device (bf16 upcast, exact)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _export_conv(p) -> np.ndarray:
+    return np.transpose(_np(p["w"]), (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _export_norm(out: StateDict, prefix: str, p, kind: str) -> None:
+    out[f"{prefix}.weight"] = _np(p["scale"])
+    out[f"{prefix}.bias"] = _np(p["bias"])
+    if kind == "batch":
+        out[f"{prefix}.running_mean"] = _np(p["mean"])
+        out[f"{prefix}.running_var"] = _np(p["var"])
+        out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def export_pmg(params, spec: pmg_mod.Spec) -> StateDict:
+    """Inverse of :func:`convert_pmg`: the reference's exact key schema, so
+    an exported checkpoint loads into the PyTorch reference unmodified."""
+    t = spec.tasks
+    out: StateDict = {}
+    for i, lp in enumerate(params["trunk"]):
+        out[f"feature_extractor.{3 * i}.weight"] = _export_conv(lp["conv"])
+        _export_norm(out, f"feature_extractor.{3 * i + 1}", lp["norm"], spec.norm)
+    if spec.use_channel_attention and "se" in params:
+        out["se.fc.0.weight"] = _np(params["se"]["fc1"]["w"]).T
+        out["se.fc.2.weight"] = _np(params["se"]["fc2"]["w"]).T
+    out["chan_proj.weight"] = _export_conv(params["chan_proj"])
+    out["token_proj.weight"] = _np(params["token_proj"]["w"]).T
+    out["token_proj.bias"] = _np(params["token_proj"]["b"])
+    if spec.has_transformer:
+        for li, lp in enumerate(params["transformer"]):
+            pre = f"transformer.encoder.layers.{li}"
+            a = lp["attn"]
+            out[f"{pre}.self_attn.in_proj_weight"] = np.concatenate(
+                [_np(a["wq"]).T, _np(a["wk"]).T, _np(a["wv"]).T], axis=0
+            )
+            out[f"{pre}.self_attn.in_proj_bias"] = np.concatenate(
+                [_np(a["bq"]), _np(a["bk"]), _np(a["bv"])]
+            )
+            out[f"{pre}.self_attn.out_proj.weight"] = _np(a["wo"]).T
+            out[f"{pre}.self_attn.out_proj.bias"] = _np(a["bo"])
+            out[f"{pre}.norm1.weight"] = _np(lp["norm1"]["scale"])
+            out[f"{pre}.norm1.bias"] = _np(lp["norm1"]["bias"])
+            out[f"{pre}.norm2.weight"] = _np(lp["norm2"]["scale"])
+            out[f"{pre}.norm2.bias"] = _np(lp["norm2"]["bias"])
+            out[f"{pre}.linear1.weight"] = _np(lp["ffn1"]["w"]).T
+            out[f"{pre}.linear1.bias"] = _np(lp["ffn1"]["b"])
+            out[f"{pre}.linear2.weight"] = _np(lp["ffn2"]["w"]).T
+            out[f"{pre}.linear2.bias"] = _np(lp["ffn2"]["b"])
+    q = _np(params["queries"])
+    hw, hb = _np(params["heads"]["w"]), _np(params["heads"]["b"])
+    for i, name in enumerate(t.names):
+        k = t.num_classes[i]
+        out[f"task_pool.query.{name}"] = q[i]
+        out[f"classifiers.{name}.weight"] = hw[i, :, :k].T
+        out[f"classifiers.{name}.bias"] = hb[i, :k]
+    return out
+
+
+def export_pm(params, spec: pm_mod.Spec) -> StateDict:
+    t = spec.tasks
+    out: StateDict = {}
+    for i, lp in enumerate(params["trunk"]):
+        out[f"trunk.{3 * i}.weight"] = _export_conv(lp["conv"])
+        if "b" in lp["conv"]:
+            out[f"trunk.{3 * i}.bias"] = _np(lp["conv"]["b"])
+        _export_norm(out, f"trunk.{3 * i + 1}", lp["norm"], spec.norm)
+    hp = {k: _np(v) for k, v in params["heads"].items()}
+    for i, name in enumerate(t.names):
+        pre = f"task_heads.{name}"
+        k = t.num_classes[i]
+        if spec.attn_use_se:
+            out[f"{pre}.se.mlp.0.weight"] = hp["se1_w"][i].T
+            out[f"{pre}.se.mlp.0.bias"] = hp["se1_b"][i]
+            out[f"{pre}.se.mlp.2.weight"] = hp["se2_w"][i].T
+            out[f"{pre}.se.mlp.2.bias"] = hp["se2_b"][i]
+        out[f"{pre}.attn_conv.weight"] = hp["attn_w"][i][None, :, None, None]
+        out[f"{pre}.attn_conv.bias"] = hp["attn_b"][i][None]
+        out[f"{pre}.cls_conv.weight"] = hp["cls_w"][i, :, :k].T[:, :, None, None]
+    return out
+
+
+def export_rtm(params, spec: rtm_mod.Spec) -> StateDict:
+    """Exports with the model's own ``truncated_encoder.<seq>`` naming (what
+    ``torch.save(model.state_dict())`` produces for the reference)."""
+    t = spec.tasks
+    out: StateDict = {}
+    bb = params["backbone"]
+    raw: StateDict = {}
+    raw["conv1.weight"] = _export_conv(bb["conv1"])
+    _export_norm(raw, "bn1", bb["bn1"], "batch")
+    for si in range(len(resnet_mod.STAGES)):
+        name = f"layer{si + 1}"
+        if name not in bb:
+            continue
+        for bi, bp in enumerate(bb[name]):
+            pre = f"{name}.{bi}"
+            for ci in (1, 2, 3):
+                raw[f"{pre}.conv{ci}.weight"] = _export_conv(bp[f"conv{ci}"])
+                _export_norm(raw, f"{pre}.bn{ci}", bp[f"bn{ci}"], "batch")
+            if "downsample" in bp:
+                raw[f"{pre}.downsample.0.weight"] = _export_conv(bp["downsample"]["conv"])
+                _export_norm(raw, f"{pre}.downsample.1", bp["downsample"]["bn"], "batch")
+    for k, v in raw.items():
+        root, _, tail = k.partition(".")
+        out[f"truncated_encoder.{_NAME_TO_SEQ[root]}.{tail}"] = v
+    if spec.use_attention and "attn" in params:
+        a = {k: _np(v) for k, v in params["attn"].items()}
+        for i, name in enumerate(t.names):
+            pre = f"attentions.attention_{name.replace(' ', '_')}"
+            out[f"{pre}.q"] = a["q"][i][None, None, :]
+            out[f"{pre}.proj.weight"] = a["proj_w"][i].T
+            out[f"{pre}.out.weight"] = a["out_w"][i].T
+    dims = spec.mlp_dims
+    mlp = [{k: _np(v) for k, v in lp.items()} for lp in params["mlp"]]
+    fw, fb = _np(params["final"]["w"]), _np(params["final"]["b"])
+    for i, name in enumerate(t.names):
+        pre = f"classifiers.classifier_{name.replace(' ', '_')}"
+        for li, lp in enumerate(mlp):
+            out[f"{pre}.{2 * li}.weight"] = lp["w"][i].T
+            out[f"{pre}.{2 * li}.bias"] = lp["b"][i]
+        k = t.num_classes[i]
+        out[f"{pre}.{2 * (len(dims) - 1)}.weight"] = fw[i, :, :k].T
+        out[f"{pre}.{2 * (len(dims) - 1)}.bias"] = fb[i, :k]
+    return out
+
+
+_EXPORTERS = {"pmg": export_pmg, "pm": export_pm, "rtm": export_rtm}
+
+
+def export_state_dict(family: str, params, spec) -> StateDict:
+    """Params (tensors on any device, float32 or bf16) -> the reference's
+    state dict as float32 numpy arrays (``num_batches_tracked`` int64 0)."""
+    return _EXPORTERS[family.lower()](params, spec)
+
+
+def save_torch_checkpoint(family: str, params, spec, path: str) -> None:
+    """Export params as a reference-loadable ``.pth`` (or ``.npz``)."""
+    state = export_state_dict(family, params, spec)
+    if path.endswith(".npz"):
+        np.savez(path, **state)
+    else:
+        # np.array keeps num_batches_tracked 0-d (np.ascontiguousarray would
+        # make it [1], a shape the reference's BatchNorm does not have)
+        torch.save({k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}, path)
+
+
+# ---------------------------------------------------------------------------
+# Family dispatch, strict and non-strict
+# ---------------------------------------------------------------------------
+
+
+def _canon_state_keys(family: str, state: StateDict) -> StateDict:
+    """Normalize accepted key aliases to the export manifest's naming.
+
+    RTM checkpoints arrive in three backbone forms (``truncated_encoder.<seq>``
+    / ``backbone.<root>`` / raw ``<root>``) while the export manifest uses
+    ``truncated_encoder.<seq>``; without this the non-strict
+    missing/unexpected comparison would classify every aliased backbone
+    tensor as unexpected and re-initialize it.
+    """
+    if family != "rtm":
+        return state
+    out: StateDict = {}
+    for k, v in state.items():
+        root = k.split(".", 1)[0]
+        if not (k.startswith(("truncated_encoder.", "backbone.")) or root in _NAME_TO_SEQ):
+            out[k] = v
+    for k, v in _canon_backbone_keys(state).items():
+        root, _, tail = k.partition(".")
+        seq = _NAME_TO_SEQ.get(root)
+        if seq is None:
+            out[k] = v
+        else:
+            out[f"truncated_encoder.{seq}.{tail}"] = v
+    return out
+
+
+def convert(
+    family: str, state: StateDict, spec, strict: bool = True, init_key: int = 0
+) -> Dict[str, Any]:
+    """State dict -> params (CPU tensors).
+
+    Strict: a missing key raises; when the key schema belongs to another
+    family, the error names it.  ``strict=False`` reproduces the reference
+    loaders' fallback: missing tensors come from a fresh initialization
+    (``init(torch.Generator().manual_seed(init_key), spec)``), unexpected
+    ones are ignored, and both lists are printed.  A present tensor whose
+    shape disagrees with the manifest is an error (torch
+    ``load_state_dict(strict=False)`` semantics), except RTM classifier
+    tensors, which the converter partial-copies.
+    """
     family = family.lower()
-    get_family(family)  # raises for an unknown family
+    mod = get_family(family)  # raises for an unknown family
+    if strict:
+        try:
+            return _CONVERTERS[family](state, spec)
+        except KeyError as e:
+            guessed = sniff_family(state)
+            if guessed and guessed != family:
+                raise ValueError(
+                    f"checkpoint does not look like a {family.upper()} "
+                    f"checkpoint (missing key {e.args[0]!r}); its key "
+                    f"schema matches {guessed.upper()} — rerun with the "
+                    f"'{guessed}' family"
+                ) from e
+            raise
+    full = export_state_dict(family, mod.init(torch.Generator().manual_seed(init_key), spec), spec)
+    state = _canon_state_keys(family, state)
+    missing = [k for k in full if k not in state]
+    unexpected = [k for k in state if k not in full and "num_batches_tracked" not in k]
+    mismatched = [
+        k for k in state
+        if k in full
+        and tuple(np.shape(state[k])) != tuple(np.shape(full[k]))
+        and not (family == "rtm" and k.startswith("classifiers."))
+    ]
+    if mismatched:
+        raise ValueError(
+            f"shape mismatch for {len(mismatched)} tensors, e.g. "
+            + ", ".join(
+                f"{k}: {tuple(np.shape(state[k]))} vs {tuple(np.shape(full[k]))}"
+                for k in mismatched[:4]
+            )
+        )
+    if missing:
+        print(f"[load] Missing keys ({len(missing)}): {missing[:8]}"
+              f"{' ...' if len(missing) > 8 else ''}")
+    if unexpected:
+        print(f"[load] Unexpected keys ({len(unexpected)}): {unexpected[:8]}"
+              f"{' ...' if len(unexpected) > 8 else ''}")
+    merged = {**full, **{k: v for k, v in state.items() if k in full}}
+    return _CONVERTERS[family](merged, spec)
+
+
+def load_torch_checkpoint(family: str, path: str, spec, strict: bool = True) -> Dict[str, Any]:
+    """``.pth`` / ``.npz`` path -> params (CPU tensors).  With
+    ``strict=False`` a strict conversion that misses a key falls back to the
+    non-strict one; a wrong-family schema raises ``ValueError`` either way."""
+    state = load_state_dict(path)
     try:
-        return _CONVERTERS[family](state, spec)
-    except KeyError as e:
-        guessed = sniff_family(state)
-        if guessed and guessed != family:
+        return convert(family, state, spec, strict=True)
+    except KeyError:
+        if strict:
+            raise
+        print("[WARN] strict conversion failed, falling back to strict=False")
+        return convert(family, state, spec, strict=False)
+
+
+# ---------------------------------------------------------------------------
+# Native checkpoints: params.pt + native_meta.json
+# ---------------------------------------------------------------------------
+
+NATIVE_FORMAT_VERSION = 1
+_NATIVE_PARAMS = "params.pt"
+_NATIVE_META = "native_meta.json"
+# files an Orbax checkpoint directory (the JAX package's native format) holds
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+
+
+def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) of a nested dict/list tree, paths joined by "/"."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _manifest(tree: Any) -> Dict[str, Dict[str, Any]]:
+    """{path: {"shape", "dtype"}} of every leaf, dtypes named as in torch."""
+    return {k: {"shape": list(v.shape), "dtype": str(v.dtype).replace("torch.", "")}
+            for k, v in _leaves(tree)}
+
+
+def save_native(params, path: str) -> None:
+    """Save a param tree in the port's native format (a directory; the
+    tensors are copied to the CPU)."""
+    os.makedirs(path, exist_ok=True)
+    tree = to_device(params, "cpu")
+    torch.save(tree, os.path.join(path, _NATIVE_PARAMS))
+    meta = {"format_version": NATIVE_FORMAT_VERSION, "manifest": _manifest(tree)}
+    with open(os.path.join(path, _NATIVE_META), "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def load_native(path: str, like=None):
+    """Load a :func:`save_native` directory -> the param tree (CPU tensors).
+
+    The saved tree must match its own manifest, and ``like`` (a param tree),
+    where given, key for key and shape for shape; a difference raises
+    ``ValueError``.  A directory in the JAX package's Orbax format is refused."""
+    params_path = os.path.join(path, _NATIVE_PARAMS)
+    if not os.path.isfile(params_path):
+        if any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
             raise ValueError(
-                f"checkpoint does not look like a {family.upper()} checkpoint "
-                f"(missing key {e.args[0]!r}); its key schema matches "
-                f"{guessed.upper()}"
-            ) from e
-        raise
+                f"{path} is an Orbax checkpoint (the JAX package's native format), which "
+                "the port does not read; export it with the JAX package's "
+                "engine.checkpoint.save_torch_checkpoint to a .pth and load that"
+            )
+        raise ValueError(f"{path} is not a native checkpoint directory (no {_NATIVE_PARAMS})")
+    with open(os.path.join(path, _NATIVE_META)) as f:
+        meta = json.load(f)
+    if meta.get("format_version") != NATIVE_FORMAT_VERSION:
+        raise ValueError(
+            f"unsupported native checkpoint format {meta.get('format_version')} "
+            f"(this build reads {NATIVE_FORMAT_VERSION})"
+        )
+    tree = torch.load(params_path, map_location="cpu", weights_only=True)
+    got = _manifest(tree)
+    _check_same_tree(got, meta["manifest"], "its manifest", path, dtypes=True)
+    if like is not None:
+        _check_same_tree(got, _manifest(like), "`like`", path, dtypes=False)
+    return tree
 
 
-def load_torch_checkpoint(family: str, path: str, spec) -> Dict[str, Any]:
-    """``.pth`` / ``.npz`` path -> params (CPU tensors), strict."""
-    return convert(family, load_state_dict(path), spec)
+def _check_same_tree(got: Dict, want: Dict, against: str, path: str, dtypes: bool) -> None:
+    missing = [k for k in want if k not in got]
+    extra = [k for k in got if k not in want]
+    differ = [k for k in want if k in got and (
+        got[k]["shape"] != want[k]["shape"] or (dtypes and got[k]["dtype"] != want[k]["dtype"]))]
+    if missing or extra or differ:
+        raise ValueError(
+            f"native checkpoint {path} does not match {against}: missing {missing[:8]}, "
+            f"unexpected {extra[:8]}, differing "
+            + str([f"{k}: {got[k]['shape']} {got[k]['dtype']} vs {want[k]['shape']} "
+                   f"{want[k]['dtype']}" for k in differ[:4]])
+        )
 
 
 def params_from_jax(tree: Any, spec) -> Dict[str, Any]:

@@ -12,7 +12,7 @@ forward in bf16 on a cast copy of the params, as the JAX package's
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,47 +22,9 @@ from ..models import get_family
 from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8
 from .checkpoint import to_device
+from .wire import pad_batch, to_host_async, validate_and_pack, wait_host
 
 _UNBATCHED = ("loss_per_task", "count_per_task")
-
-
-def validate_and_pack(images: np.ndarray, pack_k: Optional[int]) -> np.ndarray:
-    """The uint8 wire contract: uint8 NHWC, raw [N,H,W,3] or (when the step
-    takes the packed format, ``pack_k`` set) already space-to-depth packed
-    [N,H/k,W/k,k*k*3].  Nothing is packed on the host: raw frames go to the
-    device as they are, and the stem kernel reads them unpacked."""
-    if images.ndim != 4:
-        raise ValueError(f"expected uint8 NHWC images, got {getattr(images, 'shape', None)}")
-    if images.dtype != np.uint8:
-        raise ValueError(
-            f"expected uint8 images (device-side normalize); got {images.dtype} "
-            f"- use ops.preprocess.load_image_uint8"
-        )
-    if images.shape[-1] == 3:
-        return images
-    if pack_k is not None and images.shape[-1] == pack_k * pack_k * 3:
-        return images
-    if pack_k is not None:
-        raise ValueError(
-            f"packed step expects [N,H/{pack_k},W/{pack_k},{pack_k * pack_k * 3}] "
-            f"or raw [N,H,W,3]; got {images.shape}"
-        )
-    raise ValueError(f"expected uint8 NHWC images [N,H,W,3], got {images.shape}")
-
-
-def pad_batch(
-    images: np.ndarray, batch_size: int, labels: Optional[np.ndarray] = None
-) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Zero-pad a tail micro-batch (IGNORE-pad its labels) to ``batch_size`` rows."""
-    n = images.shape[0]
-    if n < batch_size:
-        pad = batch_size - n
-        images = np.concatenate([images, np.zeros((pad,) + images.shape[1:], images.dtype)])
-        if labels is not None:
-            labels = np.concatenate(
-                [labels, np.full((pad, labels.shape[1]), IGNORE_INDEX, labels.dtype)]
-            )
-    return images, labels
 
 
 def class_mask(tasks: TaskSpec) -> np.ndarray:
@@ -132,6 +94,7 @@ class Engine:
             raise ValueError(f"Engine dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if mesh is not None:
             raise NotImplementedError("mesh execution is not ported yet (ROADMAP.md A22)")
+        self.mesh = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -167,31 +130,33 @@ class Engine:
 
     # -- low-level -------------------------------------------------------
 
-    @torch.inference_mode()
-    def _step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _outputs(self, images: torch.Tensor, run_params: Any, stem: Any,
+                 mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The label-free part of a step on the given run params, stem fold
+        and class mask: logits, probs, max_probs, preds and the capture taps.
+        ``engine.export`` traces this same function into the artifact."""
         if self.pack_k is not None:
             logits, aux = self._mod.apply_packed(
-                self._run_params, images, self.spec, self.capture, self._stem, self.dtype
+                run_params, images, self.spec, self.capture, stem, self.dtype
             )
         else:
             logits, aux = self._mod.apply(
-                self._run_params, normalize_uint8(images, self.dtype), self.spec, self.capture
+                run_params, normalize_uint8(images, self.dtype), self.spec, self.capture
             )
         logits = logits.float()
-        probs = masked_softmax(logits, self._mask)
+        probs = masked_softmax(logits, mask)
         maxp = probs.amax(dim=-1)
         preds = probs.argmax(dim=-1).int()
         preds = torch.where(maxp < self.prob_threshold, UNKNOWN_PRED, preds)
-        loss_t, count_t = masked_cross_entropy(logits, labels, self._mask)
-        out = {
-            "logits": logits,
-            "probs": probs,
-            "max_probs": maxp,
-            "preds": preds,
-            "loss_per_task": loss_t,
-            "count_per_task": count_t,
-        }
+        out = {"logits": logits, "probs": probs, "max_probs": maxp, "preds": preds}
         out.update({k: v.float() for k, v in aux.items()})
+        return out
+
+    @torch.inference_mode()
+    def _step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self._outputs(images, self._run_params, self._stem, self._mask)
+        loss_t, count_t = masked_cross_entropy(out["logits"], labels, self._mask)
+        out.update(loss_per_task=loss_t, count_per_task=count_t)
         return out
 
     def _upload(self, images, labels: Optional[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,25 +193,6 @@ class Engine:
 
     # -- pipelined micro-batch API (serving) -----------------------------
 
-    def _to_host_async(self, res: Dict[str, torch.Tensor], keys) -> Tuple[Dict, object]:
-        """Start copying ``keys`` of ``res`` to the host; returns the host
-        tensors and an event that marks the copies done (None on the CPU)."""
-        if self.device.type != "cuda":
-            return {k: res[k] for k in keys}, None
-        host = {}
-        for k in keys:
-            host[k] = torch.empty(res[k].shape, dtype=res[k].dtype, pin_memory=True)
-            host[k].copy_(res[k], non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
-    @staticmethod
-    def _wait_host(host: Dict[str, torch.Tensor], event) -> Dict[str, np.ndarray]:
-        if event is not None:
-            event.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
-
     def _validate_and_pack(self, images: np.ndarray) -> np.ndarray:
         return validate_and_pack(images, self.pack_k)
 
@@ -267,13 +213,13 @@ class Engine:
         images, labels = pad_batch(images, self.batch_size, labels)
         res = self.step(images, labels)
         keys = set(collect) | (set(_UNBATCHED) if has_labels else set())
-        return (n,) + self._to_host_async(res, keys)
+        return (n,) + to_host_async(res, keys)
 
     def fetch(self, handle) -> Dict[str, np.ndarray]:
         """Wait for a :meth:`dispatch` handle -> host arrays [n, ...]
         (per-task aggregates stay unsliced)."""
         take, host, event = handle
-        out = self._wait_host(host, event)
+        out = wait_host(host, event)
         return {k: (v if k in _UNBATCHED else v[:take]) for k, v in out.items()}
 
     # -- high-level ------------------------------------------------------
@@ -308,7 +254,7 @@ class Engine:
 
         def _drain_one() -> None:
             take, host, event, scanned = inflight.pop(0)
-            out = self._wait_host(host, event)
+            out = wait_host(host, event)
             for k in collect:
                 v = out[k]
                 if scanned:  # [k, bs, ...] -> [k*bs, ...]
@@ -334,12 +280,12 @@ class Engine:
             for s in range(0, start, k * bs):
                 stack = images[s : s + k * bs].reshape((k, bs) + images.shape[1:])
                 lab = labels[s : s + k * bs].reshape(k, bs, -1) if labels is not None else None
-                _submit(k * bs, *self._to_host_async(self.step_scan(stack, lab), keys), True)
+                _submit(k * bs, *to_host_async(self.step_scan(stack, lab), keys), True)
         for s in range(start, n, bs):
             e = min(s + bs, n)
             chunk, lab = pad_batch(images[s:e], bs, labels[s:e] if labels is not None else None)
             t0 = time.perf_counter()
-            host, event = self._to_host_async(self.step(chunk, lab), keys)
+            host, event = to_host_async(self.step(chunk, lab), keys)
             if measure_time:
                 if event is not None:
                     event.synchronize()
@@ -414,7 +360,7 @@ class Engine:
                 if len(buf) == k:
                     res = self.step_scan(np.stack(buf))
                     buf.clear()
-                    _submit((k,) + self._to_host_async(res, collect), True)
+                    _submit((k,) + to_host_async(res, collect), True)
             else:
                 _flush_buf()
                 _submit(self.dispatch(imgs, collect=collect), False)

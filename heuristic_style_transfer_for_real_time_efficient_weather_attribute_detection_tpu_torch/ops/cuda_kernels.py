@@ -26,6 +26,15 @@ Each wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel on the current stream or raises: a
 missing ``nvcc``, a failed build or a refused launch is an error, never a
 fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
+
+K1, K2 and K5, the kernels of the batch path, are also operators
+(``torch.library.custom_op`` in the ``wadt_torch`` namespace:
+``torch.ops.wadt_torch.patch_gram``, ``.stem``, ``.gram_proj``), and their
+wrappers call them: the dispatcher picks the implementation by the tensors'
+device (CUDA: the kernel; CPU: the plain version), and a fake
+implementation gives the output's shape and type to ``torch.export``, so an
+exported program carries the operators by name and launches the kernels
+when it runs.  Importing this module registers them.
 """
 
 from __future__ import annotations
@@ -180,12 +189,14 @@ def _launch(kernel: str, fn, device: torch.device, *args, count: bool = True) ->
         LAUNCHES[kernel] += 1
 
 
-def _require_cuda(x: torch.Tensor, kernel: str) -> None:
-    if x.device.type != "cuda":
+def _require_cpu_or_cuda(x: torch.Tensor, kernel: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"{kernel}: tensors on {x.device.type} are not supported "
             "(CUDA runs the kernel, the CPU its plain version)"
         )
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +321,17 @@ def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     ``P^T P / area`` summed in float32 -> [B, div*div, C*C] of x's dtype
     (bf16: rounded once, to nearest even).
 
-    CPU tensor: the plain version.  CUDA tensor: the ``patch_gram`` kernel on
+    Calls the operator ``wadt_torch::patch_gram``.  CPU tensor: the plain
+    version.  CUDA tensor: the ``patch_gram`` kernel on
     :func:`patch_gram_plan`'s persistent grid, float32 or bf16 NHWC
     contiguous only.
     """
-    if x.device.type == "cpu":
-        return patch_gram_plain(x, div)
-    _require_cuda(x, "patch_gram")
+    _require_cpu_or_cuda(x, "patch_gram")
+    return torch.ops.wadt_torch.patch_gram(x, div)
+
+
+def _patch_gram_launch(x: torch.Tensor, div: int) -> torch.Tensor:
+    """K1 on a CUDA tensor, the CUDA implementation of ``wadt_torch::patch_gram``."""
     if x.ndim != 4 or div < 1:
         raise ValueError(f"patch_gram: expected NHWC and div >= 1, got {tuple(x.shape)}, {div}")
     dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
@@ -331,6 +346,17 @@ def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     _launch("patch_gram", fn, x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, div, plan.kc,
             plan.band, plan.grid)
     return out
+
+
+_patch_gram_op = torch.library.custom_op(
+    "wadt_torch::patch_gram", _patch_gram_launch, mutates_args=(), device_types="cuda")
+_patch_gram_op.register_kernel("cpu", patch_gram_plain)
+
+
+@_patch_gram_op.register_fake
+def _(x: torch.Tensor, div: int) -> torch.Tensor:
+    b, _, _, c = x.shape
+    return x.new_empty((b, div * div, c * c))
 
 
 # ---------------------------------------------------------------------------
@@ -514,8 +540,8 @@ def stem(
     PyTorch bf16 operations does.  ``w2d`` is the kernel == stride == k
     conv weight as float32 [k*k*cin, cout] in (dy, dx, ci) row order, with
     the normalize folded in (bf16-valued in bf16: the kernel takes it as
-    bf16).  CPU tensor: the plain version.  CUDA tensor: the ``stem``
-    kernel on :func:`stem_plan`'s plan.
+    bf16).  Calls the operator ``wadt_torch::stem``.  CPU tensor: the plain
+    version.  CUDA tensor: the ``stem`` kernel on :func:`stem_plan`'s plan.
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stem: out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -524,9 +550,16 @@ def stem(
         raise ValueError("stem: bf16 takes a bias, and scale and shift both or neither")
     if not bf16 and (bias is not None or scale is None or shift is None):
         raise ValueError("stem: float32 takes scale and shift and no bias")
-    if x8.device.type == "cpu":
-        return stem_plain(x8, w2d, scale, shift, k, leaky, out_dtype, bias)
-    _require_cuda(x8, "stem")
+    _require_cpu_or_cuda(x8, "stem")
+    return torch.ops.wadt_torch.stem(x8, w2d, scale, shift, k, leaky, bf16, bias)
+
+
+def _stem_launch(
+    x8: torch.Tensor, w2d: torch.Tensor, scale: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], k: int, leaky: bool, bf16: bool, bias: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """K2 on CUDA tensors, the CUDA implementation of ``wadt_torch::stem``."""
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
     if x8.ndim != 4:
         raise ValueError(f"stem: expected uint8 NHWC, got {tuple(x8.shape)}")
     b, h, w, cin = x8.shape
@@ -555,6 +588,23 @@ def stem(
             None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, w, cin, k, cout, mode,
             int(leaky), plan.rows, plan.stages, plan.grid, int(plan.bulk), int(plan.tma))
     return out
+
+
+_stem_op = torch.library.custom_op(
+    "wadt_torch::stem", _stem_launch, mutates_args=(), device_types="cuda")
+
+
+@_stem_op.register_kernel("cpu")
+def _(x8, w2d, scale, shift, k, leaky, bf16, bias):
+    return stem_plain(x8, w2d, scale, shift, k, leaky,
+                      torch.bfloat16 if bf16 else torch.float32, bias)
+
+
+@_stem_op.register_fake
+def _(x8, w2d, scale, shift, k, leaky, bf16, bias):
+    b, h, w, _ = x8.shape
+    return x8.new_empty((b, h // k, w // k, w2d.shape[-1]),
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +860,7 @@ def fused_trunk_gram(x8: torch.Tensor, weights, spec) -> torch.Tensor:
     """
     if x8.device.type == "cpu":
         return fused_trunk_gram_plain(x8, weights, spec)
-    _require_cuda(x8, "fused_trunk_gram")
+    _require_cpu_or_cuda(x8, "fused_trunk_gram")
     if not supports_fused_trunk_gram(spec):
         raise ValueError(
             "the fused trunk kernel needs a [k=s pad0, k=s pad0, 1x1] trunk plan without SE"
@@ -1050,7 +1100,7 @@ def _fused_head_launch(tokens: torch.Tensor, folded: Dict[str, Any], spec, stage
     only (into ``partial``), 2 launch 2 only (from ``partial``), 3 both;
     ``cluster`` forces launch 2's cluster size.  Only the full call counts
     as a launch."""
-    _require_cuda(tokens, "fused_head")
+    _require_cpu_or_cuda(tokens, "fused_head")
     if tokens.ndim != 3:
         raise ValueError(f"fused_head: expected tokens [B, Np, D], got {tuple(tokens.shape)}")
     dev = tokens.device
@@ -1096,7 +1146,7 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
     """
     if x.device.type == "cpu":
         return dequant_matvec_plain(x, w8, scale)
-    _require_cuda(x, "dequant_matvec")
+    _require_cpu_or_cuda(x, "dequant_matvec")
     if x.ndim != 3 or w8.ndim != 3:
         raise ValueError(
             f"dequant_matvec: expected x [B, T, C] and w8 [T, C, D], got "
@@ -1195,16 +1245,21 @@ def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     Replaces ``make_proj_kernel.proj`` (``tools/exp_pmg_projkernel.py:65``),
     which took w transposed to d-major; the Gram is symmetric, so the two
-    are the same product.  CPU tensor: the plain version.  CUDA tensor: the
+    are the same product.  Calls the operator ``wadt_torch::gram_proj``.
+    CPU tensor: the plain version.  CUDA tensor: the
     ``gram_proj`` kernel on :func:`gram_proj_plan`'s launch plan, contiguous
     tensors with K and N multiples of 8 and g, w and b 16-byte aligned only
     (every spec's C*C and d_model are).
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram_proj: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if g.device.type == "cpu":
-        return gram_proj_plain(g, w, b, out_dtype)
-    _require_cuda(g, "gram_proj")
+    _require_cpu_or_cuda(g, "gram_proj")
+    return torch.ops.wadt_torch.gram_proj(g, w, b, out_dtype == torch.bfloat16)
+
+
+def _gram_proj_launch(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """K5 on CUDA tensors, the CUDA implementation of ``wadt_torch::gram_proj``."""
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
     if g.ndim != 3 or w.ndim != 2:
         raise ValueError(
             f"gram_proj: expected g [B, Np, K] and w [K, N], got {tuple(g.shape)} and "
@@ -1229,6 +1284,21 @@ def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             out.data_ptr(), int(out_dtype == torch.bfloat16), bsz * npatch, n, k, plan.tile_n,
             plan.splits)
     return out
+
+
+_gram_proj_op = torch.library.custom_op(
+    "wadt_torch::gram_proj", _gram_proj_launch, mutates_args=(), device_types="cuda")
+
+
+@_gram_proj_op.register_kernel("cpu")
+def _(g, w, b, bf16):
+    return gram_proj_plain(g, w, b, torch.bfloat16 if bf16 else torch.float32)
+
+
+@_gram_proj_op.register_fake
+def _(g, w, b, bf16):
+    return g.new_empty((*g.shape[:-1], w.shape[-1]),
+                       dtype=torch.bfloat16 if bf16 else torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

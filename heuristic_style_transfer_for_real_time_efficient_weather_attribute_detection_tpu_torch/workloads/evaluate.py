@@ -20,6 +20,7 @@ import numpy as np
 
 from ..config import IGNORE_INDEX
 from ..engine.executor import Engine
+from ..engine.wire import to_host_async
 from ..utils.metrics import family_confusion, task_metrics_and_roc, write_metrics_summary_csv
 
 _PROFILED_BATCHES = 3  # batches a profile=True trace covers
@@ -149,7 +150,7 @@ def evaluate(
             stack = np.stack([engine._validate_and_pack(ci) for ci, _ in pairs])
             lstack = np.stack([cl for _, cl in pairs]).astype(np.int32)
             res = engine.step_scan(stack, lstack)
-            handle = (len(pairs),) + engine._to_host_async(res, keys)
+            handle = (len(pairs),) + to_host_async(res, keys)
             inflight.append(("scan", (pairs, bidx + 1, handle)))
             bidx += len(pairs)
 

@@ -42,7 +42,7 @@ print("ok", len([n for n in sys.modules if n.startswith("{PORT}")]))
 
 
 def _scanned_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "weather_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -113,6 +113,40 @@ def test_evaluation_modules_are_scanned_and_clean(rel, eval_imports):
     assert path in _scanned_files()
     assert not _forbidden_import_lines(path)
     assert eval_imports == "[]"
+
+
+DEPLOY_MODULES = ["engine/checkpoint.py", "engine/wire.py", "engine/export.py",
+                  "engine/serving.py", "workloads/serve.py", "cli.py"]
+
+
+@pytest.fixture(scope="module")
+def deploy_imports():
+    """One fresh interpreter imports the deployment slice's modules and
+    lists what it loaded of JAX, scikit-learn and the JAX package."""
+    mods = ", ".join(_module(rel) for rel in DEPLOY_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", DEPLOY_MODULES)
+def test_deployment_modules_are_scanned_and_clean(rel, deploy_imports):
+    """The deployment slice's modules are among those the scan reads, and
+    import without JAX or scikit-learn."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert deploy_imports == "[]"
+
+
+def test_export_module_imports_no_model_code():
+    """The serving side of an artifact needs no model: importing the export
+    module and the operator registrations loads no ``models`` module."""
+    out = _run(f"import sys, {PORT}.engine.export, {PORT}.ops.cuda_kernels; "
+               f"print(sorted(n for n in sys.modules if n.startswith('{PORT}.models')))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_gram_proj_source_is_built_and_noted():

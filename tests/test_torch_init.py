@@ -101,8 +101,10 @@ def test_load_engine_without_checkpoint_runs(family):
 
 
 def test_load_engine_native_directory_names_the_roadmap(tmp_path):
+    """A directory is a native checkpoint now (ROADMAP.md A15, done): one
+    without the native files is refused by name."""
     os.makedirs(tmp_path / "ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
+    with pytest.raises(ValueError, match="not a native checkpoint directory"):
         port.load_engine("pmg", str(tmp_path / "ckpt"), TASKS, PMG, device="cpu")
 
 

@@ -313,6 +313,42 @@ def test_other_devices_raise(case):
         wrapper(*meta)
 
 
+def _stem_bf16_call():
+    x8, st, _, k = _bf16_stem_case()
+    return (lambda *a: ck.stem(*a[:5], out_dtype=torch.bfloat16, bias=a[5]),
+            (x8, st["w"], st["scale"], st["shift"], k, st["bias"]),
+            lambda *a: ck.stem_plain(*a[:5], out_dtype=torch.bfloat16, bias=a[5]))
+
+
+OPERATOR_CASES = {
+    "patch_gram": (_gram_call, "patch_gram"), "patch_gram_bf16": (_gram_bf16_call, "patch_gram"),
+    "stem": (_stem_call, "stem"), "stem_bf16": (_stem_bf16_call, "stem"),
+    "gram_proj": (_gram_proj_call, "gram_proj"),
+    "gram_proj_bf16_out": (_gram_proj_two_bands_call, "gram_proj"),
+}
+
+
+@pytest.mark.parametrize("name", list(OPERATOR_CASES))
+def test_wrapper_calls_its_registered_operator(name):
+    """K1, K2 and K5's wrappers go through ``torch.ops.wadt_torch``: a trace
+    of the wrapper holds the operator (what ``torch.export`` saves), its CPU
+    kernel is the plain version, and its fake kernel gives the output's
+    shape and type."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    case, op = OPERATOR_CASES[name]
+    wrapper, args, plain = case()
+    graph = make_fx(lambda *a: wrapper(*a))(*args).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    assert targets == [f"wadt_torch.{op}.default"]
+    got = wrapper(*args)
+    torch.testing.assert_close(got, plain(*args), atol=0, rtol=0)
+    with FakeTensorMode() as mode:
+        fake = wrapper(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(ck, "_lib", None)
     monkeypatch.setattr(ck, "_BUILD", str(tmp_path / "build"))
