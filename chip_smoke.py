@@ -148,9 +148,32 @@ Phases, each of which raises on failure:
     classes equal to ``Engine.run``'s on its decoded frame and its
     probabilities within 1e-5, ``/healthz`` and ``/stats`` checked;
     requests per second, p50 and p99 latency from ``/stats``, the
-    kernels' launches and the host's decode time of one request.
+    kernels' launches and the host's decode time of one request;
+20. the training path (``training_phase``): (a) the gradients through K1
+    (float32 and bf16), K5 and the bf16 ``matmul_f32`` against autograd
+    through their plain versions at z = [64,14,14,96] (K1 float32 within
+    1e-5 x max|dz|, the others 1e-2 x max), each backward's time beside
+    its forward's; (b) one PMG-shipped train step from the shipped weights
+    (batch 64, float32, TF32 off, dropout 0) on the card against the CPU:
+    loss within 1e-5 relative, every gradient leaf within 1e-4 x its max
+    (the attention key bias, exactly 0, at noise on both), params within
+    2 x lr, running statistics within 1e-5 x max; (c) twenty steps on one
+    fixed batch of 64 in float32 and in bf16 (dropout 0.1, the default
+    augmentation), launch counts reset just before each: loss finite and
+    falling, bf16 master params and optimizer state float32, the bf16
+    first-step loss within 2e-2 of float32's, K1 once a step and K5 once a
+    bf16 step; ms a step (CUDA events, median of steps 5-20), train img/s,
+    the host's enqueue of a step and of the optimizer's update alone, and
+    peak memory; (d) PM (5 steps, batch
+    32) and RTM (10 steps, batch 16) at their headline widths from seeded
+    init: loss finite and falling, ms a step; (e) ``fit`` (PMG-shipped
+    hparams, random init, 2 epochs, batch 32, bf16, augmentation) on 192
+    seeded PNGs: the artifacts written, ``best_model.pth`` through
+    ``load_engine`` bit for bit an Engine on the returned params, and
+    ``weather_torch.py pmg --mode train`` for 1 epoch in a subprocess
+    writing the same set.
 
-``--profile`` also prints, for phases 15-17, each step's device kernels,
+``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
 time with its work cut stage by stage.  Host times come from runs
 without ``--profile``: once a profiler session has run, the host's launch
@@ -158,7 +181,8 @@ cost stays higher for the rest of the process.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (K1's,
 K2's and K5's entries also hold ``eval_launches`` and ``deploy_launches``,
-their launches on each path of phases 18 and 19), the
+their launches on each path of phases 18 and 19, and K1's and K5's
+``train_launches``, their launches in phase 20's twenty steps), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when no CUDA card is available or the
@@ -2250,6 +2274,323 @@ def deployment_phase(card: str, device: str = "cuda") -> dict:
     return counts
 
 
+TRAIN_BATCH = 64
+TRAIN_STEPS = 20
+TRAIN_LR = 3e-4  # make_optimizer's default learning rate
+PM_TRAIN_BATCH = 32
+RTM_TRAIN_BATCH = 16
+PM_TRAIN_HPARAMS: dict = {}  # the headline specs: each family's defaults on the 12-task registry
+RTM_TRAIN_HPARAMS: dict = {}
+# float32 steps of (d) per family: PM 5; RTM 10, because from random init at
+# lr 3e-4 its first update overshoots (at headline width every weight of the
+# [12, 2048, 2048] attention moves by lr at once): losses 1.367, 5.005,
+# 4.137, 2.942, 1.710 over its first five steps on the H100
+FAMILY_TRAIN_STEPS = {"pm": 5, "rtm": 10}
+FIT_IMAGES = 192
+FIT_BATCH = 32
+FIT_ARTIFACTS = {"best_model", "best_model.pth", "hyperparameters.json", "training_history.json",
+                 "last_state", "train_progress.json"}
+
+
+def within_max(got, want, frac: float, what: str) -> float:
+    """max|got - want| / max|want|, which must be at most ``frac`` (and got finite)."""
+    import torch
+
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got).all() or err > frac * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {frac} x max|want| ({scale:.3e})")
+    return err / scale if scale else 0.0
+
+
+def grads_through(fn, inputs, weight):
+    """Gradients of sum(fn(*inputs) * weight) for fresh leaves copied from ``inputs``."""
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    (fn(*xs).float() * weight).sum().backward()
+    return [x.grad for x in xs]
+
+
+def train_batch(tasks, n: int, seed: int):
+    """Seeded 224-px frames, normalized on the host as fit's were in the
+    JAX package, and seeded labels (eval_labels)."""
+    import numpy as np
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        normalize_uint8_host,
+    )
+
+    rng = np.random.RandomState(seed)
+    return normalize_uint8_host(rng.randint(0, 256, (n, 224, 224, 3), np.uint8)), eval_labels(tasks, n, rng)
+
+
+def timed_steps(step_fn, state, x, y, n: int):
+    """n steps with a CUDA event after each -> (state, losses, device ms of
+    each step between consecutive events)."""
+    import numpy as np
+    import torch
+
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    evs[0].record()
+    for i in range(n):
+        state, loss = step_fn(state, x, y)
+        losses.append(loss)
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses over {n} steps are not finite and falling: {losses}")
+    return state, losses, [evs[i].elapsed_time(evs[i + 1]) for i in range(n)]
+
+
+def training_phase(card: str, device: str = "cuda", profile: bool = False) -> dict:
+    """Phase 20: the training path.  (a) the gradients through K1 (float32
+    and bf16) and K5 against autograd through their plain versions at
+    z = [64,14,14,96], with the backward's and the forward kernel's times;
+    (b) one PMG-shipped train step from the shipped weights, batch 64,
+    float32, dropout 0, on the card against the CPU; (c) twenty steps on one
+    fixed batch of 64 in float32 and bf16 with dropout 0.1 and the default
+    augmentation, launch counts reset just before each run: time a step,
+    img/s, host enqueue, K1/K5 launches a step, peak memory; (d) float32
+    steps of PM (5) and RTM (10) at their headline widths; (e) ``fit`` for 2
+    epochs (bf16, augmentation) on 192 seeded PNGs, its best checkpoint
+    reloaded by ``load_engine`` against an Engine on the returned params,
+    and the CLI's ``--mode train`` for 1 epoch in a subprocess.  ``profile``
+    adds (c)'s device kernels, kernel time and table of device time by
+    kernel a step.  Returns the launch counts of (c)'s two runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.config import (
+        default_tasks_path, load_tasks,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import (
+        pm, pmg, rtm,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck, nn,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+
+    # -- (a) gradients through the operators -------------------------------
+    rng = np.random.RandomState(20)
+    z = torch.from_numpy(rng.randn(TRAIN_BATCH, 14, 14, 96).astype(np.float32)).to(dev)
+    r1 = torch.from_numpy(rng.randn(TRAIN_BATCH, 9, 96 * 96).astype(np.float32)).to(dev)
+    errs = {"K1 float32 dz": within_max(
+        grads_through(lambda a: ck.patch_gram(a, 3), [z], r1)[0],
+        grads_through(lambda a: ck.patch_gram_plain(a, 3), [z], r1)[0], 1e-5, "K1 float32 dz")}
+    z16 = z.to(torch.bfloat16)
+    errs["K1 bf16 dz"] = within_max(
+        grads_through(lambda a: ck.patch_gram(a, 3), [z16], r1)[0],
+        grads_through(lambda a: ck.patch_gram_plain(a, 3), [z16], r1)[0], 1e-2, "K1 bf16 dz")
+    g16 = ck.patch_gram(z16, 3)
+    w16 = torch.from_numpy(rng.randn(96 * 96, 192).astype(np.float32) * 0.01).to(dev).to(torch.bfloat16)
+    b32 = torch.from_numpy(rng.randn(192).astype(np.float32)).to(dev)
+    r2 = torch.from_numpy(rng.randn(TRAIN_BATCH, 9, 192).astype(np.float32)).to(dev)
+    got = grads_through(lambda g, w, b: ck.gram_proj(g, w, b, torch.bfloat16), [g16, w16, b32], r2)
+    want = grads_through(lambda g, w, b: ck.gram_proj_plain(g, w, b, torch.bfloat16), [g16, w16, b32], r2)
+    for name, a, b in zip(("dG", "dW", "db"), got, want):
+        errs[f"K5 {name}"] = within_max(a, b, 1e-2, f"K5 {name}")
+    # the bf16 x bf16 -> float32 product of the transformer (ops.nn.matmul_f32:
+    # cuBLAS's out_dtype product, whose gradient is the port's own function)
+    a16 = torch.from_numpy(rng.randn(TRAIN_BATCH * 9, 192).astype(np.float32)).to(dev).to(torch.bfloat16)
+    r3 = torch.from_numpy(rng.randn(TRAIN_BATCH * 9, 192).astype(np.float32)).to(dev)
+    got = grads_through(nn.matmul_f32, [a16, w16[:192]], r3)
+    want = grads_through(lambda a, b: torch.matmul(a.float(), b.float()), [a16, w16[:192]], r3)
+    for name, a, b in zip(("dA", "dB"), got, want):
+        errs[f"matmul_f32 bf16 {name}"] = within_max(a, b, 1e-2, f"matmul_f32 bf16 {name}")
+    dg1, dg16, dy16 = r1, r1.to(torch.bfloat16), r2.to(torch.bfloat16)
+    times = {
+        "K1 float32": (device_ms(lambda: ck.patch_gram(z, 3)),
+                       device_ms(lambda: ck.patch_gram_backward(z, 3, dg1))),
+        "K1 bf16": (device_ms(lambda: ck.patch_gram(z16, 3)),
+                    device_ms(lambda: ck.patch_gram_backward(z16, 3, dg16))),
+        "K5": (device_ms(lambda: ck.gram_proj(g16, w16, b32, torch.bfloat16)),
+               device_ms(lambda: ck.gram_proj_backward(g16, w16, torch.float32, dy16))),
+    }
+    print(f"[20] (a) gradients through the operators at z = {list(z.shape)} vs autograd through the plain "
+          f"versions, max abs err / max|want|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + " (limits 1e-5 for K1 float32, 1e-2 for bf16, K5 and matmul_f32); forward kernel -> backward "
+          + ", ".join(f"{k} {f * 1e3:.1f} -> {b * 1e3:.1f} us" for k, (f, b) in times.items())
+          + f" | {card}")
+    del z, z16, g16, r1, r2, r3, a16, dg1, dg16, dy16
+
+    # -- (b) one PMG-shipped step, card against CPU ------------------------
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    spec = pmg.build_spec(meta["tasks"], meta["hparams"])
+    shipped = checkpoint.load_torch_checkpoint("pmg", os.path.join(FIXTURES, "pmg_shipped.pth"), spec)
+    x, y = train_batch(spec.tasks, TRAIN_BATCH, 20)
+    after = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        _, step_fn = ptrain.make_train_step("pmg", spec, dropout_rate=0.0, device=d)
+        params = ptrain.trainable_params(shipped, d)
+        state, loss = step_fn(ptrain.TrainState(params, ptrain.make_optimizer().init(params), 0), x, y)
+        grads = {p: t.grad.cpu() for p, t in zip(state.opt_state.paths, state.opt_state.leaves)}
+        after[side] = (float(loss), grads, ptrain.leaf_dict(ptrain.snapshot(state.params)))
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = after["card"], after["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if loss_rel > 1e-5:
+        raise AssertionError(f"PMG train step loss on the card {l_card} vs the CPU {l_cpu}")
+    g_top = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_rel = 0.0
+    for path, g in g_cpu.items():
+        if path.endswith("attn/bk"):
+            # exact gradient 0 (the softmax is shift-invariant): rounding
+            # noise on both sides, far below the model's gradients
+            if max(float(g.abs().max()), float(g_card[path].abs().max())) > 1e-5 * g_top:
+                raise AssertionError(f"{path}: gradient above noise")
+            continue
+        grad_rel = max(grad_rel, within_max(g_card[path], g, 1e-4, f"PMG step gradient {path}"))
+    p_err = s_rel = 0.0
+    for path, v in p_cpu.items():
+        if path.endswith(("/mean", "/var")):
+            s_rel = max(s_rel, within_max(p_card[path], v, 1e-5, f"running statistic {path}"))
+        else:
+            p_err = max(p_err, float((p_card[path] - v).abs().max()))
+    if p_err > 2 * TRAIN_LR:
+        raise AssertionError(f"PMG step params differ by {p_err:.3e} > 2 x lr")
+    print(f"[20] (b) one PMG-shipped train step (batch {TRAIN_BATCH}, float32, TF32 off, dropout 0), card vs "
+          f"CPU: loss {l_card:.6f} rel err {loss_rel:.2e} (limit 1e-5), gradients max err / leaf max "
+          f"{grad_rel:.2e} (limit 1e-4; attn/bk, exactly 0, at noise), params max abs err {p_err:.2e} "
+          f"(limit 2 x lr = {2 * TRAIN_LR:.0e}), running statistics {s_rel:.2e} x max (limit 1e-5)")
+    del after, g_card, g_cpu, p_card, p_cpu
+
+    # -- (c) twenty steps on one fixed batch, float32 and bf16 -------------
+    xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    counts, first = {}, {}
+    for label, cdt in (("float32", None), ("bf16", torch.bfloat16)):
+        _, step_fn = ptrain.make_train_step("pmg", spec, dropout_rate=0.1, augment=True,
+                                            compute_dtype=cdt, device=dev)
+        params = ptrain.trainable_params(shipped, dev)
+        state = ptrain.TrainState(params, ptrain.make_optimizer().init(params), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the earlier phases' live tensors, the params
+        ck.reset_launches()
+        state, losses, step_ms = timed_steps(step_fn, state, xb, yb, TRAIN_STEPS)
+        counts[label] = launches = dict(ck.LAUNCHES)
+        mem = torch.cuda.max_memory_allocated()
+        want = {"patch_gram": TRAIN_STEPS, "gram_proj": TRAIN_STEPS if cdt else 0}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{label} train steps launched {launches}, want {want}")
+        if cdt is not None:
+            st = state.opt_state.adamw.state
+            bad = [p for p, t in zip(state.opt_state.paths, state.opt_state.leaves)
+                   if t.dtype != torch.float32 or st[t]["exp_avg"].dtype != torch.float32
+                   or st[t]["exp_avg_sq"].dtype != torch.float32]
+            bad += [p for p, t in ptrain.leaf_dict(state.params).items() if t.dtype != torch.float32]
+            if bad:
+                raise AssertionError(f"bf16 run: master params or optimizer state not float32: {bad[:4]}")
+        first[label] = losses[0]
+        enq = enqueue_ms(lambda: step_fn(state, xb, yb), reps=5)
+        enq_opt = enqueue_ms(state.opt_state.update, reps=5)  # AdamW alone, on the last gradients
+        med = statistics.median(step_ms[4:])
+        print(f"[20] (c) PMG-shipped {label}, {TRAIN_STEPS} steps on one batch of {TRAIN_BATCH} (dropout 0.1, "
+              f"DEFAULT_AUGMENT): loss {losses[0]:.4f} -> {losses[-1]:.4f}, {med:.3f} ms a step (CUDA events, "
+              f"median of steps 5-{TRAIN_STEPS}) = {TRAIN_BATCH / med * 1e3:,.0f} train img/s, host enqueue "
+              f"{enq:.3f} ms (the optimizer's update alone {enq_opt:.3f} ms), launches a step K1 "
+              f"{launches['patch_gram'] / TRAIN_STEPS:g} K5 "
+              f"{launches['gram_proj'] / TRAIN_STEPS:g}, max memory allocated {mem / 2**20:,.0f} MiB "
+              f"({(mem - held) / 2**20:,.0f} MiB above what was held before the run) | {card}")
+        if profile:
+            profile_step(f"[20] PMG-shipped {label} train step at batch {TRAIN_BATCH}",
+                         lambda: step_fn(state, xb, yb), steps=5)
+        del state, params, step_fn
+    drift = abs(first["bf16"] - first["float32"]) / abs(first["float32"])
+    if drift > 2e-2:
+        raise AssertionError(f"bf16 first-step loss {first['bf16']} vs float32 {first['float32']}")
+    print(f"[20] (c) bf16 first-step loss vs float32: rel diff {drift:.2e} (limit 2e-2); bf16 master params "
+          f"and optimizer state float32")
+    del xb, yb, shipped
+
+    # -- (d) PM and RTM at their headline widths ---------------------------
+    tasks = load_tasks(default_tasks_path())
+    for fam, mod, batch, hp in (("pm", pm, PM_TRAIN_BATCH, PM_TRAIN_HPARAMS),
+                                ("rtm", rtm, RTM_TRAIN_BATCH, RTM_TRAIN_HPARAMS)):
+        fspec = mod.build_spec(tasks, hp)
+        init_fn, step_fn = ptrain.make_train_step(fam, fspec, device=dev)
+        xf, yf = (torch.from_numpy(a).to(dev) for a in train_batch(fspec.tasks, batch, 21))
+        n = FAMILY_TRAIN_STEPS[fam]
+        state, losses, step_ms = timed_steps(step_fn, init_fn(0), xf, yf, n)
+        med = statistics.median(step_ms[1:])
+        print(f"[20] (d) {fam.upper()} headline ({', '.join(f'{k} {v}' for k, v in hp.items()) or 'defaults'}), "
+              f"{n} float32 steps at batch {batch} from seeded init: losses {[round(v, 3) for v in losses]}, "
+              f"{med:.3f} ms a step (median of steps 2-{n}) = {batch / med * 1e3:,.0f} train img/s | {card}")
+        del state, init_fn, step_fn, xf, yf
+
+    # -- (e) fit end to end, and the CLI's train mode -----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_20_")
+    try:
+        frng = np.random.RandomState(22)
+        manifest = {}
+        for i in range(FIT_IMAGES):
+            path = os.path.join(tmp, "images", f"img{i:03d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(frng.randint(0, 256, (224, 224, 3), np.uint8)).save(path)
+            entry = {"image_path": path}
+            for t, classes in meta["tasks"].items():
+                if frng.rand() > 0.1:
+                    entry[t] = classes[frng.randint(len(classes))]
+            manifest[f"img{i:03d}.png"] = entry
+        data_json, tasks_json, hparams_json = (os.path.join(tmp, n) for n in
+                                               ("dataset.json", "tasks.json", "hparams.json"))
+        for path, obj in ((data_json, {"images": manifest}), (tasks_json, meta["tasks"]),
+                          (hparams_json, {"hparams": meta["hparams"]})):
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        run_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        out = port.fit("pmg", spec, data_json, tasks_json, run_dir,
+                       {"epochs": 2, "batch_size": FIT_BATCH, "bf16": True, "augment": True}, device=device)
+        fit_s = time.perf_counter() - t0
+        made = set(os.listdir(run_dir))
+        if not FIT_ARTIFACTS <= made:
+            raise AssertionError(f"fit wrote {sorted(made)}, missing {sorted(FIT_ARTIFACTS - made)}")
+        frames = frng.randint(0, 256, (FIT_BATCH * 2, 224, 224, 3), np.uint8)
+        loaded = port.load_engine("pmg", os.path.join(run_dir, "best_model.pth"), meta["tasks"],
+                                  meta["hparams"], batch_size=FIT_BATCH, device=device)
+        direct = executor.Engine("pmg", spec, out["params"], batch_size=FIT_BATCH, device=device)
+        if not np.array_equal(loaded.run(frames)["probs"], direct.run(frames)["probs"]):
+            raise AssertionError("best_model.pth through load_engine differs from an Engine on fit's params")
+        cli_dir = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "weather_torch.py", "pmg", "--mode", "train", "--data", data_json,
+                              "--build_classifier", tasks_json, "--config_path", hparams_json,
+                              "--batch_size", str(FIT_BATCH), "--epochs", "1", "--bf16", "--augment",
+                              "--save_dir", cli_dir, "--device", device],
+                             timeout=600, capture_output=True, text=True)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"weather_torch.py --mode train failed:\n{run.stderr[-3000:]}")
+        if set(os.listdir(cli_dir)) != made:
+            raise AssertionError(f"the CLI wrote {sorted(os.listdir(cli_dir))}, fit wrote {sorted(made)}")
+        hist = [round(h["train_loss"], 4) for h in out["history"]]
+        print(f"[20] (e) fit (PMG-shipped hparams, random init, {FIT_IMAGES} seeded PNGs, 2 epochs, batch "
+              f"{FIT_BATCH}, bf16, augmentation) in {fit_s:.1f} s: train loss {hist}, best val F1 "
+              f"{out['best_f1']:.4f}, artifacts {sorted(made)}; best_model.pth via load_engine equals an Engine "
+              f"on the returned params bit for bit; weather_torch.py --mode train (1 epoch) in {cli_s:.1f} s "
+              f"wrote the same set | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[20] training phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2542,6 +2883,7 @@ def main() -> int:
     eval_counts = evaluation_phase(card, eng)
     del eng
     deploy_counts = deployment_phase(card)
+    train_counts = training_phase(card, profile=args.profile)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:
@@ -2559,6 +2901,10 @@ def main() -> int:
                 path: c[name] for path, c in deploy_counts.items()
                 if c[name] and (k["name"] != "stem" or "bf16" not in path)
                 and (k["name"] != "stem_bf16" or "bf16" in path)}
+    # and on the training path of phase 20 (20 steps of each run)
+    for k in kernels:
+        if k["name"] in ("patch_gram", "gram_proj"):
+            k["train_launches"] = {path: c[k["name"]] for path, c in train_counts.items() if c[k["name"]]}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,16 +13,19 @@ workloads (``workloads.evaluate``, ``benchmark``, ``inference``: metrics
 computed in numpy), the data loader (``data``) and the float32 camera
 path (``workloads.stream.StreamPredictor``), the deployment path (the AOT
 serving artifact ``engine.export``, the micro-batcher ``engine.serving``,
-the HTTP server ``workloads.serve``) and the CLI (``cli.py``,
+the HTTP server ``workloads.serve``), training (``fit``, the train step
+``parallel.train.make_train_step``: train-mode forwards, AdamW, float32 or
+bf16 mixed precision, augmentation, resume) and the CLI (``cli.py``,
 ``weather_torch.py``), with six hand-written CUDA kernels
 (``ops/cuda_kernels.py``; K1, K2 and K5 also as ``torch.ops.wadt_torch``
-operators).
+operators, K1 and K5 with registered gradients).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 
     eng = load_engine("pmg", "best_model_PMG.pth", "tasks.json", batch_size=256)
     out = eng.run(images_u8)          # {"preds": [N,T], "probs": [N,T,Kmax]}
     eng16 = load_engine("pmg", "best_model_PMG.pth", dtype=torch.bfloat16)
+    out = fit("pmg", eng.spec, "dataset.json", "tasks.json", "run/", {"bf16": True})
 """
 
 __version__ = "0.1.0"
@@ -83,3 +86,18 @@ def load_engine(family, model_path=None, tasks=None, hparams=None, **engine_kwar
         spec = mod.build_spec(tasks, hparams)
         params = checkpoint.convert(family, state, spec)
     return Engine(family, spec, params, **engine_kwargs)
+
+
+def fit(family, spec, data_json, classes_json, save_dir, options=None, **kwargs):
+    """Train a model: ``workloads.train.fit`` (``init_params``, ``mesh`` and
+    ``device`` go in ``kwargs``)."""
+    from .workloads.train import fit as _fit
+
+    return _fit(family, spec, data_json, classes_json, save_dir, options, **kwargs)
+
+
+def make_train_step(family, spec, optimizer=None, **kwargs):
+    """One train step and its initializer: ``parallel.train.make_train_step``."""
+    from .parallel.train import make_train_step as _make
+
+    return _make(family, spec, optimizer, **kwargs)

@@ -4,11 +4,11 @@ flag for flag (plus ``--device``).
 
 Ported modes: classifier, benchmark, inference, folder, watch_folder,
 camera (float32), serve (a live engine, or ``--exported`` from an AOT
-artifact) and export.  Not yet ported, each raising ``NotImplementedError``
-that names its ROADMAP.md item: train (item 19), tsne, tsne_interactive and
-clustering (item 17), ``--visualize_gradcam`` and ``--integrated_gradients``
-(item 16), ``--style_transfer`` (item 18), and ``--data_parallel`` with more
-than one visible card (item 22).
+artifact), export and train.  Not yet ported, each raising
+``NotImplementedError`` that names its ROADMAP.md item: tsne,
+tsne_interactive and clustering (item 17), ``--visualize_gradcam`` and
+``--integrated_gradients`` (item 16), ``--style_transfer`` (item 18), and
+``--data_parallel`` with more than one visible card (item 22).
 
 Examples:
   python weather_torch.py pmg --mode classifier --data ds.json \\
@@ -16,6 +16,8 @@ Examples:
   python weather_torch.py pmg --mode export --build_classifier configs/tasks.json \\
       --model_path best_model_PMG.pth --export_dir artifact/
   python weather_torch.py pmg --mode serve --exported artifact/ --port 8000
+  python weather_torch.py pmg --mode train --data ds.json \\
+      --build_classifier configs/tasks.json --config_path hparams.json --bf16 --augment
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ MODES = [
 ]
 
 # modes and flags of the JAX CLI that the port has not reached yet -> ROADMAP.md item
-_UNPORTED_MODES = {"train": 19, "tsne": 17, "tsne_interactive": 17, "clustering": 17}
+_UNPORTED_MODES = {"tsne": 17, "tsne_interactive": 17, "clustering": 17}
 _UNPORTED_FLAGS = {"visualize_gradcam": 16, "integrated_gradients": 16, "style_transfer": 18}
 
 
@@ -190,9 +192,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dropout_rate", type=float, default=0.1,
                    help="transformer train-mode dropout (reference default)")
     p.add_argument("--augment", action="store_true",
-                   help="device-side train augmentation (random flip, "
-                        "<=8px translate, brightness/contrast jitter) fused "
-                        "into the jitted step; resume-exact")
+                   help="train augmentation on the device (random flip, "
+                        "<=8px translate, brightness/contrast jitter) inside "
+                        "the train step, drawn from (seed, step): resume-exact")
     p.add_argument("--resume", action="store_true",
                    help="continue from save_dir/last_state (full optimizer state)")
     p.add_argument("--save_every", type=int, default=1,
@@ -380,6 +382,29 @@ def main(argv=None) -> int:
                  save_test_images=args.save_test_images, profile=args.profile,
                  show_gt_labels=not args.no_gt_labels,
                  scan_chunk=args.scan_chunk)
+
+    elif args.mode == "train":
+        from .workloads.train import fit
+
+        if not args.data:
+            raise ValueError("train mode needs --data")
+        fit(
+            args.family, engine.spec, args.data, args.build_classifier,
+            args.save_dir,
+            options=dict(
+                epochs=args.epochs, batch_size=args.batch_size,
+                lr=args.train_lr, weight_decay=args.weight_decay,
+                accum_steps=args.accum_steps, balance_loss=args.balance_loss,
+                use_focal=args.use_focal, focal_gamma=args.focal_gamma,
+                val_split=args.val_split, freeze_encoder=args.freeze_encoder,
+                num_workers=args.num_workers, dropout_rate=args.dropout_rate,
+                resume=args.resume, save_every=args.save_every,
+                bf16=args.bf16, augment=args.augment,
+            ),
+            init_params=engine.params if args.model_path else None,
+            mesh=engine.mesh,
+            device=args.device,
+        )
 
     elif args.mode == "serve":
         from .workloads.serve import InferenceServer

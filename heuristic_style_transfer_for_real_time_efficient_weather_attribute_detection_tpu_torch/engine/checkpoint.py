@@ -14,11 +14,13 @@ raises); ``strict=False`` fills missing tensors from the port's own
 The reverse direction, ``export_state_dict`` / ``save_torch_checkpoint``,
 writes the reference's exact key schema (``.pth`` or ``.npz``).  The port's
 native format (``save_native`` / ``load_native``) is a directory holding
-``params.pt`` (``torch.save`` of the param tree as CPU tensors, read back
-with ``weights_only=True``) and ``native_meta.json`` (a format version and
-the tree's key -> shape and dtype manifest).  A native directory that the
-JAX package wrote with Orbax is refused with the way across: a ``.pth``
-from the JAX package's ``save_torch_checkpoint``.
+``params.pt`` (``torch.save`` of the param tree, or of a whole train state,
+as CPU tensors, read back with ``weights_only=True``) and
+``native_meta.json`` (a format version, what it holds, and the tree's key
+-> shape and dtype manifest).  A native directory that the JAX package
+wrote with Orbax is refused with the way across: a ``.pth`` from the JAX
+package's ``save_torch_checkpoint``.  ``train_state_from_jax`` carries the
+JAX package's train state (params and optax AdamW state) into the port's.
 """
 
 from __future__ import annotations
@@ -633,23 +635,43 @@ def _manifest(tree: Any) -> Dict[str, Dict[str, Any]]:
             for k, v in _leaves(tree)}
 
 
+def _is_train_state(obj) -> bool:
+    return hasattr(obj, "opt_state") and hasattr(obj, "step") and hasattr(obj, "params")
+
+
+def _train_state_tree(state) -> Dict[str, Any]:
+    """A ``parallel.train.TrainState`` as one tree: params, the optimizer's
+    state tree and the step."""
+    return {"params": state.params, "opt_state": state.opt_state.tree(),
+            "step": torch.tensor(int(state.step))}
+
+
 def save_native(params, path: str) -> None:
-    """Save a param tree in the port's native format (a directory; the
-    tensors are copied to the CPU)."""
+    """Save a param tree, or a whole ``parallel.train.TrainState`` (params,
+    optimizer state and step: what a resume needs), in the port's native
+    format (a directory; the tensors are copied to the CPU)."""
+    from ..parallel.train import snapshot
+
     os.makedirs(path, exist_ok=True)
-    tree = to_device(params, "cpu")
+    kind = "train_state" if _is_train_state(params) else "params"
+    tree = snapshot(_train_state_tree(params) if kind == "train_state" else params)
     torch.save(tree, os.path.join(path, _NATIVE_PARAMS))
-    meta = {"format_version": NATIVE_FORMAT_VERSION, "manifest": _manifest(tree)}
+    meta = {"format_version": NATIVE_FORMAT_VERSION, "kind": kind, "manifest": _manifest(tree)}
     with open(os.path.join(path, _NATIVE_META), "w") as f:
         json.dump(meta, f, indent=1)
 
 
 def load_native(path: str, like=None):
-    """Load a :func:`save_native` directory -> the param tree (CPU tensors).
+    """Load a :func:`save_native` directory -> the param tree (CPU tensors),
+    or for a saved ``TrainState`` its tree ({"params", "opt_state", "step"}).
 
-    The saved tree must match its own manifest, and ``like`` (a param tree),
-    where given, key for key and shape for shape; a difference raises
-    ``ValueError``.  A directory in the JAX package's Orbax format is refused."""
+    The saved tree must match its own manifest, and ``like`` (a param tree,
+    or a ``TrainState``), where given, key for key and shape for shape; a
+    difference raises ``ValueError``.  With a ``TrainState`` for ``like``
+    the result is a ``TrainState`` too: the params copied to like's device
+    for training, and a fresh state of like's optimizer loaded with the
+    saved moments, accumulation and step.  A directory in the JAX
+    package's Orbax format is refused."""
     params_path = os.path.join(path, _NATIVE_PARAMS)
     if not os.path.isfile(params_path):
         if any(os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
@@ -669,9 +691,26 @@ def load_native(path: str, like=None):
     tree = torch.load(params_path, map_location="cpu", weights_only=True)
     got = _manifest(tree)
     _check_same_tree(got, meta["manifest"], "its manifest", path, dtypes=True)
-    if like is not None:
-        _check_same_tree(got, _manifest(like), "`like`", path, dtypes=False)
-    return tree
+    if like is None:
+        return tree
+    state_like = _is_train_state(like)
+    if state_like != (meta.get("kind") == "train_state"):
+        raise ValueError(f"native checkpoint {path} holds {meta.get('kind', 'params')}, "
+                         f"`like` is {'a TrainState' if state_like else 'a param tree'}")
+    _check_same_tree(got, _manifest(_train_state_tree(like) if state_like else like), "`like`",
+                     path, dtypes=False)
+    return _as_train_state(tree, like) if state_like else tree
+
+
+def _as_train_state(tree: Dict[str, Any], like):
+    """A TrainState from its saved tree, on like's device, with like's optimizer."""
+    from ..parallel.train import TrainState, trainable_params
+
+    leaf = like.opt_state.leaves[0]
+    params = trainable_params(tree["params"], leaf.device)
+    opt_state = like.opt_state.optimizer.init(params)
+    opt_state.load_tree(tree["opt_state"])
+    return TrainState(params, opt_state, int(tree["step"]))
 
 
 def _check_same_tree(got: Dict, want: Dict, against: str, path: str, dtypes: bool) -> None:
@@ -731,6 +770,54 @@ def params_from_jax(tree: Any, spec) -> Dict[str, Any]:
         return torch.tensor(a) if a.dtype == np.int8 else _t(a)
 
     return conv(tree)
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, spec, optimizer=None, device="cpu"):
+    """The JAX package's ``TrainState`` (params, an ``optax.adamw`` state,
+    optionally inside ``optax.MultiSteps``, and the step) -> the port's
+    ``parallel.train.TrainState`` on ``device``, as :func:`params_from_jax`
+    carries params: AdamW's moments, its update count, and the
+    accumulation's running mean and mini-step, leaf for leaf.  The optax
+    objects are read by their fields; nothing of JAX is imported.
+    ``optimizer`` (default ``make_optimizer()``) must accumulate exactly
+    when the JAX state does (``accum_steps > 1``)."""
+    from ..parallel.train import TrainState, leaf_dict, make_optimizer, trainable_params
+
+    optimizer = optimizer or make_optimizer()
+    ost = state.opt_state
+    multi = hasattr(ost, "inner_opt_state") and hasattr(ost, "acc_grads")
+    if multi != (optimizer.accum_steps > 1):
+        raise ValueError(
+            f"the JAX optimizer state {'is' if multi else 'is not'} an optax.MultiSteps state, "
+            f"the port's optimizer has accum_steps={optimizer.accum_steps}"
+        )
+    adam = _adam_state(ost.inner_opt_state if multi else ost)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the JAX optimizer state")
+    params = trainable_params(params_from_jax(state.params, spec), device)
+    opt_state = optimizer.init(params)
+    tree = {
+        "count": torch.tensor(float(np.asarray(adam.count))),
+        "exp_avg": leaf_dict(params_from_jax(adam.mu, spec)),
+        "exp_avg_sq": leaf_dict(params_from_jax(adam.nu, spec)),
+        "mini_step": torch.tensor(int(np.asarray(ost.mini_step)) if multi else 0),
+    }
+    if multi:
+        tree["acc"] = leaf_dict(params_from_jax(ost.acc_grads, spec))
+    opt_state.load_tree(tree)
+    return TrainState(params, opt_state, int(np.asarray(state.step)))
 
 
 def to_device(params: Any, device) -> Any:

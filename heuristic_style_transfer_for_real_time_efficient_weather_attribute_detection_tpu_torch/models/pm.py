@@ -26,13 +26,13 @@ PM runs no hand-written kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import TaskSpec
 from ..ops.nn import init_conv, init_linear
-from .trunk import apply_trunk, init_trunk, trunk_plan
+from .trunk import apply_trunk, apply_trunk_train, init_trunk, trunk_plan
 
 DEFAULTS = dict(
     ndf=64,
@@ -188,3 +188,18 @@ def apply(
         num = torch.einsum("btn,bnc->btc", a, feats.reshape(b, h * w, c).float())
         aux["task_embeddings"] = num / (a.sum(dim=-1, keepdim=True) + 1e-6)
     return logits, aux
+
+
+def apply_train(
+    params: Dict[str, Any], x: torch.Tensor, spec: Spec,
+    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Train-mode forward: batch norm (``spec.norm == "batch"``) on batch
+    statistics with new running statistics; instance norm trains as it
+    evaluates, and the heads have no norm.  PM has no dropout sites, so
+    ``generator`` and ``dropout_rate`` are unused.  Returns (stacked logits,
+    {"trunk": trunk params with new running statistics})."""
+    del generator, dropout_rate
+    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm)
+    logits, _ = _head_outputs(params, feats, spec)
+    return logits, {"trunk": new_trunk}

@@ -38,7 +38,7 @@ from ..ops.nn import cast_tree, conv2d, init_conv, init_linear, init_se, leaky_r
 from ..ops.norms import apply_norm, batch_norm_affine
 from ..ops.preprocess import packed_affine, s2d_unpack
 from ..utils.reporting import count
-from .trunk import apply_trunk, init_trunk, trunk_plan
+from .trunk import apply_trunk, apply_trunk_train, init_trunk, trunk_plan
 
 DEFAULTS = dict(
     ndf=64,
@@ -173,9 +173,14 @@ def head_apply(
     feats: torch.Tensor,
     spec: Spec,
     capture: Sequence[str] = (),
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Everything after the trunk: SE -> chan_proj -> Gram -> transformer ->
-    task pooling -> heads."""
+    task pooling -> heads.  ``dropout_rate``/``generator`` turn on the
+    transformer's train-mode dropout (``apply_train``).  The Gram (K1) and
+    the bf16 ``token_proj`` (K5) are operators with registered gradients,
+    so autograd runs through both."""
     aux: Dict[str, torch.Tensor] = {}
     h = se_block(feats, params["se"]) if spec.use_channel_attention else feats
     z = conv2d(h, params["chan_proj"])
@@ -187,7 +192,8 @@ def head_apply(
     else:
         tokens = linear(grams, tp)
     if spec.has_transformer:
-        tokens = transformer_encoder(tokens, params["transformer"], spec.transformer_heads)
+        tokens = transformer_encoder(tokens, params["transformer"], spec.transformer_heads,
+                                     dropout_rate, generator)
     if "tokens" in capture:
         aux["tokens"] = tokens
     pooled = task_query_pool(tokens, params["queries"])
@@ -269,6 +275,23 @@ def fold_head_weights(
             for lp in params["transformer"]
         ]
     return out
+
+
+def apply_train(
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    spec: Spec,
+    generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.1,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Train-mode forward on normalized NHWC images: batch norm on batch
+    statistics, and the reference transformer's dropout (rate 0.1) drawn
+    from ``generator`` when one is given (None: no dropout).  Returns
+    (stacked logits, {"trunk": trunk params with new running statistics});
+    the train step takes only the statistics from it."""
+    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm)
+    logits, _ = head_apply(params, feats, spec, dropout_rate=dropout_rate, generator=generator)
+    return logits, {"trunk": new_trunk}
 
 
 def supports_packed_input(spec: Spec) -> bool:

@@ -2,7 +2,8 @@
 
 The RTM family truncates a torchvision ResNet-50 after N top-level children
 (conv1, bn1, relu, maxpool, layer1..layer4); inference batch norm uses the
-running statistics.  Param tree, as in the JAX package:
+running statistics, the train-mode forward (``apply_truncated_train``)
+batch statistics.  Param tree, as in the JAX package:
 
   {"conv1": {"w"}, "bn1": {...}, "layer1": [block, ...], ..., "layer4": [...]}
   block = {"conv1", "bn1", "conv2", "bn2", "conv3", "bn3",
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.nn import conv2d_nchw, init_batch_norm, init_conv
-from ..ops.norms import batch_norm_affine
+from ..ops.norms import batch_norm_affine, batch_norm_train, update_running_stats
 
 # (num_blocks, planes) per stage; expansion 4 (ResNet-50).
 STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -148,3 +149,59 @@ def apply_truncated_from_stem(
     truncated children."""
     n = max(1, min(truncate_after_layer, len(CHILDREN)))
     return _nhwc(_apply_children(params, _nchw(a), CHILDREN[1:n]))
+
+
+# ---------------------------------------------------------------------------
+# Train mode: batch statistics and running-statistic updates
+# ---------------------------------------------------------------------------
+
+
+def _bn_train(x: torch.Tensor, p: Dict[str, torch.Tensor]):
+    """Train-mode batch norm on NCHW -> (y, norm params with new running
+    statistics): ``norms.batch_norm_train`` on the NHWC view, whose output
+    keeps x's memory layout, so y comes back contiguous NCHW."""
+    y, mean, var = batch_norm_train(x.permute(0, 2, 3, 1), p)
+    return y.permute(0, 3, 1, 2), update_running_stats(p, mean, var, x.numel() // x.shape[1])
+
+
+def _apply_block_train(p: Dict[str, Any], x: torch.Tensor, stride: int):
+    """One bottleneck block in train mode, NCHW -> (y, block params with new
+    running statistics)."""
+    new_p = dict(p)
+    identity = x
+    h, new_p["bn1"] = _bn_train(_conv(x, p["conv1"]), p["bn1"])
+    h, new_p["bn2"] = _bn_train(_conv(torch.relu(h), p["conv2"], stride=stride, padding=1),
+                                p["bn2"])
+    h, new_p["bn3"] = _bn_train(_conv(torch.relu(h), p["conv3"]), p["bn3"])
+    if "downsample" in p:
+        identity, ds_bn = _bn_train(_conv(x, p["downsample"]["conv"], stride=stride),
+                                    p["downsample"]["bn"])
+        new_p["downsample"] = {"conv": p["downsample"]["conv"], "bn": ds_bn}
+    return torch.relu(h + identity), new_p
+
+
+def apply_truncated_train(
+    params: Dict[str, Any], x: torch.Tensor, truncate_after_layer: int
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Train-mode truncated forward, NHWC -> (features, params with new
+    batch-norm running statistics; the weights are the same tensors)."""
+    n = max(1, min(truncate_after_layer, len(CHILDREN)))
+    new_params = dict(params)
+    x = _nchw(x)
+    for child in CHILDREN[:n]:
+        if child == "conv1":
+            x = _conv(x, params["conv1"], stride=2, padding=3)
+        elif child == "bn1":
+            x, new_params["bn1"] = _bn_train(x, params["bn1"])
+        elif child == "relu":
+            x = torch.relu(x)
+        elif child == "maxpool":
+            x = F.max_pool2d(x, 3, 2, 1)
+        else:
+            si = int(child[-1]) - 1
+            blocks = []
+            for bi, bp in enumerate(params[child]):
+                x, nb = _apply_block_train(bp, x, 1 if (si == 0 or bi > 0) else 2)
+                blocks.append(nb)
+            new_params[child] = blocks
+    return _nhwc(x), new_params

@@ -254,6 +254,21 @@ def apply_stream(folded: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.T
     return _classify(folded, emb)
 
 
+def apply_train(
+    params: Dict[str, Any], x: torch.Tensor, spec: Spec,
+    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Train-mode forward: the backbone's batch norms on batch statistics,
+    with new running statistics.  RTM has no dropout sites, so
+    ``generator`` and ``dropout_rate`` are unused.  Returns (stacked logits,
+    {"backbone": backbone params with new running statistics})."""
+    del generator, dropout_rate
+    feats, new_backbone = resnet.apply_truncated_train(params["backbone"], x,
+                                                       spec.truncate_after_layer)
+    logits, _ = head_apply(params, feats, spec)
+    return logits, {"backbone": new_backbone}
+
+
 def apply(
     params: Dict[str, Any],
     x: torch.Tensor,

@@ -13,7 +13,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from ..ops.nn import conv2d, init_conv, init_norm, leaky_relu
-from ..ops.norms import apply_norm
+from ..ops.norms import apply_norm, batch_norm_train, update_running_stats
 
 
 class ConvBlock(NamedTuple):
@@ -64,3 +64,29 @@ def apply_trunk(
         x = apply_norm(x, p["norm"], norm)
         x = leaky_relu(x, 0.2)
     return x
+
+
+def apply_trunk_train(
+    params: List[Dict],
+    x: torch.Tensor,
+    plan: Tuple[ConvBlock, ...],
+    norm: str,
+    momentum: float = 0.1,
+) -> Tuple[torch.Tensor, List[Dict]]:
+    """Train-mode trunk -> (features, trunk params with new running
+    statistics).  Batch norm uses batch statistics and moves the running
+    ones (momentum 0.1, unbiased variance); instance and group norms keep no
+    statistics, so train equals eval for them."""
+    new_params: List[Dict] = []
+    for p, b in zip(params, plan):
+        x = conv2d(x, p["conv"], stride=b.stride, padding=b.pad)
+        if norm == "batch":
+            x, mean, var = batch_norm_train(x, p["norm"])
+            new_norm = update_running_stats(p["norm"], mean, var, x.numel() // x.shape[-1],
+                                            momentum)
+        else:
+            x = apply_norm(x, p["norm"], norm)
+            new_norm = p["norm"]
+        x = leaky_relu(x, 0.2)
+        new_params.append({"conv": p["conv"], "norm": new_norm})
+    return x, new_params

@@ -1,6 +1,6 @@
-"""Attention ops (eval mode): torch-compatible MHA, the pre-norm transformer
-encoder, the stacked per-task pooling and heads of PMG, and RTM's per-task
-query attention.
+"""Attention ops: torch-compatible MHA, the pre-norm transformer encoder
+(with train-mode dropout), the stacked per-task pooling and heads of PMG,
+and RTM's per-task query attention.
 
 Per-task computations are stacked over a task axis T into one batched
 product, as in the JAX package.
@@ -16,7 +16,7 @@ the upcasts are no-ops.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -24,13 +24,27 @@ from .nn import linear, matmul_f32
 from .norms import layer_norm
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (torch semantics: kept units scaled by 1/keep), the
+    mask drawn from ``generator`` on x's device.  Identity when there is no
+    generator or the rate is 0 (eval mode)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, 0.0).to(x.dtype)
+
+
 def multi_head_attention(
-    x: torch.Tensor, p: Dict[str, torch.Tensor], num_heads: int
+    x: torch.Tensor, p: Dict[str, torch.Tensor], num_heads: int, dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Self-attention matching ``torch.nn.MultiheadAttention`` (batch_first).
 
     x: [B, N, D]; wq/wk/wv/wo: [D, D] input-major, bq/bk/bv/bo: [D].
     q is scaled by 1/sqrt(head_dim) before the score product.
+    ``dropout_rate``/``generator``: dropout on the attention probabilities
+    (train mode).
     """
     b, n, d = x.shape
     h = num_heads
@@ -44,20 +58,28 @@ def multi_head_attention(
     v = split(matmul_f32(x, p["wv"]) + p["bv"].float())
     q = q * (1.0 / math.sqrt(hd))
     w = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k), dim=-1)
+    w = dropout(w, dropout_rate, generator)
     o = torch.einsum("bhqk,bhkd->bhqd", w, v)
     o = o.transpose(1, 2).reshape(b, n, d)
     return (torch.matmul(o, p["wo"].float()) + p["bo"].float()).to(x.dtype)
 
 
 def transformer_encoder(
-    x: torch.Tensor, layers: List[Dict], num_heads: int
+    x: torch.Tensor, layers: List[Dict], num_heads: int, dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Pre-norm transformer encoder stack, ReLU FFN, no final norm
-    (``TransformerEncoderLayer(norm_first=True)`` in eval mode)."""
+    (``TransformerEncoderLayer(norm_first=True)``).  With a generator and a
+    rate above 0, train mode's four dropout sites per layer (attention
+    probabilities, attention output, FFN inner, FFN output), drawn in that
+    order; without, eval mode."""
     for p in layers:
-        x = x + multi_head_attention(layer_norm(x, p["norm1"]), p["attn"], num_heads)
-        h = torch.relu(linear(layer_norm(x, p["norm2"]), p["ffn1"]))
-        x = x + linear(h, p["ffn2"])
+        a = multi_head_attention(layer_norm(x, p["norm1"]), p["attn"], num_heads, dropout_rate,
+                                 generator)
+        x = x + dropout(a, dropout_rate, generator)
+        h = dropout(torch.relu(linear(layer_norm(x, p["norm2"]), p["ffn1"])), dropout_rate,
+                    generator)
+        x = x + dropout(linear(h, p["ffn2"]), dropout_rate, generator)
     return x
 
 

@@ -34,7 +34,11 @@ wrappers call them: the dispatcher picks the implementation by the tensors'
 device (CUDA: the kernel; CPU: the plain version), and a fake
 implementation gives the output's shape and type to ``torch.export``, so an
 exported program carries the operators by name and launches the kernels
-when it runs.  Importing this module registers them.
+when it runs.  Importing this module registers them.  K1 and K5 also
+carry registered gradients (``patch_gram_backward``, ``gram_proj_backward``:
+plain products, as the JAX package differentiates them by XLA autodiff
+outside its kernels), so the training path runs their forwards through
+the kernels and autograd through them.
 """
 
 from __future__ import annotations
@@ -357,6 +361,44 @@ _patch_gram_op.register_kernel("cpu", patch_gram_plain)
 def _(x: torch.Tensor, div: int) -> torch.Tensor:
     b, _, _, c = x.shape
     return x.new_empty((b, div * div, c * c))
+
+
+def patch_gram_backward(x: torch.Tensor, div: int, dg: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``patch_gram`` at x for the output gradient dg
+    [B, div*div, C*C]: per patch ``dP = P (dG + dG^T) / area``, then the
+    adjoint of ``split_patches`` (patches back into the padded map, and the
+    replicate pad's rows and columns added into the last real row and
+    column).  Plain products: the sums are float32 (float64 for float64 x),
+    rounded once to x's dtype.  On the card the forward stays the kernel;
+    the JAX package computes this backward by XLA autodiff outside any
+    Pallas kernel, so it has no kernel either."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    patches, area = split_patches(x.to(acc), div)
+    b, np_, _, c = patches.shape
+    d = dg.to(acc).reshape(b, np_, c, c)
+    dp = torch.matmul(patches, d + d.transpose(-1, -2)) * (1.0 / float(area))
+    _, h, w, _ = x.shape
+    hp, wp = h + (-h) % div, w + (-w) % div
+    dx = (dp.reshape(b, div, div, hp // div, wp // div, c).permute(0, 1, 3, 2, 4, 5)
+          .reshape(b, hp, wp, c))
+    if hp > h:
+        dx = torch.cat([dx[:, : h - 1], dx[:, h - 1:].sum(1, keepdim=True)], 1)
+    if wp > w:
+        dx = torch.cat([dx[:, :, : w - 1], dx[:, :, w - 1:].sum(2, keepdim=True)], 2)
+    return dx.to(x.dtype)
+
+
+def _patch_gram_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0])
+    ctx.div = inputs[1]
+
+
+def _patch_gram_grad(ctx, dg):
+    (x,) = ctx.saved_tensors
+    return patch_gram_backward(x, ctx.div, dg), None
+
+
+_patch_gram_op.register_autograd(_patch_gram_grad, setup_context=_patch_gram_setup)
 
 
 # ---------------------------------------------------------------------------
@@ -1299,6 +1341,33 @@ def _(g, w, b, bf16):
 def _(g, w, b, bf16):
     return g.new_empty((*g.shape[:-1], w.shape[-1]),
                        dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
+def gram_proj_backward(g: torch.Tensor, w: torch.Tensor, b_dtype: torch.dtype,
+                       dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of ``gram_proj`` for the output gradient dy [B, Np, N]:
+    ``dG = dY W^T``, ``dW = sum G^T dY`` and ``db = sum dY`` over the B*Np
+    rows.  Plain products with float32 sums, each rounded once to its
+    input's dtype (g, w, and b's ``b_dtype``); the forward stays the kernel
+    on the card."""
+    dy32 = dy.float().reshape(-1, dy.shape[-1])
+    dg = torch.matmul(dy32, w.float().t()).to(g.dtype).reshape(g.shape)
+    dw = torch.matmul(g.float().reshape(-1, g.shape[-1]).t(), dy32).to(w.dtype)
+    return dg, dw, dy32.sum(0).to(b_dtype)
+
+
+def _gram_proj_setup(ctx, inputs, output) -> None:
+    g, w, b, _ = inputs
+    ctx.save_for_backward(g, w)
+    ctx.b_dtype = b.dtype
+
+
+def _gram_proj_grad(ctx, dy):
+    g, w = ctx.saved_tensors
+    return (*gram_proj_backward(g, w, ctx.b_dtype, dy), None)
+
+
+_gram_proj_op.register_autograd(_gram_proj_grad, setup_context=_gram_proj_setup)
 
 
 @functools.lru_cache(maxsize=None)

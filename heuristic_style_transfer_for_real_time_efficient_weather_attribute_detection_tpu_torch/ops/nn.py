@@ -73,13 +73,36 @@ def init_norm(c: int, kind: str) -> Dict[str, torch.Tensor]:
     return {"scale": torch.ones(c), "bias": torch.zeros(c)}
 
 
+class _MatmulBf16F32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=torch.float32)`` on bf16 operands, which
+    has no derivative formula of its own: the backward products sum in
+    float32 (float32 operands) and round once to the operands' type."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        da = torch.mm(dy, b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a.float().t(), dy).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` [..., K] x [K, N] summed in float32 with a float32 result,
     whatever the operands' float types (JAX's ``preferred_element_type``).
     bf16 operands on a CUDA card go to cuBLAS as they are, with a float32
-    output; elsewhere they are upcast, which is exact."""
+    output (under autograd through :class:`_MatmulBf16F32`); elsewhere they
+    are upcast, which is exact."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        a2 = a.reshape(-1, a.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            y = _MatmulBf16F32.apply(a2, b)
+        else:
+            y = torch.mm(a2, b, out_dtype=torch.float32)
         return y.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 

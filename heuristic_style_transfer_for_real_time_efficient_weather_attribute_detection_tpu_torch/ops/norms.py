@@ -1,6 +1,8 @@
 """Normalization layers (functional, NHWC), eps 1e-5 as in ``torch.nn``.
 
 - ``batch_norm_infer``: running statistics (BatchNorm2d in eval mode).
+- ``batch_norm_train``: batch statistics over N, H, W (train mode), with
+  ``update_running_stats`` for the running statistics.
 - ``instance_norm``: per-sample, per-channel statistics over H, W (eval mode
   too: InstanceNorm2d keeps no running statistics by default).
 - ``group_norm``: GroupNorm(32).
@@ -26,6 +28,32 @@ def batch_norm_infer(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tenso
     """x: [..., C]; p: {scale, bias, mean, var} each [C]."""
     scale, shift = batch_norm_affine(p)
     return x * scale + shift
+
+
+def batch_norm_train(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], reduce_axes=(0, 1, 2)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batch statistics over ``reduce_axes`` (N, H, W of NHWC) -> (y,
+    batch mean, batch variance).  The caller updates the running
+    statistics (:func:`update_running_stats`)."""
+    mean = x.mean(dim=reduce_axes)
+    var = x.var(dim=reduce_axes, correction=0)
+    inv = p["scale"] * torch.reciprocal(torch.sqrt(var + EPS))
+    return x * inv + (p["bias"] - mean * inv), mean, var
+
+
+def update_running_stats(
+    p: Dict[str, torch.Tensor], mean: torch.Tensor, var: torch.Tensor, n: int,
+    momentum: float = 0.1,
+) -> Dict[str, torch.Tensor]:
+    """The norm's params with running statistics moved toward a batch's, as
+    torch's BatchNorm does in train mode: momentum 0.1 and the unbiased
+    variance of the ``n`` values each channel reduced.  Scale and bias are
+    the same tensors; the new statistics carry no gradient."""
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        return {**p, "mean": (1 - momentum) * p["mean"] + momentum * mean,
+                "var": (1 - momentum) * p["var"] + momentum * unbiased}
 
 
 def instance_norm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The port's CLI (``…_torch/cli.py``, ``weather_torch.py``) on the CPU: the
-JAX CLI's flags plus ``--device``, the classifier and export modes on a
-tiny synthetic set writing the JAX CLI's artifacts, and the modes and
+JAX CLI's flags plus ``--device``, the classifier, export and train modes
+on a tiny synthetic set writing the JAX CLI's artifacts, and the modes and
 flags not ported yet refusing by their ROADMAP.md item."""
 
 import json
@@ -145,7 +145,6 @@ def test_cli_missing_build_classifier_is_usage_error(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "train"], 19),
     (["--mode", "tsne"], 17),
     (["--mode", "tsne_interactive"], 17),
     (["--mode", "clustering"], 17),
@@ -157,6 +156,27 @@ def test_unported_modes_name_their_roadmap_item(env, argv, item):
     base, _, root = _base(env)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         cli.main(base + argv + ["--save_dir", os.path.join(root, "unported"), "--device", "cpu"])
+
+
+def test_cli_train_mode_writes_the_artifacts(env):
+    """``--mode train`` on the CPU at the tiny spec for 1 epoch writes the
+    JAX CLI's training artifacts, and the best checkpoint loads back."""
+    base, synth, root = _base(env)
+    save = os.path.join(root, "train")
+    assert cli.main(base + ["--mode", "train", "--data", os.path.join(synth, "dataset.json"),
+                            "--epochs", "1", "--num_workers", "2", "--save_dir", save,
+                            "--device", "cpu"]) == 0
+    assert {"best_model", "best_model.pth", "hyperparameters.json", "training_history.json",
+            "last_state", "train_progress.json"} <= set(os.listdir(save))
+    side = json.load(open(os.path.join(save, "hyperparameters.json")))
+    assert side["hparams"]["ndf"] == 8 and side["train_options"]["epochs"] == 1
+    assert len(json.load(open(os.path.join(save, "training_history.json")))) == 1
+    args = cli.build_argparser().parse_args(
+        base + ["--model_path", os.path.join(save, "best_model.pth"), "--device", "cpu"])
+    args.prob_threshold = 0.5
+    eng = cli.build_engine(args)
+    out = eng.run(np.zeros((2, 64, 64, 3), np.uint8))
+    assert np.isfinite(out["probs"]).all()
 
 
 def test_data_parallel_over_cards_names_its_roadmap_item(env, monkeypatch):

@@ -13,7 +13,7 @@ from tests.conftest import REPO
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"
-FORBIDDEN = re.compile(rf"\bjax\b|\bwadt\b|\bsklearn\b|{JAX_PKG}(?!_torch)")
+FORBIDDEN = re.compile(rf"\bjax\b|\boptax\b|\bwadt\b|\bsklearn\b|{JAX_PKG}(?!_torch)")
 
 
 def _run(code, cwd=REPO, env_extra=None):
@@ -138,6 +138,31 @@ def test_deployment_modules_are_scanned_and_clean(rel, deploy_imports):
     assert path in _scanned_files()
     assert not _forbidden_import_lines(path)
     assert deploy_imports == "[]"
+
+
+TRAIN_MODULES = ["parallel/__init__.py", "parallel/train.py", "workloads/train.py", "ops/augment.py",
+                 "ops/norms.py", "models/resnet.py"]
+
+
+@pytest.fixture(scope="module")
+def train_imports():
+    """One fresh interpreter imports the training slice's modules and lists
+    what it loaded of JAX, optax, scikit-learn and the JAX package."""
+    mods = ", ".join(_module(rel) for rel in TRAIN_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'optax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", TRAIN_MODULES)
+def test_training_modules_are_scanned_and_clean(rel, train_imports):
+    """The training slice's modules, the ``parallel`` package among them,
+    are among those the scan reads, and import without JAX or optax."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert train_imports == "[]"
 
 
 def test_export_module_imports_no_model_code():

@@ -404,6 +404,91 @@ def _to_device(x, device):
     return x
 
 
+# ---------------------------------------------------------------------------
+# The registered gradients of K1 and K5 (the training path's autograd)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,div", [((2, 6, 6, 3), 3), ((2, 7, 5, 4), 2), ((1, 5, 7, 3), 3)],
+                         ids=["even", "replicate_pad", "pad_both"])
+def test_patch_gram_operator_passes_gradcheck(shape, div):
+    """float64 on the CPU: the operator's registered backward (the per-patch
+    adjoint and the replicate pad folded back) against finite differences."""
+    x = torch.from_numpy(np.random.RandomState(sum(shape)).randn(*shape)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a: torch.ops.wadt_torch.patch_gram(a, div), (x,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_patch_gram_backward_is_autograd_of_plain(dtype):
+    """The registered backward against autograd through the plain version:
+    float32 within 1e-6 x max|dz|; bf16 sums in float32 either way and
+    rounds once, to within one bf16 ulp."""
+    rng = np.random.RandomState(4)
+    z = torch.from_numpy(rng.randn(2, 14, 14, 16).astype(np.float32)).to(dtype)
+    r = torch.from_numpy(rng.randn(2, 9, 256).astype(np.float32))
+    got, want = (z.detach().clone().requires_grad_() for _ in range(2))
+    (ck.patch_gram(got, 3).float() * r).sum().backward()
+    (ck.patch_gram_plain(want, 3).float() * r).sum().backward()
+    assert got.grad.dtype == dtype
+    scale = float(want.grad.float().abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.grad.float(), want.grad.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("out_bf16", [False, True], ids=["float32_out", "bf16_out"])
+def test_gram_proj_backward_is_autograd_of_plain(out_bf16):
+    """K5's plain version sums in float32, so its registered gradients are
+    held to autograd through ``gram_proj_plain`` on float32 inputs (dG, dW,
+    db within 1e-6 x max) instead of to a float64 gradcheck; and on the bf16
+    operands of the training path, in their dtypes."""
+    rng = np.random.RandomState(5)
+    out = torch.bfloat16 if out_bf16 else torch.float32
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.randn(2, 9, 64).astype(np.float32)).to(dt)
+        w = torch.from_numpy(rng.randn(64, 24).astype(np.float32) * 0.1).to(dt)
+        b = torch.from_numpy(rng.randn(24).astype(np.float32))
+        r = torch.from_numpy(rng.randn(2, 9, 24).astype(np.float32))
+        got = [t.detach().clone().requires_grad_() for t in (g, w, b)]
+        want = [t.detach().clone().requires_grad_() for t in (g, w, b)]
+        (ck.gram_proj(*got, out).float() * r).sum().backward()
+        (ck.gram_proj_plain(*want, out).float() * r).sum().backward()
+        for a, c in zip(got, want):
+            assert a.grad.dtype == c.grad.dtype == a.dtype
+            torch.testing.assert_close(a.grad.float(), c.grad.float(),
+                                       atol=1e-6 * float(c.grad.float().abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_operator_gradients_match_plain_on_card(cuda_device):
+    """On the card the forward is the kernel (one launch each) and the
+    registered gradients equal autograd through the plain versions: K1
+    float32 within 1e-5 x max, K1 bf16 and K5 within 1e-2 x max."""
+    rng = np.random.RandomState(6)
+    z = torch.from_numpy(rng.randn(4, 14, 14, 96).astype(np.float32)).to(cuda_device)
+    r = torch.from_numpy(rng.randn(4, 9, 96 * 96).astype(np.float32)).to(cuda_device)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        got, want = (z.to(dtype).requires_grad_() for _ in range(2))
+        ck.reset_launches()
+        (ck.patch_gram(got, 3).float() * r).sum().backward()
+        assert ck.LAUNCHES["patch_gram"] == 1
+        (ck.patch_gram_plain(want, 3).float() * r).sum().backward()
+        torch.testing.assert_close(got.grad.float(), want.grad.float(),
+                                   atol=tol * float(want.grad.float().abs().max()), rtol=0)
+    g = ck.patch_gram(z.to(torch.bfloat16), 3)
+    w = torch.from_numpy(rng.randn(96 * 96, 192).astype(np.float32) * 0.01).to(cuda_device).bfloat16()
+    b = torch.from_numpy(rng.randn(192).astype(np.float32)).to(cuda_device)
+    r2 = torch.from_numpy(rng.randn(4, 9, 192).astype(np.float32)).to(cuda_device)
+    got = [t.detach().clone().requires_grad_() for t in (g, w, b)]
+    want = [t.detach().clone().requires_grad_() for t in (g, w, b)]
+    ck.reset_launches()
+    (ck.gram_proj(*got, torch.bfloat16).float() * r2).sum().backward()
+    assert ck.LAUNCHES["gram_proj"] == 1
+    (ck.gram_proj_plain(*want, torch.bfloat16).float() * r2).sum().backward()
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.grad.float(), c.grad.float(),
+                                   atol=1e-2 * float(c.grad.float().abs().max()), rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [_gram_call, _stem_call, _gram_proj_call, _gram_bf16_call,
                                   _head_call, _gram_proj_two_bands_call],

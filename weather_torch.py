@@ -1,5 +1,7 @@
 #!/usr/bin/env python
-"""Repo-root launcher for the PyTorch port's CLI: ``python weather_torch.py pmg --mode ...``."""
+"""Repo-root launcher for the PyTorch port's CLI: ``python weather_torch.py pmg --mode ...``
+(classifier, benchmark, inference, folder, watch_folder, camera, serve,
+export, train; ``--device cpu`` off the card)."""
 
 import sys
 
