@@ -173,6 +173,26 @@ Phases, each of which raises on failure:
     ``weather_torch.py pmg --mode train`` for 1 epoch in a subprocess
     writing the same set.
 
+21. explainability and style transfer (``explain_phase``): (a) the shipped
+    PMG's Grad-CAM at batch 32 (float32, TF32 off) through K1 and its
+    registered backward, launch counts reset just before: K1 launched, CAM
+    within 1e-3 and logits within 1e-4 x max|logit| of the port's CPU path
+    on 4 frames, ms a call and img/s; the golden CAMs of
+    ``pmg_tiny_instance_se`` (instance norm at the target: the CAM is 0,
+    its channel weights must vanish to 1e-5 x max|gradient|) and
+    ``pm_batchnorm_sigmoid`` (5e-3) on the card; (b) integrated gradients
+    (50 Gauss-Legendre steps, batch 4) through K1, within 1e-3 x max|attr|
+    of the CPU path, ms a call; (c) the PM and RTM headline Grad-CAM
+    (phase 16's and phase 12's seeded weights) at batch 8, held to the CPU
+    on 2 frames (PM's instance norm: empty on both), ms a call; (d) the
+    shipped style grams at 2e-3 and 20 iterations of the style loop (4
+    seeded images, gray init) against the CPU: losses within 1e-3
+    relative, iterations equal, ms an iteration; (e) ``weather_torch.py pmg
+    --mode classifier --visualize_gradcam --save_gradcam_images
+    --integrated_gradients --style_transfer`` on 16 seeded PNGs in a
+    subprocess, writing the JAX CLI's gradcam/, integrated_gradients/ and
+    StyleTransfer/ names, with its wall time.
+
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
 time with its work cut stage by stage.  Host times come from runs
@@ -182,7 +202,8 @@ cost stays higher for the rest of the process.
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (K1's,
 K2's and K5's entries also hold ``eval_launches`` and ``deploy_launches``,
 their launches on each path of phases 18 and 19, and K1's and K5's
-``train_launches``, their launches in phase 20's twenty steps), the
+``train_launches``, their launches in phase 20's twenty steps, and K1's
+``explain_launches``, its launches in phase 21's Grad-CAM and IG calls), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when no CUDA card is available or the
@@ -1605,10 +1626,11 @@ class PyplotRecorder:
     """Stand-in for ``matplotlib.pyplot`` on a machine without matplotlib:
     every call is recorded and returns the recorder (``subplots`` a pair of
     it); nothing is drawn.  ``saved`` lists the paths of the figures asked
-    for."""
+    for, ``cmaps`` the colormaps; a colormap maps gray to gray RGBA."""
 
     def __init__(self):
         self.saved = []
+        self.cmaps = []
 
     def __call__(self, *args, **kwargs):
         return self
@@ -1617,9 +1639,20 @@ class PyplotRecorder:
         def call(*args, **kwargs):
             if name == "savefig":
                 self.saved.append(args[0])
+            if name == "get_cmap":
+                self.cmaps.append(args[0])
+                return gray_colormap
             return (self, self) if name == "subplots" else self
 
         return call
+
+
+def gray_colormap(gray):
+    """RGBA [..., 4] with gray in the three colours and alpha 1."""
+    import numpy as np
+
+    g = np.asarray(gray, np.float64)
+    return np.stack([g, g, g, np.ones_like(g)], axis=-1)
 
 
 def pyplot_stand_in():
@@ -2591,6 +2624,322 @@ def training_phase(card: str, device: str = "cuda", profile: bool = False) -> di
     return counts
 
 
+EXPLAIN_BATCH = 32
+EXPLAIN_CHECK = 4  # frames held to the port's CPU path
+IG_BATCH = 4
+IG_STEPS = 50
+HEADLINE_CAM_BATCH = 8
+HEADLINE_CAM_CHECK = 2
+EXPLAIN_RTM_HPARAMS: dict = {}  # RTM's headline: ResNet-50 through layer4 (phase 12's width)
+STYLE_IMAGES = 4
+STYLE_ITERS = 20
+STYLE_LOG_EVERY = 10
+CLI_IMAGES = 16
+CAM_TOL = 1e-3  # absolute (CAMs lie in [0, 1])
+EXPLAIN_LOGIT_TOL = 1e-4  # times max|logit|
+IG_TOL = 1e-3  # times max|attr|
+STYLE_LOSS_RTOL = 1e-3
+GOLDEN_CAM_TOL = 5e-3  # the JAX package's bound (tests/test_parity.py:146)
+STYLE_GRAMS_TOL = 2e-3  # the JAX package's bound (tests/test_parity.py:96)
+EMPTY_CAM_WEIGHT = 1e-5  # an instance norm's channel weights, times max|gradient|
+# the CLI in a subprocess, with phase 18's stand-in for a missing matplotlib
+CLI_EXPLAIN = """
+import runpy, sys
+import chip_smoke
+chip_smoke.pyplot_stand_in()
+sys.argv = ["weather_torch.py"] + sys.argv[1:]
+runpy.run_path("weather_torch.py", run_name="__main__")
+"""
+
+
+def cam_parts(family, spec, params, x, ti: int, cls, target: str = "stem_conv"):
+    """Grad-CAM before the min-max, through the port's split at its target:
+    (raw CAM [B, h, w], channel weights [B, C], max|gradient|)."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.explain import (
+        gradcam_split,
+    )
+
+    target_feats, head_from = gradcam_split(family, spec, target)
+    with torch.no_grad():
+        f = target_feats(params, x)
+    f.requires_grad_(True)
+    with torch.enable_grad():
+        lg = head_from(params, f)
+        (g,) = torch.autograd.grad(lg[:, ti, :].gather(1, cls[:, None]).sum(), f)
+    w = g.mean(dim=(1, 2))
+    return torch.relu((f.detach() * w[:, None, None, :]).sum(-1)), w, float(g.abs().max())
+
+
+def min_max(cam):
+    import torch
+
+    lo, hi = cam.amin(dim=(1, 2), keepdim=True), cam.amax(dim=(1, 2), keepdim=True)
+    return (cam - lo) / torch.clamp(hi - lo, min=1e-7)
+
+
+def empty_cam(w, gmax: float, what: str) -> float:
+    """The CAM at an instance norm's input is 0: its input gradient has zero
+    spatial mean in every channel, so the channel weights vanish up to
+    float32 rounding.  Returns max|w| / max|gradient|."""
+    rel = float(w.abs().max()) / gmax if gmax else 0.0
+    if rel > EMPTY_CAM_WEIGHT:
+        raise AssertionError(f"{what}: channel weights {rel:.3e} x max|gradient|, above "
+                             f"{EMPTY_CAM_WEIGHT}: the CAM is not empty")
+    return rel
+
+
+def explain_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 21: explainability and style transfer.  (a) PMG-shipped
+    Grad-CAM at batch 32 through K1 and its registered backward against
+    the port's CPU path, and two golden CAMs on the card; (b) integrated
+    gradients (50 Gauss-Legendre steps, batch 4); (c) PM and RTM headline
+    Grad-CAM at batch 8; (d) the shipped style grams and 20 iterations of
+    the style loop on 4 images against the CPU; (e) the CLI's classifier
+    mode with every explain and style flag on 16 seeded PNGs.  Returns K1's
+    launches on the Grad-CAM and IG paths, each read just after the path
+    with the counts reset just before it.  (``device="cpu"`` rehearses the
+    phase on the plain versions.)"""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import (
+        pm, rtm,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.gram import (
+        style_patch_grams,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        normalize_uint8,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import (
+        explain, style_transfer,
+    )
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def wall_ms(fn, reps: int = 3) -> float:
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def launched(what: str) -> dict:
+        sync()
+        got = dict(ck.LAUNCHES)
+        if on_card and got["patch_gram"] < 1:
+            raise AssertionError(f"{what} never launched the patch_gram kernel")
+        return got
+
+    t_phase = time.perf_counter()
+    if isinstance(sys.modules.get("matplotlib.pyplot"), PyplotRecorder):
+        print("[21] matplotlib is not installed here: overlays take phase 18's stand-in, a gray "
+              "colormap; the CAMs and attributions are checked before they are drawn")
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    eng = port.load_engine("pmg", os.path.join(FIXTURES, "pmg_shipped.pth"), meta["tasks"],
+                           meta["hparams"], batch_size=EXPLAIN_BATCH, device=device)
+    spec = eng.spec
+    ex = explain.Explainer("pmg", spec, eng.params, device=device)
+    cpu_ex = explain.Explainer("pmg", spec, checkpoint.to_device(eng.params, "cpu"), device="cpu")
+    task = spec.tasks.names[0]
+    frames = np.random.RandomState(21).randint(0, 256, (EXPLAIN_BATCH, 224, 224, 3), np.uint8)
+    x8 = torch.from_numpy(frames).to(dev)
+    targets = ex.resolve_targets(task, None, ex.logits(frames))
+    cls = torch.from_numpy(targets).to(dev)
+    counts = {}
+
+    # -- (a) PMG-shipped Grad-CAM through K1 ------------------------------
+    ck.reset_launches()
+    cam, logits = ex.gradcam_tensors(x8, task, cls)
+    counts["gradcam"] = launched("PMG Grad-CAM")
+    want_cam, want_logits = cpu_ex.gradcam(frames[:EXPLAIN_CHECK], task, targets[:EXPLAIN_CHECK])
+    cam_err = max_err(cam[:EXPLAIN_CHECK].cpu(), torch.from_numpy(want_cam), CAM_TOL, 0.0,
+                      "PMG Grad-CAM vs the port's CPU path")
+    lscale = float(np.abs(want_logits).max())
+    logit_err = max_err(logits[:EXPLAIN_CHECK].cpu(), torch.from_numpy(want_logits),
+                        EXPLAIN_LOGIT_TOL * lscale, 0.0, "PMG Grad-CAM logits vs the port's CPU path")
+    gc_wall = wall_ms(lambda: ex.gradcam_tensors(x8, task, cls))
+    gc_dev = device_ms(lambda: ex.gradcam_tensors(x8, task, cls), reps=5, rounds=3) if on_card else None
+    print(f"[21] (a) PMG-shipped Grad-CAM (last trunk conv, task {task!r}, batch {EXPLAIN_BATCH}, float32, "
+          f"TF32 off): K1 launches {counts['gradcam']['patch_gram']} in one call (forward; its backward is "
+          f"the registered plain product); vs the CPU path on {EXPLAIN_CHECK} frames CAM max abs err "
+          f"{cam_err:.3e} (atol {CAM_TOL}), logits {logit_err:.3e} (atol {EXPLAIN_LOGIT_TOL} x max|logit| "
+          f"{lscale:.3f}); {gc_wall:.3f} ms a call wall = {EXPLAIN_BATCH / gc_wall * 1e3:,.0f} img/s"
+          + (f", {gc_dev:.3f} ms of device time" if gc_dev is not None else "") + f" | {card}")
+
+    golden = {}
+    for name in ("pmg_tiny_instance_se", "pm_batchnorm_sigmoid"):
+        with open(os.path.join(FIXTURES, f"{name}.json")) as f:
+            gmeta = json.load(f)
+        data = np.load(os.path.join(FIXTURES, f"{name}.npz"))
+        geng = port.load_engine(gmeta["family"], os.path.join(FIXTURES, f"{name}.pth"), gmeta["tasks"],
+                                gmeta["hparams"], batch_size=2, device=device)
+        xf = torch.from_numpy(np.ascontiguousarray(data["input"].transpose(0, 2, 3, 1))).to(dev)
+        ti = geng.spec.tasks.names.index(str(data["gradcam/task"]))
+        gcls = torch.from_numpy(data["gradcam/classes"].astype(np.int64)).to(dev)
+        raw, w, gmax = cam_parts(gmeta["family"], geng.spec, geng.params, xf, ti, gcls)
+        want = data["gradcam/cam"]
+        if want.max() == 1.0:  # the reference's CAM carries a signal
+            golden[name] = "max abs err %.3e (atol/rtol %s)" % (max_err(
+                min_max(raw).cpu(), torch.from_numpy(want), GOLDEN_CAM_TOL, GOLDEN_CAM_TOL,
+                f"{name} golden CAM on the card"), GOLDEN_CAM_TOL)
+        else:  # instance norm at the target: the CAM is 0, the fixture rounding noise
+            golden[name] = "empty as the reference's: channel weights %.3e x max|gradient| (bound %s)" % (
+                empty_cam(w, gmax, f"{name} golden CAM on the card"), EMPTY_CAM_WEIGHT)
+    print("[21] (a) golden CAMs on the card: " + "; ".join(f"{n} {v}" for n, v in golden.items()))
+
+    # -- (b) integrated gradients through K1 -------------------------------
+    ck.reset_launches()
+    attr = ex.integrated_gradients_tensor(x8[:IG_BATCH], task, cls[:IG_BATCH], steps=IG_STEPS)
+    counts["integrated_gradients"] = launched("PMG integrated gradients")
+    want_attr = cpu_ex.integrated_gradients(frames[:IG_BATCH], task, targets[:IG_BATCH], steps=IG_STEPS)
+    ig_rel = within_max(attr.cpu(), torch.from_numpy(want_attr), IG_TOL,
+                        "PMG integrated gradients vs the port's CPU path")
+    ig_wall = wall_ms(lambda: ex.integrated_gradients_tensor(x8[:IG_BATCH], task, cls[:IG_BATCH],
+                                                               steps=IG_STEPS), reps=2)
+    print(f"[21] (b) PMG-shipped integrated gradients ({IG_STEPS} Gauss-Legendre steps, batch {IG_BATCH}): "
+          f"K1 launches {counts['integrated_gradients']['patch_gram']} in one call; vs the CPU path max abs "
+          f"err {ig_rel:.3e} x max|attr| (bound {IG_TOL}); {ig_wall:.1f} ms a call wall, "
+          f"{ig_wall / IG_STEPS:.2f} ms a step | {card}")
+
+    # -- (c) PM and RTM headline Grad-CAM ----------------------------------
+    tasks = config.load_tasks(config.default_tasks_path())
+    rng = np.random.RandomState(22)
+    hframes = rng.randint(0, 256, (HEADLINE_CAM_BATCH, 224, 224, 3), np.uint8)
+    hx8 = torch.from_numpy(hframes).to(dev)
+    hx = normalize_uint8(hx8)
+    for family, hspec in (("pm", pm.build_spec(tasks, {})),
+                          ("rtm", rtm.build_spec(tasks, EXPLAIN_RTM_HPARAMS))):
+        # phase 16's and phase 12's seeded weights
+        hparams = (pm.init(torch.Generator().manual_seed(16), hspec) if family == "pm"
+                   else random_rtm_params(hspec, seed=12))
+        hex_card = explain.Explainer(family, hspec, hparams, device=device)
+        hex_cpu = explain.Explainer(family, hspec, hparams, device="cpu")
+        htask = hspec.tasks.names[0]
+        hcls = torch.from_numpy(hex_card.resolve_targets(htask, None, hex_card.logits(hx8))).to(dev)
+        ti = 0
+        raw, w, gmax = cam_parts(family, hspec, hex_card.params, hx, ti, hcls)
+        raw_cpu, w_cpu, gmax_cpu = cam_parts(family, hspec, hex_cpu.params, hx[:HEADLINE_CAM_CHECK].cpu(),
+                                             ti, hcls[:HEADLINE_CAM_CHECK].cpu())
+        if family == "pm" and hspec.norm == "instance":
+            verdict = "CAM empty on both (instance norm at the target): channel weights %.3e / %.3e x " \
+                      "max|gradient| on the card / CPU (bound %s)" % (
+                          empty_cam(w, gmax, "PM headline CAM on the card"),
+                          empty_cam(w_cpu, gmax_cpu, "PM headline CAM on the CPU"), EMPTY_CAM_WEIGHT)
+        else:
+            verdict = "CAM vs the CPU path on %d frames max abs err %.3e (atol %s)" % (
+                HEADLINE_CAM_CHECK, max_err(min_max(raw)[:HEADLINE_CAM_CHECK].cpu(), min_max(raw_cpu),
+                                            CAM_TOL, 0.0, f"{family} headline CAM vs the CPU path"),
+                CAM_TOL)
+        ms = wall_ms(lambda: hex_card.gradcam_tensors(hx8, htask, hcls))
+        print(f"[21] (c) {family.upper()} headline Grad-CAM (seeded weights, target "
+              f"{'the last trunk conv' if family == 'pm' else 'stem conv1'}, batch {HEADLINE_CAM_BATCH}): "
+              f"{verdict}; {ms:.2f} ms a call wall | {card}")
+        del hex_card, hex_cpu
+
+    # -- (d) style transfer on PMG shipped ---------------------------------
+    data = np.load(os.path.join(FIXTURES, "pmg_shipped.npz"))
+    xf = torch.from_numpy(np.ascontiguousarray(data["input"][0:1].transpose(0, 2, 3, 1))).to(dev)
+    with torch.no_grad():
+        sg = style_transfer.extract_style_grams(eng.params, spec, xf)[0]
+    sg_err = max_err(sg.cpu(), torch.from_numpy(data["style_grams"]), STYLE_GRAMS_TOL, STYLE_GRAMS_TOL,
+                     "pmg_shipped style grams on the card")
+    styles = np.stack([(f.astype(np.float32) / 255.0 - np.asarray(config.IMAGENET_MEAN, np.float32))
+                       / np.asarray(config.IMAGENET_STD, np.float32)
+                       for f in np.random.RandomState(23).randint(0, 256, (STYLE_IMAGES, 224, 224, 3),
+                                                                  np.uint8)])
+    kw = dict(num_iterations=STYLE_ITERS, init_type="gray", target_loss=0.0, log_every=STYLE_LOG_EVERY)
+    t0 = time.perf_counter()
+    imgs, loss, iters = style_transfer.run_patch_gram_style_transfer_batch(eng.params, spec, styles,
+                                                                            device=device, **kw)
+    st_ms = (time.perf_counter() - t0) * 1e3
+    _, loss_cpu, iters_cpu = style_transfer.run_patch_gram_style_transfer_batch(
+        cpu_ex.params, spec, styles, device="cpu", **kw)
+    if not np.array_equal(iters, iters_cpu):
+        raise AssertionError(f"style loop iterations {iters} on the card, {iters_cpu} on the CPU")
+    st_rel = float(np.max(np.abs(loss - loss_cpu) / np.abs(loss_cpu)))
+    if not np.isfinite(loss).all() or st_rel > STYLE_LOSS_RTOL:
+        raise AssertionError(f"style losses {loss} on the card, {loss_cpu} on the CPU")
+    print(f"[21] (d) style: pmg_shipped style grams on the card max abs err {sg_err:.3e} (atol/rtol "
+          f"{STYLE_GRAMS_TOL}); style loop on {STYLE_IMAGES} seeded 224 px images, gray init, {STYLE_ITERS} "
+          f"iterations, log_every {STYLE_LOG_EVERY}: losses {[float('%.6g' % v) for v in loss]} vs the CPU "
+          f"within {st_rel:.3e} relative (bound {STYLE_LOSS_RTOL}), iterations {iters.tolist()} equal; "
+          f"{st_ms / STYLE_ITERS:.2f} ms an iteration wall (first call, host reads included) | {card}")
+    del imgs
+
+    # -- (e) the CLI's classifier mode with every explain and style flag ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_21_")
+    try:
+        frng = np.random.RandomState(24)
+        manifest = {}
+        for i in range(CLI_IMAGES):
+            path = os.path.join(tmp, "images", f"img{i:03d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(frng.randint(0, 256, (224, 224, 3), np.uint8)).save(path)
+            entry = {"image_path": path}
+            for t, classes in meta["tasks"].items():
+                if frng.rand() > 0.1:
+                    entry[t] = classes[frng.randint(len(classes))]
+            manifest[f"img{i:03d}.png"] = entry
+        data_json, tasks_json = os.path.join(tmp, "dataset.json"), os.path.join(tmp, "tasks.json")
+        for path, obj in ((data_json, {"images": manifest}), (tasks_json, meta["tasks"])):
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        save = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", CLI_EXPLAIN, "pmg", "--mode", "classifier",
+                              "--data", data_json, "--build_classifier", tasks_json,
+                              "--model_path", os.path.join(FIXTURES, "pmg_shipped.pth"),
+                              "--batch_size", str(CLI_IMAGES), "--visualize_gradcam",
+                              "--save_gradcam_images", "--integrated_gradients", "--style_transfer",
+                              "--style_iterations", "5", "--save_dir", save, "--device", device],
+                             timeout=600, capture_output=True, text=True)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"weather_torch.py --mode classifier with the explain flags failed:\n"
+                                 f"{run.stderr[-3000:]}")
+        made = {d: sorted(os.listdir(os.path.join(save, d)))
+                for d in ("gradcam", "integrated_gradients", "StyleTransfer")}
+        # the JAX CLI's names (class names follow the predictions)
+        want = {"gradcam": [f"gradcam_b0000_i{i:03d}_task-{task}_class-" for i in range(CLI_IMAGES)],
+                "integrated_gradients": [f"ig_b0000_i{i:03d}_task-{task}.png" for i in range(CLI_IMAGES)],
+                "StyleTransfer": [f"img{i:03d}_styled.png" for i in range(CLI_IMAGES)]}
+        for d, prefixes in want.items():
+            names = made[d]
+            if len(names) != CLI_IMAGES or not all(n.startswith(p) for n, p in zip(names, prefixes)):
+                raise AssertionError(f"the CLI wrote {d}/{names[:3]}..., want {prefixes[:3]}...")
+        print(f"[21] (e) weather_torch.py pmg --mode classifier --visualize_gradcam --save_gradcam_images "
+              f"--integrated_gradients --style_transfer --style_iterations 5 on {CLI_IMAGES} seeded PNGs "
+              f"(batch {CLI_IMAGES}, a subprocess): {cli_s:.1f} s wall, wrote "
+              + ", ".join(f"{d}/ {len(v)} files ({v[0]}, ...)" for d, v in made.items()) + f" | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[21] explain and style phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2884,6 +3233,7 @@ def main() -> int:
     del eng
     deploy_counts = deployment_phase(card)
     train_counts = training_phase(card, profile=args.profile)
+    explain_counts = explain_phase(card)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:
@@ -2905,6 +3255,9 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("patch_gram", "gram_proj"):
             k["train_launches"] = {path: c[k["name"]] for path, c in train_counts.items() if c[k["name"]]}
+        # and on the explain paths of phase 21 (one Grad-CAM call, one IG call)
+        if k["name"] == "patch_gram":
+            k["explain_launches"] = {path: c["patch_gram"] for path, c in explain_counts.items()}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

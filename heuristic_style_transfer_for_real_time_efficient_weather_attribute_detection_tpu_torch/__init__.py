@@ -15,7 +15,9 @@ path (``workloads.stream.StreamPredictor``), the deployment path (the AOT
 serving artifact ``engine.export``, the micro-batcher ``engine.serving``,
 the HTTP server ``workloads.serve``), training (``fit``, the train step
 ``parallel.train.make_train_step``: train-mode forwards, AdamW, float32 or
-bf16 mixed precision, augmentation, resume) and the CLI (``cli.py``,
+bf16 mixed precision, augmentation, resume), explainability
+(``workloads.explain``: Grad-CAM and integrated gradients) and patch-Gram
+style transfer (``workloads.style_transfer``), and the CLI (``cli.py``,
 ``weather_torch.py``), with six hand-written CUDA kernels
 (``ops/cuda_kernels.py``; K1, K2 and K5 also as ``torch.ops.wadt_torch``
 operators, K1 and K5 with registered gradients).
@@ -26,6 +28,8 @@ Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
     out = eng.run(images_u8)          # {"preds": [N,T], "probs": [N,T,Kmax]}
     eng16 = load_engine("pmg", "best_model_PMG.pth", dtype=torch.bfloat16)
     out = fit("pmg", eng.spec, "dataset.json", "tasks.json", "run/", {"bf16": True})
+    ex = workloads.explain.Explainer("pmg", eng.spec, eng.params)
+    cam, logits = ex.gradcam(images_u8, task, classes)
 """
 
 __version__ = "0.1.0"
@@ -101,3 +105,4 @@ def make_train_step(family, spec, optimizer=None, **kwargs):
     from .parallel.train import make_train_step as _make
 
     return _make(family, spec, optimizer, **kwargs)
+

@@ -2,13 +2,14 @@
 family as the first positional, mirroring the JAX package's ``weather`` CLI
 flag for flag (plus ``--device``).
 
-Ported modes: classifier, benchmark, inference, folder, watch_folder,
+Ported modes: classifier (with the ``--visualize_gradcam``,
+``--integrated_gradients`` and ``--style_transfer`` epilogues), benchmark,
+inference (``--visualize_gradcam`` fusions too), folder, watch_folder,
 camera (float32), serve (a live engine, or ``--exported`` from an AOT
 artifact), export and train.  Not yet ported, each raising
 ``NotImplementedError`` that names its ROADMAP.md item: tsne,
-tsne_interactive and clustering (item 17), ``--visualize_gradcam`` and
-``--integrated_gradients`` (item 16), ``--style_transfer`` (item 18), and
-``--data_parallel`` with more than one visible card (item 22).
+tsne_interactive and clustering (item 17), and ``--data_parallel`` with
+more than one visible card (item 22).
 
 Examples:
   python weather_torch.py pmg --mode classifier --data ds.json \\
@@ -33,9 +34,8 @@ MODES = [
     "export",
 ]
 
-# modes and flags of the JAX CLI that the port has not reached yet -> ROADMAP.md item
+# modes of the JAX CLI that the port has not reached yet -> ROADMAP.md item
 _UNPORTED_MODES = {"tsne": 17, "tsne_interactive": 17, "clustering": 17}
-_UNPORTED_FLAGS = {"visualize_gradcam": 16, "integrated_gradients": 16, "style_transfer": 18}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -230,15 +230,12 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Raise NotImplementedError naming the ROADMAP.md item of a mode or flag
-    the port has not reached, before any engine is built."""
+    """Raise NotImplementedError naming the ROADMAP.md item of a mode the
+    port has not reached, before any engine is built."""
     if args.mode in _UNPORTED_MODES:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported yet (ROADMAP.md item {_UNPORTED_MODES[args.mode]})"
         )
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md item {item})")
 
 
 def build_engine(args) -> "Any":
@@ -383,6 +380,11 @@ def main(argv=None) -> int:
                  show_gt_labels=not args.no_gt_labels,
                  scan_chunk=args.scan_chunk)
 
+        if args.visualize_gradcam or args.integrated_gradients:
+            _run_explain(args, engine, ds, writer)
+        if args.style_transfer:
+            _run_style_transfer(args, engine, ds)
+
     elif args.mode == "train":
         from .workloads.train import fit
 
@@ -452,6 +454,7 @@ def main(argv=None) -> int:
                       num_samples=args.num_samples,
                       save_test_images=args.save_test_images,
                       num_workers=args.num_workers,
+                      visualize_gradcam=args.visualize_gradcam,
                       gradcam_task=args.gradcam_task, colormap=args.colormap)
 
     elif args.mode == "folder":
@@ -508,6 +511,85 @@ def main(argv=None) -> int:
     if writer:
         writer.close()
     return 0
+
+
+def _run_explain(args, engine, ds, writer=None):
+    from .data import BatchLoader
+    from .workloads.explain import Explainer, ig_heatmap, overlay_cam, save_gradcam_batch
+
+    explainer = Explainer(args.family, engine.spec, engine.params, device=engine.device)
+    task = args.gradcam_task or engine.tasks.names[0]
+    if task not in engine.tasks.names:
+        print(f"[GradCAM] Task '{task}' not in registry -> disabled.")
+        return
+    loader = BatchLoader(ds, batch_size=args.batch_size, num_workers=args.num_workers)
+    gradcam_dir = os.path.join(args.save_dir, "gradcam")
+    ig_dir = os.path.join(args.save_dir, "integrated_gradients")
+    for bi, (images, labels, paths) in enumerate(loader):
+        if args.visualize_gradcam and args.save_gradcam_images:
+            save_gradcam_batch(explainer, images, labels, task, gradcam_dir,
+                               batch_idx=bi, cmap=args.colormap)
+        if args.visualize_gradcam and writer is not None and bi == 0:
+            # TensorBoard: the first batch's overlays
+            targets = explainer.resolve_targets(task, labels, explainer.logits(images))
+            cam, _ = explainer.gradcam(images, task, targets)
+            for i in range(min(4, images.shape[0])):
+                over = overlay_cam(images[i], cam[i], args.colormap)
+                writer.add_image(f"GradCAM/{task}/{i}", over, dataformats="HWC")
+        if args.integrated_gradients:
+            import cv2
+
+            os.makedirs(ig_dir, exist_ok=True)
+            targets = explainer.resolve_targets(
+                task, labels, explainer.logits(images), default_argmax=False)
+            attrs = explainer.integrated_gradients(images, task, targets)
+            for i in range(images.shape[0]):
+                heat = ig_heatmap(attrs[i])
+                over = overlay_cam(images[i], heat, args.colormap)
+                out = os.path.join(ig_dir, f"ig_b{bi:04d}_i{i:03d}_task-{task}.png")
+                cv2.imwrite(out, cv2.cvtColor(over, cv2.COLOR_RGB2BGR))
+
+
+def _run_style_transfer(args, engine, ds):
+    import numpy as np
+    from PIL import Image
+
+    from .ops.preprocess import load_image_normalized
+    from .workloads.style_transfer import (
+        run_patch_gram_style_transfer_batch,
+        style_transfer_composite,
+    )
+
+    if args.family != "pmg":
+        print("[style-transfer] only the PMG family has a Gram trunk; skipping")
+        return
+    out_dir = os.path.join(args.save_dir, "StyleTransfer")
+    os.makedirs(out_dir, exist_ok=True)
+    n = min(args.num_samples or len(ds), len(ds))
+    paths = [ds.samples[idx][0] for idx in range(n)]
+    # one optimization loop per chunk of images, each image on its own
+    # Adam trajectory with its own early stop
+    chunk = 32
+    for lo in range(0, n, chunk):
+        batch_paths = paths[lo : lo + chunk]
+        print(
+            f"style transfer images {lo + 1}-{lo + len(batch_paths)} of {n} "
+            f"(one batched optimization)"
+        )
+        x = np.stack([load_image_normalized(p) for p in batch_paths])
+        gens, losses, iters = run_patch_gram_style_transfer_batch(
+            engine.params, engine.spec, x,
+            num_iterations=args.style_iterations, lr=args.lr,
+            init_type=args.init_type, target_loss=args.target_loss,
+            seed_offset=lo,  # noise init keyed on each image's global index
+            device=engine.device,
+        )
+        for path, gen, loss, its in zip(batch_paths, gens, losses, iters):
+            base = os.path.splitext(os.path.basename(path))[0]
+            combined = style_transfer_composite(Image.open(path).convert("RGB"), gen)
+            out = os.path.join(out_dir, f"{base}_styled.png")
+            combined.save(out)
+            print(f"saved {out} (loss={float(loss):.6f}, iters={int(its)})")
 
 
 if __name__ == "__main__":

@@ -827,3 +827,19 @@ def to_device(params: Any, device) -> Any:
     if isinstance(params, (list, tuple)):
         return [to_device(v, device) for v in params]
     return params.to(device)
+
+
+def grad_ready(params: Any, device) -> Any:
+    """A param tree on ``device`` as tensors autograd may save, for a
+    workload that differentiates through the model with respect to its
+    input: every leaf detached, and inference tensors (made under
+    ``torch.inference_mode``) cloned outside that mode."""
+    if isinstance(params, Mapping):
+        return {k: grad_ready(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [grad_ready(v, device) for v in params]
+    t = params.to(device)
+    if t.is_inference():
+        with torch.inference_mode(False):
+            return t.clone()
+    return t.detach()

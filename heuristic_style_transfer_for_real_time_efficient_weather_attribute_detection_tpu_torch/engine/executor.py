@@ -93,7 +93,7 @@ class Engine:
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"Engine dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if mesh is not None:
-            raise NotImplementedError("mesh execution is not ported yet (ROADMAP.md A22)")
+            raise NotImplementedError("mesh execution is not ported yet (ROADMAP.md item 22)")
         self.mesh = None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

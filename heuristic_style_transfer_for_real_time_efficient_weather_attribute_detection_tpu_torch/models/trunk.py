@@ -66,6 +66,26 @@ def apply_trunk(
     return x
 
 
+def apply_trunk_from_last_conv(
+    params: List[Dict], last_conv_out: torch.Tensor, plan: Tuple[ConvBlock, ...], norm: str
+) -> torch.Tensor:
+    """Finish the trunk from the last block's raw conv output (before its
+    norm and LeakyReLU), the activation the reference's Grad-CAM hooks."""
+    del plan
+    return leaky_relu(apply_norm(last_conv_out, params[-1]["norm"], norm), 0.2)
+
+
+def trunk_last_conv(
+    params: List[Dict], x: torch.Tensor, plan: Tuple[ConvBlock, ...], norm: str
+) -> torch.Tensor:
+    """The trunk up to and including the last block's convolution: its
+    pre-norm output, the Grad-CAM target."""
+    for p, b in zip(params[:-1], plan[:-1]):
+        x = leaky_relu(apply_norm(conv2d(x, p["conv"], stride=b.stride, padding=b.pad), p["norm"],
+                                  norm), 0.2)
+    return conv2d(x, params[-1]["conv"], stride=plan[-1].stride, padding=plan[-1].pad)
+
+
 def apply_trunk_train(
     params: List[Dict],
     x: torch.Tensor,

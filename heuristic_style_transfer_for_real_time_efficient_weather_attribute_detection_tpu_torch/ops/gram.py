@@ -48,3 +48,41 @@ def patch_gram_tokens(x: torch.Tensor, div: int) -> torch.Tensor:
     from .cuda_kernels import patch_gram
 
     return patch_gram(x, div)
+
+
+def _accum_dtype(x: torch.Tensor) -> torch.dtype:
+    """Gram sums in float32 for float32 and bf16 inputs, float64 for float64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def style_patch_grams(x: torch.Tensor, div: int) -> torch.Tensor:
+    """Per-patch Grams with the style-transfer split -> [B, Np, C, C] in the
+    accumulation type (float32, float64 for float64 input).
+
+    The reference's style path splits differently from ``split_patches``:
+    (1) no padding, the patch is floor(H/div) x floor(W/div) and trailing
+    rows and columns are dropped; (2) it regroups the NCHW crop in flat
+    row-major order, which scrambles which pixels go to which patch when
+    there is more than one patch row.  Both are kept.  K1 computes the
+    padded split, so this is a plain product with float32 sums.
+    """
+    b, h, w, c = x.shape
+    ph, pw = h // div, w // div
+    if ph == 0 or pw == 0:
+        raise ValueError(
+            f"style-transfer patch split needs feature map >= patch_div "
+            f"(got {h}x{w} features, patch_div={div}); the model's padded "
+            f"split handles this, but the reference's unpadded style path "
+            f"cannot (utils/PMG/PMG_style_transfer.py:29-32)"
+        )
+    nh, nw = h // ph, w // pw
+    v = x.permute(0, 3, 1, 2)[:, :, : nh * ph, : nw * pw].to(_accum_dtype(x))
+    v = v.reshape(b, c, nh * nw, ph * pw)  # the reference's exact regroup
+    return torch.einsum("bcpn,bdpn->bpcd", v, v) * (1.0 / float(ph * pw))
+
+
+def patch_grams(x: torch.Tensor, div: int) -> torch.Tensor:
+    """Unflattened per-patch Grams [B, Np, C, C] of the model's padded split,
+    in the accumulation type."""
+    patches, area = split_patches(x.to(_accum_dtype(x)), div)
+    return torch.einsum("bpnc,bpnd->bpcd", patches, patches) * (1.0 / float(area))

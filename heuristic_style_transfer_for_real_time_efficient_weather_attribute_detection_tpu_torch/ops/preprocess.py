@@ -162,3 +162,20 @@ def s2d_unpack_uint8(z8: np.ndarray, k: int) -> np.ndarray:
     return np.ascontiguousarray(
         z8.reshape(b, hp, wp, k, k, c).transpose(0, 1, 3, 2, 4, 5).reshape(b, hp * k, wp * k, c)
     )
+
+
+def _mean_std(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device),
+            torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device))
+
+
+def denormalize(x: torch.Tensor) -> torch.Tensor:
+    """Normalized float NHWC -> [0,1] float NHWC (for overlays and exports)."""
+    mean, std = _mean_std(x)
+    return torch.clamp(x * std + mean, 0.0, 1.0)
+
+
+def normalize01(x: torch.Tensor) -> torch.Tensor:
+    """[0,1] float NHWC -> ImageNet-normalized (the style-transfer pixel path)."""
+    mean, std = _mean_std(x)
+    return (x - mean) / std

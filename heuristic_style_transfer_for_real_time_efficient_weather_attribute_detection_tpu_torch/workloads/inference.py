@@ -1,7 +1,8 @@
 """Folder inference, folder predictions with ground truth, and the
 watch-folder service, on the port's engine.
 
-- ``run_inference``: recursive folder inference -> inference_results.json;
+- ``run_inference``: recursive folder inference -> inference_results.json
+  (and Grad-CAM fusion copies under GradCAM/);
 - ``test_folder_predictions``: folder-name ground truth -> per-class
   counts and F1 in folder_predictions.json (+ all_predictions.json);
 - ``WatchFolderService`` / ``watch_folders_predictions``: polls folders
@@ -198,14 +199,10 @@ def run_inference(
     """Recursive folder inference -> inference_results.json
     ``{path: {task: {predicted_class, probability}}}``.
 
-    ``visualize_gradcam`` (Grad-CAM fusion copies) needs the explain
-    workload, which is not ported yet: it raises NotImplementedError.
+    ``visualize_gradcam`` adds 50/50 heatmap-fusion copies sorted into
+    ``GradCAM/<predicted class>/<name>_fusion.jpg`` with a text line (the
+    target class is the prediction), on the engine's device.
     """
-    if visualize_gradcam:
-        raise NotImplementedError(
-            "visualize_gradcam needs workloads/explain.py, not ported yet (ROADMAP.md item 16)"
-        )
-    del gradcam_task, colormap
     paths = collect_image_paths(image_folder)
     if not paths:
         raise RuntimeError(f"No image found in '{image_folder}'")
@@ -226,11 +223,42 @@ def run_inference(
             annotate_and_save(
                 Image.open(path).convert("RGB"), lines, os.path.join(save_dir, rel)
             )
+    if save_dir and visualize_gradcam:
+        _gradcam_fusions(engine, paths, probs, save_dir, gradcam_task, colormap, num_workers)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "inference_results.json"), "w") as f:
             json.dump(results, f, indent=2, ensure_ascii=False)
     return results
+
+
+def _gradcam_fusions(engine, paths, probs, save_dir, gradcam_task, colormap, num_workers):
+    from .explain import Explainer, overlay_cam
+
+    tasks = engine.tasks
+    task = gradcam_task or tasks.names[0]
+    ti = tasks.names.index(task)
+    k = tasks.num_classes[ti]
+    names = tasks.class_names[ti]
+    explainer = Explainer(engine.family, engine.spec, engine.params, device=engine.device)
+    loader = BatchLoader(paths, batch_size=engine.batch_size, num_workers=num_workers)
+    pos = 0
+    for imgs, _, batch_paths in loader:
+        n = imgs.shape[0]
+        targets = probs[pos : pos + n, ti, :k].argmax(-1).astype("int32")
+        cam, _ = explainer.gradcam(imgs, task, targets)
+        for j in range(n):
+            cls = int(targets[j])
+            prob = float(probs[pos + j, ti, cls])
+            fused = overlay_cam(imgs[j], cam[j], colormap, alpha=0.5)
+            out_dir = os.path.join(save_dir, "GradCAM", names[cls])
+            fname = os.path.splitext(os.path.basename(batch_paths[j]))[0]
+            annotate_and_save(
+                Image.fromarray(fused),
+                [f"{task}: {names[cls]} ({prob:.2f})"],
+                os.path.join(out_dir, f"{fname}_fusion.jpg"),
+            )
+        pos += n
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's CLI (``…_torch/cli.py``, ``weather_torch.py``) on the CPU: the
 JAX CLI's flags plus ``--device``, the classifier, export and train modes
-on a tiny synthetic set writing the JAX CLI's artifacts, and the modes and
-flags not ported yet refusing by their ROADMAP.md item."""
+on a tiny synthetic set writing the JAX CLI's artifacts (with the explain
+and style-transfer epilogues), and the modes not ported yet refusing by
+their ROADMAP.md item."""
 
 import json
 import os
@@ -148,14 +149,32 @@ def test_cli_missing_build_classifier_is_usage_error(tmp_path):
     (["--mode", "tsne"], 17),
     (["--mode", "tsne_interactive"], 17),
     (["--mode", "clustering"], 17),
-    (["--mode", "classifier", "--visualize_gradcam"], 16),
-    (["--mode", "inference", "--integrated_gradients"], 16),
-    (["--mode", "classifier", "--style_transfer"], 18),
 ])
 def test_unported_modes_name_their_roadmap_item(env, argv, item):
     base, _, root = _base(env)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         cli.main(base + argv + ["--save_dir", os.path.join(root, "unported"), "--device", "cpu"])
+
+
+def test_cli_classifier_explain_and_style_transfer_write_the_jax_files(env):
+    """``--mode classifier`` with ``--visualize_gradcam --save_gradcam_images
+    --integrated_gradients --style_transfer`` writes the JAX CLI's gradcam/,
+    integrated_gradients/ and StyleTransfer/ files, with its names."""
+    base, synth, root = _base(env)
+    files = {}
+    for name, main, extra in (("jax", jax_main, []), ("port", cli.main, ["--device", "cpu"])):
+        save = os.path.join(root, f"explain_{name}")
+        assert main(base + ["--mode", "classifier", "--data", os.path.join(synth, "dataset.json"),
+                            "--save_dir", save, "--visualize_gradcam", "--save_gradcam_images",
+                            "--integrated_gradients", "--style_transfer",
+                            "--style_iterations", "2", "--num_workers", "2"] + extra) == 0
+        files[name] = [f for f in _files(save)
+                       if f.split(os.sep)[0] in ("gradcam", "integrated_gradients", "StyleTransfer")]
+    assert files["port"] == files["jax"]
+    n = 8  # images in the synthetic set
+    for d in ("gradcam", "integrated_gradients", "StyleTransfer"):
+        assert sum(f.startswith(d + os.sep) for f in files["port"]) == n, d
+    assert any(f.startswith(os.path.join("gradcam", "gradcam_b0001_i")) for f in files["port"])
 
 
 def test_cli_train_mode_writes_the_artifacts(env):

@@ -165,6 +165,32 @@ def test_training_modules_are_scanned_and_clean(rel, train_imports):
     assert train_imports == "[]"
 
 
+EXPLAIN_MODULES = ["workloads/explain.py", "workloads/style_transfer.py", "ops/gram.py",
+                   "models/trunk.py"]
+
+
+@pytest.fixture(scope="module")
+def explain_imports():
+    """One fresh interpreter imports the explainability and style-transfer
+    slice's modules and lists what it loaded of JAX, optax, scikit-learn and
+    the JAX package."""
+    mods = ", ".join(_module(rel) for rel in EXPLAIN_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'optax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", EXPLAIN_MODULES)
+def test_explain_modules_are_scanned_and_clean(rel, explain_imports):
+    """The explainability and style-transfer slice's modules are among
+    those the scan reads, and import without JAX or optax."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert explain_imports == "[]"
+
+
 def test_export_module_imports_no_model_code():
     """The serving side of an artifact needs no model: importing the export
     module and the operator registrations loads no ``models`` module."""

@@ -511,10 +511,25 @@ def test_folder_predictions_includes_dotfile_images(engine, tmp_path):
     assert sorted(os.path.basename(p) for p in allp) == [".jpg", "a.jpg"]
 
 
-def test_gradcam_is_not_ported_yet(synth, engine, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        tinf.run_inference(engine, os.path.join(synth, "images"), str(tmp_path),
-                           visualize_gradcam=True)
+def test_run_inference_gradcam_fusions_match_jax(synth, engines, tmp_path):
+    """``visualize_gradcam`` writes the JAX package's
+    ``GradCAM/<predicted class>/<name>_fusion.jpg`` tree."""
+    jeng, eng = engines
+    folder = os.path.join(synth, "images")
+    jinf.run_inference(jeng, folder, str(tmp_path / "j"), visualize_gradcam=True,
+                       num_workers=2)
+    tinf.run_inference(eng, folder, str(tmp_path / "t"), visualize_gradcam=True,
+                       num_workers=2)
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, names in os.walk(os.path.join(root, "GradCAM")) for f in names)
+
+    got = tree(tmp_path / "t")
+    assert got == tree(tmp_path / "j")
+    assert len(got) == 12 and all(p.endswith("_fusion.jpg") for p in got)
+    with Image.open(tmp_path / "t" / got[0]) as im:
+        assert im.size == (224, 224)
 
 
 def test_render_task_overlay_matches_jax():
