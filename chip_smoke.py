@@ -115,8 +115,9 @@ Phases, each of which raises on failure:
     logits against the port's CPU path on 2 frames, device step time and
     images per second;
 17. RTM bf16 batch at phase 12's width and batch: argmax agreement and
-    probability drift against the float32 run, device step time and images
-    per second;
+    probability drift against the float32 run, the drift within
+    RTM_BF16_DRIFT (PERF.md section 2), device step time and images per
+    second;
 18. the evaluation path on the shipped PMG at batch 256: ``evaluate`` over
     600 seeded in-memory frames with seeded labels (about 10 % missing, one
     task with two classes present) through the port's ``BatchLoader``, in
@@ -193,6 +194,34 @@ Phases, each of which raises on failure:
     subprocess, writing the JAX CLI's gradcam/, integrated_gradients/ and
     StyleTransfer/ names, with its wall time.
 
+22. the bf16 camera path and the embedding workloads
+    (``stream_bf16_embed_phase``): (a) the shipped PMG's bf16
+    ``StreamPredictor`` over 64 seeded frames, Kalman on and off, on the
+    fused route (bit for bit the float32 predictor), the packed route (bit
+    for bit ``Engine(dtype=bf16, batch_size=1)``) and the generic route
+    (bit for bit ``pmg.apply`` on the bf16 tree at batch 1), both within
+    5e-3 in probability of float32 (BF16_CAMERA_DRIFT, the bf16 limit of
+    PERF.md section 2) with their argmax agreement printed, with the
+    launches of K3 and K4, or K2, K1 and K5, once a frame, and each route's
+    latency as in phase 9; (b) K6's bf16 mode against its plain version at
+    [1,12,2048] x [12,2048,2048] within 1e-4 x max|y|, its time with L2 out
+    of play beside its bound, its plain version and ``torch.bmm`` on the
+    bf16-dequantized fold; (c) the PM headline (generic) and RTM headline
+    (generic, folded, folded_q8 with K6's bf16 mode once a frame) bf16
+    cameras against the card's float32 predictors: the drift in
+    probability (RTM within RTM_BF16_DRIFT, PM within BF16_CAMERA_DRIFT) and
+    the argmax agreement, with each route's latency; (d) ``compute_embeddings`` on
+    the shipped PMG over 2,048 seeded labelled frames at batch 256 (float32
+    logits and pooled taps, bf16 logits; K1 and K2, and K5 in bf16, once a
+    batch; the logits equal ``Engine.run``'s), img/s beside ``Engine.run``;
+    the port's t-SNE of one task's logits on the card (N 2,048: ms, KL),
+    its first 512 points on the card and on the CPU (KL within 1 %
+    relative, trustworthiness within 0.01) and ``hdbscan_clustering`` on
+    one class; (e) ``cli.main`` in this process: ``--mode tsne``,
+    ``tsne_interactive`` (thumbnails) and ``clustering`` on 64 seeded PNGs,
+    writing the JAX CLI's file names (the PNGs into phase 18's recording
+    stand-in where matplotlib is missing), with the wall time of each.
+
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
 time with its work cut stage by stage.  Host times come from runs
@@ -202,8 +231,11 @@ cost stays higher for the rest of the process.
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (K1's,
 K2's and K5's entries also hold ``eval_launches`` and ``deploy_launches``,
 their launches on each path of phases 18 and 19, and K1's and K5's
-``train_launches``, their launches in phase 20's twenty steps, and K1's
-``explain_launches``, its launches in phase 21's Grad-CAM and IG calls), the
+``train_launches``, their launches in phase 20's twenty steps, K1's
+``explain_launches``, its launches in phase 21's Grad-CAM and IG calls, and
+every kernel's ``stream_bf16_launches`` and ``embed_launches``, its
+launches on each bf16 camera route and each embedding path of phase 22;
+K6's bf16 mode has an entry of its own, ``dequant_matvec_bf16``), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no result line, when no CUDA card is available or the
@@ -1618,6 +1650,9 @@ def rtm_bf16_phase(card: str, f32: dict, profile: bool) -> None:
           f"{step16:.3f} ms = {RTM_BATCH / step16 * 1e3:,.0f} img/s (device); Engine.run end to end: "
           f"bf16 {RTM_FRAMES / wall16:,.0f} img/s, float32 (phase 12) {RTM_FRAMES / f32['wall']:,.0f} "
           f"img/s | {card}")
+    print(f"[17] RTM bf16 batch gate: drift {drift:.3e} <= {RTM_BF16_DRIFT}")
+    if drift > RTM_BF16_DRIFT:
+        raise AssertionError(f"RTM bf16 batch vs float32: drift {drift:.3e} (bound {RTM_BF16_DRIFT})")
     if profile:
         profile_step(f"[17] RTM bf16 step at batch {RTM_BATCH}", lambda: eng16.step(xb))
 
@@ -2940,6 +2975,375 @@ def explain_phase(card: str, device: str = "cuda") -> dict:
     return counts
 
 
+STREAM16_FRAMES = CAMERA_FRAMES  # seeded frames a route, in (a) and (c)
+# max |p_bf16 - p_float32| of RTM at full width, camera and batch: 1.5 x the most measured (7.359e-2,
+# phase 17, PR 12's first run; PERF.md section 2)
+RTM_BF16_DRIFT = 0.11
+BF16_CAMERA_DRIFT = 5e-3  # max |p_bf16 - p_float32| of the PMG and PM bf16 cameras (PERF.md section 2)
+EMBED_FRAMES = 2048
+EMBED_BATCH = 256
+TSNE_SUB = 512  # points held card against CPU
+TSNE_KL_REL = 1e-2  # KL of the card's layout against the CPU's, relative
+TSNE_TRUST_TOL = 0.01
+EMBED_CLI_IMAGES = 64
+
+
+def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda") -> tuple:
+    """Phase 22: the bf16 camera path and the embedding workloads.  (a) The
+    shipped PMG's bf16 camera on the fused, packed and generic routes,
+    Kalman on and off: fused bit for bit float32's, packed bit for bit
+    ``Engine(dtype=bf16, batch_size=1)``, generic bit for bit ``pmg.apply``
+    on the bf16 tree at batch 1, both within BF16_CAMERA_DRIFT of float32;
+    (b) K6's bf16 mode against its plain version at the camera shape, with
+    its time, bound and yardstick; (c) the PM and RTM headline bf16 cameras
+    within BF16_CAMERA_DRIFT and RTM_BF16_DRIFT of the card's float32 ones;
+    (d) ``compute_embeddings`` on the shipped PMG (float32 with the logits
+    and pooled taps, bf16), the t-SNE on the card (and on its first TSNE_SUB points against the
+    CPU) and HDBSCAN on one class; (e) the CLI's tsne, tsne_interactive and
+    clustering modes on seeded PNGs, in the process.  Appends each timed
+    bf16 route to ``routes``; returns (K6's bf16 entry of the kernels line,
+    the launches of each bf16 camera route, the launches of each embedding
+    path).  (``device="cpu"`` rehearses the phase on the plain versions.)"""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import cli, config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.data import (
+        BatchLoader,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import (
+        pm, pmg, rtm,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import (
+        cast_tree,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
+        normalize_uint8,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import (
+        hdbscan as hdb, tsne as ts,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import (
+        embed, stream,
+    )
+
+    bf16 = torch.bfloat16
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def run(p, frames):
+        handles = [p.submit(f) for f in frames]
+        return np.stack([np.asarray(h) for h in handles])
+
+    def counted(fn):
+        sync()
+        ck.reset_launches()
+        out = fn()
+        sync()
+        return out, {k: v for k, v in ck.LAUNCHES.items() if v}
+
+    def want_launches(what, got, want):
+        if on_card and any(got.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"{what} launched {got}, want {want}")
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    eng = port.load_engine("pmg", os.path.join(FIXTURES, "pmg_shipped.pth"), meta["tasks"],
+                           meta["hparams"], batch_size=1, device=device)
+    spec, params = eng.spec, eng.params
+    mask = executor.class_mask(spec.tasks)
+    tmask = torch.as_tensor(mask, device=dev)
+    cam = np.random.RandomState(22).randint(0, 256, (STREAM16_FRAMES, 224, 224, 3), np.uint8)
+    x1 = torch.from_numpy(cam[:1]).to(dev)
+
+    # -- (a) the shipped PMG's bf16 camera, route by route --------------------
+    stream_launches = {}
+    expect = {route: dict.fromkeys(names, STREAM16_FRAMES) for route, names in (
+        ("fused", ("fused_trunk_gram", "fused_head")), ("packed", ("stem", "patch_gram", "gram_proj")),
+        ("generic", ("patch_gram", "gram_proj")))}
+    eng16 = executor.Engine("pmg", spec, params, batch_size=1, dtype=bf16, device=device)
+    p16_run = cast_tree(params, bf16)
+    for route in ("fused", "packed", "generic"):
+        notes = []
+        for kalman_on in (True, False):
+            p32 = stream.StreamPredictor("pmg", spec, params, use_kalman=kalman_on, trunk_kernel=route,
+                                         device=device)
+            p16 = stream.StreamPredictor("pmg", spec, params, use_kalman=kalman_on, trunk_kernel=route,
+                                         dtype=bf16, device=device)
+            a = run(p32, cam)
+            b, launches = counted(lambda: run(p16, cam))
+            want_launches(f"PMG bf16 camera {route}", launches, expect[route])
+            if kalman_on:
+                stream_launches[f"pmg_{route}"] = launches
+            tag = "Kalman on" if kalman_on else "Kalman off"
+            if route == "fused":
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"PMG fused bf16 camera ({tag}) differs from float32")
+                notes.append(f"{tag} bit for bit float32's")
+                continue
+            if kalman_on:
+                continue
+            if route == "packed":
+                ref = eng16.run(cam)["probs"]
+                what = "Engine(dtype=bf16, batch_size=1).run"
+            else:
+                with torch.inference_mode():
+                    ref = np.stack([executor.masked_softmax(pmg.apply(
+                        p16_run, normalize_uint8(torch.from_numpy(f[None]).to(dev), bf16),
+                        spec)[0].float(), tmask)[0].cpu().numpy() for f in cam])
+                what = "pmg.apply on the bf16 tree at batch 1"
+            if not np.array_equal(b, ref):
+                raise AssertionError(f"PMG {route} bf16 camera differs from {what}: max "
+                                     f"{np.abs(b - ref).max():.3e}")
+            agree, drift = agreement(b, a)
+            if drift > BF16_CAMERA_DRIFT:
+                raise AssertionError(f"PMG {route} bf16 camera vs float32: max prob drift {drift:.3e} "
+                                     f"(bound {BF16_CAMERA_DRIFT})")
+            notes.append(f"{tag} bit for bit {what}; vs float32 max prob drift {drift:.3e} (gate "
+                         f"{BF16_CAMERA_DRIFT}), argmax agrees on {agree:.4f} of (frame, task) pairs")
+        print(f"[22] (a) PMG-shipped bf16 camera {route} over {STREAM16_FRAMES} frames: " + "; ".join(notes)
+              + f"; launches with Kalman on {stream_launches[f'pmg_{route}']}")
+        if on_card:
+            label = f"[22] (a) PMG-shipped bf16 camera step {route}"
+            p16 = stream.StreamPredictor("pmg", spec, params, use_kalman=True, trunk_kernel=route,
+                                         dtype=bf16, device=device)
+            route_latency(label, p16, x1, cam, card)
+            routes.append((label, p16, x1))
+    del eng16, p16_run
+
+    # -- (b) K6's bf16 mode against its plain version -------------------------
+    rng = np.random.RandomState(220)
+    t, c, d = 12, 2048, 2048
+    xq = torch.from_numpy(rng.randn(1, t, c).astype(np.float32)).to(dev).to(bf16)
+    w8 = torch.from_numpy(rng.randint(-127, 128, (t, c, d)).astype(np.int8)).to(dev)
+    sc = torch.from_numpy((rng.rand(t, d).astype(np.float32) + 0.5) * 1e-3).to(dev).to(bf16)
+    got = ck.dequant_matvec(xq, w8, sc)
+    sync()
+    want = ck.dequant_matvec_plain(xq, w8, sc)
+    ymax = float(want.abs().max())
+    k6_err = max_err(got, want, K6_TOL * ymax, 0.0, "dequant_matvec bf16 [1,12,2048,2048]")
+    k6 = {"name": "dequant_matvec_bf16", "route": "cuda", "source": f"{PORT}/csrc/int8_matvec.cu",
+          "replaces": "tools/exp_rtm_int8_stream.py:77", "launches": None, "max_abs_err": k6_err}
+    if on_card:
+        # L2 out of play: 4 rotating copies of the weights (4 x 50.3 MB)
+        copies = [(w8.clone(), sc.clone()) for _ in range(4)]
+        ring, ring_plain = itertools.cycle(copies), itertools.cycle(copies)
+        k6["ms"] = device_ms(lambda: ck.dequant_matvec(xq, *next(ring)))
+        k6["plain_ms"] = device_ms(lambda: ck.dequant_matvec_plain(xq, *next(ring_plain)))
+        # partial yardstick: one torch.bmm, float32 out, on the fold
+        # dequantized to bf16 beforehand (100.7 MB, twice the bytes of w8)
+        deq = (w8.to(bf16) * sc[:, None, :]).contiguous()
+        xt = xq[0][:, None, :].contiguous()
+        k6["library_ms"] = device_ms(lambda: torch.bmm(xt, deq, out_dtype=torch.float32))
+        del copies, deq
+        nbytes = xq.numel() * 2 + w8.numel() + sc.numel() * 2 + t * d * 4
+        # a product, a sum and the dequantizing multiply a weight, in float32
+        k6["bound_ms"], k6["bound_by"] = bound_ms(nbytes, 3.0 * t * c * d)
+        print(f"[22] (b) dequant_matvec bf16 mode at [1,{t},{c}] x [{t},{c},{d}]: max abs err "
+              f"{k6_err:.3e} = {k6_err / ymax:.3e} x max|y| (bound {K6_TOL}); L2 out of play: "
+              f"{k6['ms'] * 1e3:.1f} us (bound {k6['bound_ms'] * 1e3:.2f} us by {k6['bound_by']}), plain "
+              f"{k6['plain_ms'] * 1e3:.1f} us, torch.bmm on the bf16-dequantized fold (float32 out) "
+              f"{k6['library_ms'] * 1e3:.1f} us | {card}")
+    del w8, sc
+
+    # -- (c) PM and RTM headline bf16 cameras against float32 ------------------
+    tasks = config.load_tasks(config.default_tasks_path())
+    pm_spec = pm.build_spec(tasks, {})
+    rtm_spec = rtm.build_spec(tasks, {})
+    heads = [("pm", pm_spec, pm.init(torch.Generator().manual_seed(16), pm_spec), ("generic",)),
+             ("rtm", rtm_spec, random_rtm_params(rtm_spec, seed=12), ("generic", "folded", "folded_q8"))]
+    rtm_drift = 0.0
+    for family, fspec, fparams, froutes in heads:
+        for route in froutes:
+            p32 = stream.StreamPredictor(family, fspec, fparams, trunk_kernel=route, device=device)
+            p16 = stream.StreamPredictor(family, fspec, fparams, trunk_kernel=route, dtype=bf16,
+                                         device=device)
+            a = run(p32, cam)
+            b, launches = counted(lambda: run(p16, cam))
+            if route == "folded_q8":
+                want_launches("RTM bf16 camera folded_q8", launches, {"dequant_matvec": STREAM16_FRAMES})
+                stream_launches["rtm_folded_q8"] = launches
+                k6["launches"] = launches.get("dequant_matvec", 0)
+            agree, drift = agreement(b, a)
+            bound = RTM_BF16_DRIFT if family == "rtm" else BF16_CAMERA_DRIFT
+            if family == "rtm":
+                rtm_drift = max(rtm_drift, drift)
+            if drift > bound:
+                raise AssertionError(f"{family.upper()} {route} bf16 camera vs float32: max prob drift "
+                                     f"{drift:.3e} (bound {bound})")
+            print(f"[22] (c) {family.upper()} headline bf16 camera {route} over {STREAM16_FRAMES} frames "
+                  f"vs the card's float32 predictor: max prob drift {drift:.3e} (gate {bound}), "
+                  f"argmax agrees on {agree:.4f} of (frame, task) pairs; launches {launches}")
+            if on_card:
+                label = f"[22] (c) {family.upper()} headline bf16 camera step {route}"
+                route_latency(label, p16, x1, cam, card)
+                routes.append((label, p16, x1))
+    del heads
+
+    # -- (d) embeddings, t-SNE and HDBSCAN on the shipped PMG -------------------
+    embed_launches = {}
+    rng = np.random.RandomState(23)
+    frames = rng.randint(0, 256, (EMBED_FRAMES, 224, 224, 3), np.uint8)
+    labels = eval_labels(spec.tasks, EMBED_FRAMES, rng)
+    dataset = FrameDataset(frames, labels, spec.tasks.names)
+    bs = min(EMBED_BATCH, EMBED_FRAMES)
+    eng32 = executor.Engine("pmg", spec, params, batch_size=bs, capture=("pooled",), device=device)
+    eng16 = executor.Engine("pmg", spec, params, batch_size=bs, dtype=bf16, device=device)
+    n_batches = -(-EMBED_FRAMES // bs)
+    walls = {}
+    results = {}
+    for label, e, kind in (("float32 logits", eng32, "logits"), ("float32 pooled", eng32, "pooled"),
+                           ("bf16 logits", eng16, "logits")):
+        e.run(frames[:bs])  # warm
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: embed.compute_embeddings(
+            e, BatchLoader(dataset, batch_size=bs, pack_k=e.pack_k), kind=kind))
+        walls[label] = time.perf_counter() - t0
+        want = {"stem": n_batches, "patch_gram": n_batches}
+        if label.startswith("bf16"):
+            want["gram_proj"] = n_batches
+        want_launches(f"compute_embeddings {label}", launches, want)
+        embed_launches[label.replace(" ", "_")] = launches
+        results[label] = res
+    sync()
+    t0 = time.perf_counter()
+    ref = eng32.run(frames, collect=("logits",))["logits"]
+    sync()
+    run_wall_s = time.perf_counter() - t0
+    embs, labs, paths = results["float32 logits"]
+    t0_name = spec.tasks.names[0]
+    k0 = spec.tasks.num_classes[0]
+    if not np.array_equal(embs[t0_name], ref[:, 0, :k0]) or paths[t0_name] != dataset.paths():
+        raise AssertionError("compute_embeddings' logits differ from Engine.run's on the same frames")
+    pooled = results["float32 pooled"][0][t0_name]
+    if pooled.shape != (EMBED_FRAMES, spec.d_model) or not np.isfinite(pooled).all():
+        raise AssertionError(f"pooled embeddings {pooled.shape}")
+    print(f"[22] (d) compute_embeddings, PMG shipped, {EMBED_FRAMES} seeded labelled frames at batch {bs}: "
+          + ", ".join(f"{k} {EMBED_FRAMES / w:,.0f} img/s" for k, w in walls.items())
+          + f"; Engine.run on the same frames {EMBED_FRAMES / run_wall_s:,.0f} img/s; logits equal "
+          f"Engine.run's; launches {embed_launches} | {card}")
+
+    x = torch.from_numpy(embs[t0_name]).to(dev)
+    perp = min(30.0, max(1.0, (EMBED_FRAMES - 1) / 3.0))
+    sync()
+    t0 = time.perf_counter()
+    y, kl = ts.tsne(x, perp)
+    sync()
+    tsne_s = time.perf_counter() - t0
+    if y.shape != (EMBED_FRAMES, 2) or not torch.isfinite(y).all() or not np.isfinite(kl):
+        raise AssertionError("t-SNE layout not finite")
+    sub = embs[t0_name][:TSNE_SUB]
+    psub = min(30.0, max(1.0, (TSNE_SUB - 1) / 3.0))
+    sync()
+    t0 = time.perf_counter()
+    ys, kls = ts.tsne(torch.from_numpy(sub).to(dev), psub)
+    sync()
+    sub_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    yc, klc = ts.tsne(torch.from_numpy(sub), psub)
+    cpu_s = time.perf_counter() - t0
+    xs = torch.from_numpy(sub)
+    tr_card, tr_cpu = ts.trustworthiness(xs, ys.cpu()), ts.trustworthiness(xs, yc)
+    if abs(kls - klc) > TSNE_KL_REL * klc or abs(tr_card - tr_cpu) > TSNE_TRUST_TOL:
+        raise AssertionError(f"t-SNE on {TSNE_SUB} points, card vs CPU: KL {kls:.5f} vs {klc:.5f}, "
+                             f"trustworthiness {tr_card:.4f} vs {tr_cpu:.4f}")
+    cls = int(np.bincount(labs[t0_name][labs[t0_name] >= 0]).argmax())
+    keep = labs[t0_name] == cls
+    t0 = time.perf_counter()
+    clus = embed.hdbscan_clustering(embs[t0_name][keep], [p for p, k in zip(paths[t0_name], keep) if k])
+    hdb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdb.hdbscan(embs[t0_name][keep], 10, 5)
+    hdb1_s = time.perf_counter() - t0
+    print(f"[22] (d) t-SNE (exact, perplexity {perp:g}) of task {t0_name!r}'s logits on the card: "
+          f"N {EMBED_FRAMES} in {tsne_s * 1e3:.0f} ms, KL {kl:.5f}; its first {TSNE_SUB} points on the card "
+          f"{sub_s * 1e3:.0f} ms and on the CPU {cpu_s * 1e3:.0f} ms: KL {kls:.5f} vs {klc:.5f} "
+          f"(rel {abs(kls - klc) / klc:.2e}, bound {TSNE_KL_REL}), trustworthiness {tr_card:.4f} vs "
+          f"{tr_cpu:.4f} (bound {TSNE_TRUST_TOL}); hdbscan_clustering on class {cls} ({int(keep.sum())} "
+          f"points, 6-point grid): {hdb_s * 1e3:.0f} ms, {clus['n_clusters']} clusters; one HDBSCAN "
+          f"(10, 5) {hdb1_s * 1e3:.0f} ms (host) | {card}")
+    del frames, dataset, eng32, eng16, results, x
+
+    # -- (e) the CLI's embedding modes on seeded PNGs, in the process ----------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_22_")
+    recorder = pyplot_stand_in()
+    if recorder is not None:
+        print("[22] (e) matplotlib is not installed here: perform_tsne draws into phase 18's "
+              "recording stand-in, which checks that each t-SNE PNG was asked for")
+    try:
+        frng = np.random.RandomState(25)
+        manifest = {}
+        for i in range(EMBED_CLI_IMAGES):
+            path = os.path.join(tmp, "images", f"img{i:03d}.png")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(frng.randint(0, 256, (224, 224, 3), np.uint8)).save(path)
+            entry = {"image_path": path}
+            for task, classes in meta["tasks"].items():
+                entry[task] = classes[frng.randint(len(classes))]
+            manifest[f"img{i:03d}.png"] = entry
+        data_json, tasks_json = os.path.join(tmp, "dataset.json"), os.path.join(tmp, "tasks.json")
+        for path, obj in ((data_json, {"images": manifest}), (tasks_json, meta["tasks"])):
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        first_task = next(iter(meta["tasks"]))
+        first_class = meta["tasks"][first_task][0]
+        cli_walls = {}
+        for mode, extra, want in (
+                ("tsne", [], ["tsne_AllTasks.png"]),
+                ("tsne_interactive", [], ["tsne_interactive.html"]
+                 + [f"tsne_{t.replace(' ', '_')}.png" for t in meta["tasks"]]),
+                ("clustering", ["--clustering_class", first_class, "--min_cluster_size", "3",
+                                "--min_samples", "2"],
+                 [f"{first_class.replace(' ', '_')}_clustering_results.json"])):
+            save = os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            rc = cli.main(["pmg", "--mode", mode, "--data", data_json, "--build_classifier", tasks_json,
+                           "--model_path", os.path.join(FIXTURES, "pmg_shipped.pth"),
+                           "--batch_size", str(EMBED_CLI_IMAGES), "--num_workers", "4",
+                           "--save_dir", save, "--device", device]
+                          + extra)
+            cli_walls[mode] = time.perf_counter() - t0
+            made = set(os.listdir(save))
+            drawn = {os.path.basename(p) for p in recorder.saved} if recorder else set()
+            missing = [w for w in want if w not in made and not (w.endswith(".png") and w in drawn)]
+            if rc != 0 or missing:
+                raise AssertionError(f"weather_torch.py pmg --mode {mode}: rc {rc}, missing {missing}")
+        with open(os.path.join(tmp, "tsne_interactive", "tsne_interactive.html")) as f:
+            html = f.read()
+        if html.count("/9j/") < EMBED_CLI_IMAGES:
+            raise AssertionError("tsne_interactive.html carries fewer thumbnails than images")
+        print(f"[22] (e) weather_torch.py pmg on {EMBED_CLI_IMAGES} seeded PNGs (cli.main in this process, "
+              f"batch {EMBED_CLI_IMAGES}): "
+              + ", ".join(f"--mode {m} {w:.1f} s wall" for m, w in cli_walls.items())
+              + f"; wrote the JAX CLI's names (tsne_AllTasks.png, tsne_<task>.png x "
+              f"{len(meta['tasks'])}, tsne_interactive.html with {EMBED_CLI_IMAGES} thumbnails, "
+              f"{first_class.replace(' ', '_')}_clustering_results.json)"
+              + ("; the PNGs through phase 18's stand-in (no matplotlib here)" if recorder else "")
+              + f" | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if recorder is not None:
+            del sys.modules["matplotlib"], sys.modules["matplotlib.pyplot"]
+    print(f"[22] bf16 camera and embedding phase took {time.perf_counter() - t_phase:.1f} s; RTM bf16 "
+          f"camera drift at most {rtm_drift:.3e}")
+    return k6, stream_launches, embed_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3234,6 +3638,8 @@ def main() -> int:
     deploy_counts = deployment_phase(card)
     train_counts = training_phase(card, profile=args.profile)
     explain_counts = explain_phase(card)
+    k6_16, stream16_counts, embed_counts = stream_bf16_embed_phase(card, routes)
+    kernels.append(k6_16)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:
@@ -3258,6 +3664,17 @@ def main() -> int:
         # and on the explain paths of phase 21 (one Grad-CAM call, one IG call)
         if k["name"] == "patch_gram":
             k["explain_launches"] = {path: c["patch_gram"] for path, c in explain_counts.items()}
+    # and on the bf16 camera routes and the embedding paths of phase 22 (K2's
+    # float32 and bf16 modes count under one wrapper, K6's likewise: every
+    # run there is one mode's)
+    for k in kernels:
+        name = {"stem_bf16": "stem", "dequant_matvec_bf16": "dequant_matvec"}.get(k["name"], k["name"])
+        f32_mode = k["name"] in ("stem", "dequant_matvec")
+        k["stream_bf16_launches"] = {path: c[name] for path, c in stream16_counts.items()
+                                     if c.get(name) and not f32_mode}
+        k["embed_launches"] = {path: c[name] for path, c in embed_counts.items() if c.get(name)
+                               and not (k["name"] == "stem" and path.startswith("bf16"))
+                               and not (k["name"] == "stem_bf16" and not path.startswith("bf16"))}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,14 +10,16 @@ and RTM families (random init, a ``.pth``/``.npz`` or a native directory;
 ``.pth`` export, non-strict loading), batch inference (``Engine.run``
 and ``run_stream`` on uint8 frames, float32 or bf16), the evaluation
 workloads (``workloads.evaluate``, ``benchmark``, ``inference``: metrics
-computed in numpy), the data loader (``data``) and the float32 camera
-path (``workloads.stream.StreamPredictor``), the deployment path (the AOT
+computed in numpy), the data loader (``data``) and the camera path in
+float32 and bf16 (``workloads.stream.StreamPredictor``), the deployment path (the AOT
 serving artifact ``engine.export``, the micro-batcher ``engine.serving``,
 the HTTP server ``workloads.serve``), training (``fit``, the train step
 ``parallel.train.make_train_step``: train-mode forwards, AdamW, float32 or
 bf16 mixed precision, augmentation, resume), explainability
 (``workloads.explain``: Grad-CAM and integrated gradients) and patch-Gram
-style transfer (``workloads.style_transfer``), and the CLI (``cli.py``,
+style transfer (``workloads.style_transfer``), the embedding workloads
+(``workloads.embed``: t-SNE and HDBSCAN clustering on the port's own
+``utils.tsne`` and ``utils.hdbscan``), and the CLI (``cli.py``,
 ``weather_torch.py``), with six hand-written CUDA kernels
 (``ops/cuda_kernels.py``; K1, K2 and K5 also as ``torch.ops.wadt_torch``
 operators, K1 and K5 with registered gradients).

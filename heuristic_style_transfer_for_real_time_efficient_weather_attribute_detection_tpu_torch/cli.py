@@ -2,14 +2,13 @@
 family as the first positional, mirroring the JAX package's ``weather`` CLI
 flag for flag (plus ``--device``).
 
-Ported modes: classifier (with the ``--visualize_gradcam``,
-``--integrated_gradients`` and ``--style_transfer`` epilogues), benchmark,
-inference (``--visualize_gradcam`` fusions too), folder, watch_folder,
-camera (float32), serve (a live engine, or ``--exported`` from an AOT
-artifact), export and train.  Not yet ported, each raising
-``NotImplementedError`` that names its ROADMAP.md item: tsne,
-tsne_interactive and clustering (item 17), and ``--data_parallel`` with
-more than one visible card (item 22).
+Modes: classifier (with the ``--visualize_gradcam``,
+``--integrated_gradients`` and ``--style_transfer`` epilogues), tsne,
+tsne_interactive, clustering, benchmark, inference (``--visualize_gradcam``
+fusions too), folder, watch_folder, camera, serve (a live engine, or
+``--exported`` from an AOT artifact), export and train.  Not yet ported:
+``--data_parallel`` with more than one visible card raises
+``NotImplementedError`` naming ROADMAP.md item 22.
 
 Examples:
   python weather_torch.py pmg --mode classifier --data ds.json \\
@@ -34,8 +33,8 @@ MODES = [
     "export",
 ]
 
-# modes of the JAX CLI that the port has not reached yet -> ROADMAP.md item
-_UNPORTED_MODES = {"tsne": 17, "tsne_interactive": 17, "clustering": 17}
+# each family's own embedding tap for tsne, tsne_interactive and clustering
+_NATIVE_KIND = {"pmg": "logits", "rtm": "task", "pm": "task"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -229,15 +228,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError naming the ROADMAP.md item of a mode the
-    port has not reached, before any engine is built."""
-    if args.mode in _UNPORTED_MODES:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP.md item {_UNPORTED_MODES[args.mode]})"
-        )
-
-
 def build_engine(args) -> "Any":
     import torch
 
@@ -335,7 +325,6 @@ def make_loader(args, engine):
 def main(argv=None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     os.makedirs(args.save_dir, exist_ok=True)
 
     if args.mode == "serve" and args.exported:
@@ -507,6 +496,46 @@ def main(argv=None) -> int:
                    record=args.record,
                    dtype=torch.bfloat16 if args.bf16 else torch.float32,
                    device=args.device)
+
+    elif args.mode in ("tsne", "tsne_interactive"):
+        from .workloads.embed import compute_embeddings, export_interactive_html, perform_tsne
+
+        tasks_dict = engine.tasks.as_dict()
+        ds, loader = make_loader(args, engine)
+        kind = args.embedding_kind or _NATIVE_KIND[args.family]
+        per_task = args.per_task_tsne or args.mode == "tsne_interactive"
+        embs, labs, paths = compute_embeddings(engine, loader, kind=kind, per_task=per_task)
+        if args.mode == "tsne":
+            if per_task:
+                for t in engine.tasks.names:
+                    perform_tsne(embs[t], labs[t], tasks_dict[t], args.colors, args.save_dir, t,
+                                 device=engine.device)
+            else:
+                first = engine.tasks.names[0]
+                perform_tsne(embs, labs, tasks_dict[first], args.colors, args.save_dir,
+                             "AllTasks", device=engine.device)
+        else:
+            x2d = {}
+            for t in engine.tasks.names:
+                x2d[t], _ = perform_tsne(embs[t], labs[t], tasks_dict[t], args.colors,
+                                         args.save_dir, t, device=engine.device)
+            export_interactive_html(
+                x2d, labs, tasks_dict, paths,
+                os.path.join(args.save_dir, "tsne_interactive.html"),
+                thumbnails=not args.no_thumbnails,
+                thumb_limit=args.thumb_limit,
+            )
+
+    elif args.mode == "clustering":
+        from .workloads.embed import clustering_mode
+
+        if not args.clustering_class:
+            raise ValueError("clustering mode needs --clustering_class")
+        ds, loader = make_loader(args, engine)
+        task = args.clustering_task or engine.tasks.names[0]
+        kind = args.embedding_kind or _NATIVE_KIND[args.family]
+        clustering_mode(engine, loader, task, args.clustering_class, args.save_dir,
+                        args.min_cluster_size, args.min_samples, kind=kind)
 
     if writer:
         writer.close()

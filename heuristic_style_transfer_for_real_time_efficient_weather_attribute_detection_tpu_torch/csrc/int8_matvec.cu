@@ -6,11 +6,21 @@
 // `folded_q8` fold (models/rtm.py:320-330) and in `_classify` for `mlp_q8`
 // layers (models/rtm.py:119-126).
 //
-// What it computes: x float32 [B, T, C], w8 int8 [T, C, D], scale float32
-// [T, D] -> y float32 [B, T, D],
-//   y[b, t, d] = (sum_c x[b, t, c] * w8[t, c, d]) * scale[t, d],
-// summed in float32.  Scaling after the sum equals dequantizing first: the
-// scale is per output column.
+// What it computes, in two modes:
+//  - float32: x float32 [B, T, C], w8 int8 [T, C, D], scale float32 [T, D]
+//    -> y float32 [B, T, D],
+//      y[b, t, d] = (sum_c x[b, t, c] * w8[t, c, d]) * scale[t, d],
+//    summed in float32.  Scaling after the sum equals dequantizing first:
+//    the scale is per output column.
+//  - bf16: x bf16 [B, T, C], w8 int8 [T, C, D], scale bf16 [T, D] -> y
+//    float32 [B, T, D],
+//      y[b, t, d] = sum_c x[b, t, c] * bf16(w8[t, c, d] * scale[t, d]),
+//    summed in float32: the JAX package's bf16 camera path, which
+//    dequantizes each weight to bf16 before the product
+//    (models/rtm.py:324).  Each weight is rounded to bf16 once, so the
+//    scale cannot move after the sum; the product w8 * scale is exact in
+//    float32 (7 by 8 significant bits), and one round to nearest even
+//    gives the bf16 weight.
 //
 // What bounds it: bytes.  At the RTM camera path's shape (B = 1, T = 12,
 // C = D = 2048) it reads 50.3 MB of int8 weights once, about 15 us at
@@ -32,12 +42,17 @@
 //    on every run.
 //  - Ragged shapes: D % 16 != 0 or a misaligned pointer takes a byte-wise
 //    load path; rows and columns beyond C and D are masked.
+//  - The bf16 mode stages x as float32 and holds the thread's 16 column
+//    scales in registers; each weight costs one more multiply and a round
+//    to bf16 before its FMA, and the bytes read stay those of w8.
 // Not done yet: tensor cores (only worth it at a batch of many rows) and
 // TMA bulk copies of the weight tiles.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -50,22 +65,45 @@ constexpr int kRowLanes = kThreads / kColGroups;    // 64 rows per pass
 constexpr int kUnroll = 4;                          // loads in flight per thread
 constexpr int kMaxSmem = 227 * 1024;
 
-template <int BT>
-__device__ __forceinline__ void fma_word(float (&acc)[BT][kCols], const float* xs, int C,
-                                         int c, int word, int base) {
+// The weight as the product uses it: the int8 value (float32 mode), or the
+// int8 value times its column scale rounded once to bf16 (bf16 mode).
+template <bool BF16>
+__device__ __forceinline__ float weight(int q, float sc) {
+  const float w = static_cast<float>(q);
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(w * sc));
+  } else {
+    return w;
+  }
+}
+
+template <int BT, bool BF16>
+__device__ __forceinline__ void fma_word(float (&acc)[BT][kCols], const float (&sc)[kCols],
+                                         const float* xs, int C, int c, int word, int base) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const float w = static_cast<float>(static_cast<signed char>(word >> (8 * e)));
+    const float w = weight<BF16>(static_cast<signed char>(word >> (8 * e)), sc[base + e]);
 #pragma unroll
     for (int j = 0; j < BT; ++j) acc[j][base + e] = fmaf(xs[j * C + c], w, acc[j][base + e]);
   }
 }
 
-template <int BT>
+template <typename T>
+__device__ __forceinline__ float to_float(T v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(v);
+  } else {
+    return v;
+  }
+}
+
+// T is x's and scale's element type: float (float32 mode) or bf16 (bf16 mode).
+template <int BT, typename T>
 __global__ void __launch_bounds__(kThreads)
-dequant_matvec_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8,
-                      const float* __restrict__ scale, float* __restrict__ y,
-                      int B, int T, int C, int D, bool vec16) {
+dequant_matvec_kernel(const T* __restrict__ x, const int8_t* __restrict__ w8,
+                      const T* __restrict__ scale, float* __restrict__ y,
+                      int B, int T_, int C, int D, bool vec16) {
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
   extern __shared__ float smem[];
   float* xs = smem;             // [BT][C]: this block's rows of x for task t
   float* red = smem + BT * C;   // [kWarps][kTileCols]: per-warp column sums
@@ -80,9 +118,14 @@ dequant_matvec_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8
   const int col = d0 + cg * kCols;
 
   for (int j = 0; j < BT; ++j) {
-    const float* src = x + ((size_t)(b0 + j) * T + t) * C;
-    for (int c = threadIdx.x; c < C; c += kThreads) xs[j * C + c] = j < nb ? src[c] : 0.f;
+    const T* src = x + ((size_t)(b0 + j) * T_ + t) * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) xs[j * C + c] = j < nb ? to_float(src[c]) : 0.f;
   }
+  // bf16 mode: the thread's column scales (1 beyond D, where no weight is read)
+  float sc[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+    sc[i] = BF16 && col + i < D ? to_float(scale[(size_t)t * D + col + i]) : 1.f;
   __syncthreads();
 
   float acc[BT][kCols];
@@ -107,10 +150,10 @@ dequant_matvec_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8
       for (int u = 0; u < kUnroll; ++u) {
         const int c = c0 + u * kRowLanes;
         if (c < C) {
-          fma_word<BT>(acc, xs, C, c, v[u].x, 0);
-          fma_word<BT>(acc, xs, C, c, v[u].y, 4);
-          fma_word<BT>(acc, xs, C, c, v[u].z, 8);
-          fma_word<BT>(acc, xs, C, c, v[u].w, 12);
+          fma_word<BT, BF16>(acc, sc, xs, C, c, v[u].x, 0);
+          fma_word<BT, BF16>(acc, sc, xs, C, c, v[u].y, 4);
+          fma_word<BT, BF16>(acc, sc, xs, C, c, v[u].z, 8);
+          fma_word<BT, BF16>(acc, sc, xs, C, c, v[u].w, 12);
         }
       }
     }
@@ -119,7 +162,7 @@ dequant_matvec_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8
       const int8_t* wr = wt + (size_t)c * D;
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
-        const float w = col + i < D ? static_cast<float>(wr[col + i]) : 0.f;
+        const float w = col + i < D ? weight<BF16>(wr[col + i], sc[i]) : 0.f;
 #pragma unroll
         for (int j = 0; j < BT; ++j) acc[j][i] = fmaf(xs[j * C + c], w, acc[j][i]);
       }
@@ -146,25 +189,40 @@ dequant_matvec_kernel(const float* __restrict__ x, const int8_t* __restrict__ w8
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) s += red[w * kTileCols + threadIdx.x];
-      y[((size_t)(b0 + j) * T + t) * D + d] = s * scale[(size_t)t * D + d];
+      y[((size_t)(b0 + j) * T_ + t) * D + d] = BF16 ? s : s * to_float(scale[(size_t)t * D + d]);
     }
     __syncthreads();
   }
 }
 
-template <int BT>
-int launch(const float* x, const int8_t* w8, const float* scale, float* y, int B, int T,
+template <int BT, typename T>
+int launch(const T* x, const int8_t* w8, const T* scale, float* y, int B, int T_,
            int C, int D, bool vec16, cudaStream_t stream) {
   const size_t smem = (size_t)(BT * C + kWarps * kTileCols) * sizeof(float);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dequant_matvec_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        dequant_matvec_kernel<BT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((D + kTileCols - 1) / kTileCols, T, (B + BT - 1) / BT);
-  dequant_matvec_kernel<BT><<<grid, kThreads, smem, stream>>>(x, w8, scale, y, B, T, C, D, vec16);
+  const dim3 grid((D + kTileCols - 1) / kTileCols, T_, (B + BT - 1) / BT);
+  dequant_matvec_kernel<BT, T><<<grid, kThreads, smem, stream>>>(x, w8, scale, y, B, T_, C, D, vec16);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w8, const void* scale, void* y, int B, int T_, int C,
+             int D, void* stream) {
+  if (B <= 0 || T_ <= 0 || C <= 0 || D <= 0 || T_ > 65535) return (int)cudaErrorInvalidValue;
+  const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(w8) % 16 == 0;
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wq = static_cast<const int8_t*>(w8);
+  const auto* st = static_cast<const T*>(scale);
+  auto* yf = static_cast<float*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (B == 1) return launch<1, T>(xt, wq, st, yf, B, T_, C, D, vec16, s);
+  if ((B + 3) / 4 > 65535) return (int)cudaErrorInvalidValue;
+  return launch<4, T>(xt, wq, st, yf, B, T_, C, D, vec16, s);
 }
 
 }  // namespace
@@ -174,14 +232,12 @@ int launch(const float* x, const int8_t* w8, const float* scale, float* y, int B
 // launch (0 on success).
 extern "C" int wadt_dequant_matvec(const void* x, const void* w8, const void* scale, void* y,
                                    int B, int T, int C, int D, void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || D <= 0 || T > 65535) return (int)cudaErrorInvalidValue;
-  const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(w8) % 16 == 0;
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wq = static_cast<const int8_t*>(w8);
-  const auto* sf = static_cast<const float*>(scale);
-  auto* yf = static_cast<float*>(y);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (B == 1) return launch<1>(xf, wq, sf, yf, B, T, C, D, vec16, s);
-  if ((B + 3) / 4 > 65535) return (int)cudaErrorInvalidValue;
-  return launch<4>(xf, wq, sf, yf, B, T, C, D, vec16, s);
+  return dispatch<float>(x, w8, scale, y, B, T, C, D, stream);
+}
+
+// The bf16 mode: x bf16 [B, T, C]; w8 int8 [T, C, D]; scale bf16 [T, D];
+// y float32 [B, T, D]; all contiguous.
+extern "C" int wadt_dequant_matvec_bf16(const void* x, const void* w8, const void* scale,
+                                        void* y, int B, int T, int C, int D, void* stream) {
+  return dispatch<__nv_bfloat16>(x, w8, scale, y, B, T, C, D, stream);
 }

@@ -13,7 +13,8 @@ attention with d = C, no hidden MLP layers.
 
 ``apply`` runs a bf16 param tree in bf16 as the JAX package does: the
 trunk and the task embeddings in bf16, the MLPs' products summed in
-float32 and the logits float32.  The camera fold stays float32.
+float32 and the logits float32.  ``fold_stream_weights(dtype=bf16)`` gives
+the camera path's bf16 fold, on which ``apply_stream`` runs the same way.
 
 The camera path runs :func:`apply_stream` on a :func:`fold_stream_weights`
 tree.  With ``quantize_fold=True`` the fold's [T, C, C] product and any
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from ..config import TaskSpec
 from ..ops import cuda_kernels
 from ..ops.attention import rtm_task_attention
-from ..ops.nn import init_linear
+from ..ops.nn import cast_tree, conv2d_nchw, init_linear, matmul_f32
 from . import resnet
 
 DEFAULTS = dict(
@@ -116,13 +117,15 @@ def init(g: torch.Generator, spec: Spec) -> Dict[str, Any]:
 def _classify(params: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
     """Stacked per-task MLP. h: [B, T, C] -> logits [B, T, Kmax].
 
-    Takes float32 ``mlp`` layers or the camera fold's weight-only int8
+    Takes ``mlp`` layers (float32 or bf16: the products of bf16 weights are
+    exact in float32 and summed there) or the camera fold's weight-only int8
     ``mlp_q8`` layers, whose product is the ``dequant_matvec`` kernel on the
-    card (its plain version on the CPU), with the bias and ReLU after it."""
+    card (its plain version on the CPU) with h cast to the scales' type,
+    then the bias in float32 and the ReLU."""
     if "mlp_q8" in params:
         for lp in params["mlp_q8"]:
-            h = torch.relu(cuda_kernels.dequant_matvec(h.contiguous(), lp["w8"], lp["scale"])
-                           + lp["b"])
+            x = h.to(lp["scale"].dtype).contiguous()
+            h = torch.relu(cuda_kernels.dequant_matvec(x, lp["w8"], lp["scale"]) + lp["b"].float())
     else:
         for lp in params["mlp"]:
             h = torch.relu(torch.einsum("btc,tcd->btd", h.float(), lp["w"].float())
@@ -165,34 +168,40 @@ def pack_stem_weights(w7: torch.Tensor) -> torch.Tensor:
     return w8.reshape(4, 2, 4, 2, cin, cout).permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 4 * cin, cout)
 
 
-def _q8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _q8(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weight-only int8 with per-(task, output-column) symmetric scales for a
-    stacked [T, C, D] weight, in the JAX package's order of operations;
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    stacked [T, C, D] weight, in the JAX package's order of operations: the
+    scales and ``w / scale`` in float32, the scales then stored at
+    ``dtype``; ``torch.round`` rounds half to even, as ``jnp.round`` does."""
     w = w.to(torch.float32)
     amax = w.abs().amax(dim=1)  # [T, D]
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127)
-    return q.to(torch.int8).contiguous(), scale
+    return q.to(torch.int8).contiguous(), scale.to(dtype)
 
 
 def fold_stream_weights(
-    params: Dict[str, Any], spec: Spec, quantize_fold: bool = False, pack_stem: bool = True,
+    params: Dict[str, Any], spec: Spec, dtype: torch.dtype = torch.float32,
+    quantize_fold: bool = False, pack_stem: bool = True,
 ) -> Dict[str, Any]:
     """Derived weights for the batch-1 camera path.
 
-    - ``attn_pq = proj_w @ q`` [T, C], input-independent, computed once;
+    - ``attn_pq = proj_w @ q`` [T, C], input-independent, computed once,
+      float32 at every ``dtype`` (the scores stay float32);
     - ``attn_fold = proj_w @ out_w`` [T, C, C]: the two per-frame weight
-      reads ``(pooled @ proj_w) @ out_w`` associate into one;
+      reads ``(pooled @ proj_w) @ out_w`` associate into one; summed in
+      float32 and stored at ``dtype``;
     - ``quantize_fold=True`` stores the fold weight-only int8 with
       per-(task, output-column) scales (``attn_fold_q8``,
-      ``attn_fold_scale``) and the hidden MLP layers likewise (``mlp_q8``);
+      ``attn_fold_scale``) and the hidden MLP layers likewise (``mlp_q8``,
+      their biases at ``dtype``); the scales are computed in float32 and
+      stored at ``dtype``;
     - ``pack_stem`` adds the stem conv repacked for k=2 space-to-depth
-      input (``stem_w``).
+      input (``stem_w``, at ``dtype``).
 
-    The fold is a floating-point reassociation of :func:`apply`; the tests
-    bound its drift.  Float32 only: the JAX package's ``dtype`` (bf16) is
-    not ported yet (ROADMAP.md A25).
+    ``backbone``, ``mlp`` and ``final`` are cast to ``dtype``, as the JAX
+    package's fold does.  The fold is a floating-point reassociation of
+    :func:`apply`; the tests bound its drift.
     """
     if not spec.use_attention:
         raise ValueError("fold_stream_weights requires use_attention=True")
@@ -200,22 +209,22 @@ def fold_stream_weights(
     pq = torch.einsum("tcd,td->tc", attn["proj_w"], attn["q"])
     fold = torch.bmm(attn["proj_w"], attn["out_w"])
     out: Dict[str, Any] = {
-        "backbone": params["backbone"],
+        "backbone": cast_tree(params["backbone"], dtype),
         "attn_pq": pq,
-        "mlp": params["mlp"],
-        "final": params["final"],
+        "mlp": cast_tree(params["mlp"], dtype),
+        "final": cast_tree(params["final"], dtype),
     }
     if quantize_fold:
-        out["attn_fold_q8"], out["attn_fold_scale"] = _q8(fold)
+        out["attn_fold_q8"], out["attn_fold_scale"] = _q8(fold, dtype)
         out["mlp_q8"] = []
         for lp in params["mlp"]:
-            w8, s = _q8(lp["w"])
-            out["mlp_q8"].append({"w8": w8, "scale": s, "b": lp["b"]})
+            w8, s = _q8(lp["w"], dtype)
+            out["mlp_q8"].append({"w8": w8, "scale": s, "b": lp["b"].to(dtype)})
         del out["mlp"]
     else:
-        out["attn_fold"] = fold
+        out["attn_fold"] = fold.to(dtype)
     if pack_stem:
-        out["stem_w"] = pack_stem_weights(params["backbone"]["conv1"]["w"])
+        out["stem_w"] = pack_stem_weights(params["backbone"]["conv1"]["w"]).to(dtype)
     return out
 
 
@@ -226,6 +235,13 @@ def apply_stream(folded: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.T
     weight contractions collapsed to one.  With packed stem weights
     (``stem_w``), ``x`` is normalized NHWC [B, H, W, 3] (packed here) or
     already k=2 space-to-depth packed [B, H/2, W/2, 12].
+
+    On a bf16 fold (``x`` normalized in bf16) it computes what the JAX
+    package's bf16 ``apply_stream`` does: the packed stem and the trunk in
+    bf16 (float32 sums), the scores and the attention pooling in float32,
+    and the fold product on the pooled vector rounded to bf16, summed in
+    float32: on the int8 fold through ``dequant_matvec``'s bf16 mode, each
+    weight dequantized to bf16 first.
     """
     if "stem_w" in folded:
         if x.shape[-1] == 3:
@@ -235,7 +251,8 @@ def apply_stream(folded: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.T
         # contiguous NCHW, as the trunk's other entry makes it: a
         # channels-last view here would carry cuDNN channels-last through
         # every later convolution, with a layout conversion at each
-        a = F.conv2d(F.pad(resnet._nchw(x), (2, 1, 2, 1)), folded["stem_w"].permute(3, 2, 0, 1))
+        a = conv2d_nchw(F.pad(resnet._nchw(x), (2, 1, 2, 1)), folded["stem_w"].permute(3, 2, 0, 1),
+                        None, 1, 0)
         n = max(1, min(spec.truncate_after_layer, len(resnet.CHILDREN)))
         feats = resnet._apply_children(folded["backbone"], a, resnet.CHILDREN[1:n])
         b, c, h, w = feats.shape
@@ -244,13 +261,18 @@ def apply_stream(folded: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.T
         feats = resnet.apply_truncated(folded["backbone"], x, spec.truncate_after_layer)
         b, h, w, c = feats.shape
         tokens = feats.reshape(b, h * w, c)
+    tokens = tokens.float()
     scores = torch.einsum("bnc,tc->btn", tokens, folded["attn_pq"]) * (1.0 / math.sqrt(spec.token_dim))
     pooled = torch.einsum("btn,bnc->btc", torch.softmax(scores, dim=-1), tokens)
     if "attn_fold_q8" in folded:
-        emb = cuda_kernels.dequant_matvec(pooled.contiguous(), folded["attn_fold_q8"],
-                                          folded["attn_fold_scale"])
-    else:
+        scale = folded["attn_fold_scale"]
+        emb = cuda_kernels.dequant_matvec(pooled.to(scale.dtype).contiguous(),
+                                          folded["attn_fold_q8"], scale)
+    elif folded["attn_fold"].dtype == torch.float32:
         emb = torch.einsum("btc,tce->bte", pooled, folded["attn_fold"])
+    else:
+        w = folded["attn_fold"]
+        emb = matmul_f32(pooled.to(w.dtype).transpose(0, 1), w).transpose(0, 1)
     return _classify(folded, emb)
 
 

@@ -12,7 +12,7 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   path's head on a ``models.pmg.fold_head_weights`` tree;
 - ``dequant_matvec`` (``csrc/int8_matvec.cu``) replaces ``int8_pallas``
   (``tools/exp_rtm_int8_stream.py:77``), the RTM camera path's per-task
-  int8 fold product and ``mlp_q8`` layers;
+  int8 fold product and ``mlp_q8`` layers, in float32 and in bf16;
 - ``gram_proj`` (``csrc/gram_proj.cu``) replaces ``make_proj_kernel.proj``
   (``tools/exp_pmg_projkernel.py:65``), the bf16 token projection of the
   PMG batch path read from the row-major Gram.
@@ -163,8 +163,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.wadt_fused_head.restype = i32
-        lib.wadt_dequant_matvec.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        lib.wadt_dequant_matvec.restype = i32
+        for fn in (lib.wadt_dequant_matvec, lib.wadt_dequant_matvec_bf16):
+            fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+            fn.restype = i32
         lib.wadt_gram_proj_bf16.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.wadt_gram_proj_bf16.restype = i32
         _lib = lib
@@ -1172,19 +1173,31 @@ def _fused_head_launch(tokens: torch.Tensor, folded: Dict[str, Any], spec, stage
 
 
 def dequant_matvec_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch per-task int8 product: ``(x[:, t] @ float(w8[t])) * scale[t]``."""
+    """Plain PyTorch per-task int8 product.  float32 mode:
+    ``(x[:, t] @ float(w8[t])) * scale[t]``.  bf16 mode (bf16 x and scale):
+    ``x[:, t] @ bf16(w8[t] * scale[t])``, each weight dequantized to bf16
+    and the exact products summed in float32."""
+    if x.dtype == torch.bfloat16:
+        w = (w8.to(torch.bfloat16) * scale[:, None, :]).float()
+        return torch.einsum("btc,tcd->btd", x.float(), w)
     return torch.einsum("btc,tcd->btd", x, w8.to(torch.float32)) * scale
 
 
 def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x float32 [B, T, C], w8 int8 [T, C, D], scale float32 [T, D] ->
-    y float32 [B, T, D] = ``(x[:, t] @ w8[t]) * scale[t]``, summed in float32.
+    """Per-task weight-only int8 product, y float32 [B, T, D], summed in float32:
+
+    - float32 mode: x float32 [B, T, C], w8 int8 [T, C, D], scale float32
+      [T, D] -> ``(x[:, t] @ w8[t]) * scale[t]``;
+    - bf16 mode: x bf16 [B, T, C], w8 int8 [T, C, D], scale bf16 [T, D] ->
+      ``x[:, t] @ bf16(w8[t] * scale[t])``, each weight dequantized to bf16
+      first, as the JAX package's bf16 camera path computes it.
 
     Replaces ``int8_pallas`` (``tools/exp_rtm_int8_stream.py:77``, body
     ``_dequant_matvec_kernel``).  On this card it is bound by reading w8
     once: 50.3 MB at the RTM camera shape (T 12, C = D 2048), ~15 us at
-    3.35 TB/s.  CPU tensor: the plain version.  CUDA tensor: the
-    ``dequant_matvec`` kernel, contiguous tensors only.
+    3.35 TB/s, in either mode.  CPU tensor: the plain version.  CUDA
+    tensor: the ``dequant_matvec`` kernel, contiguous tensors only; x and
+    scale of one type.
     """
     if x.device.type == "cpu":
         return dequant_matvec_plain(x, w8, scale)
@@ -1197,15 +1210,18 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
     b, t, c = x.shape
     d = w8.shape[-1]
     dev = x.device
-    _check_cuda("dequant_matvec x", x, torch.float32, dev)
+    bf16 = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _check_cuda("dequant_matvec x", x, dtype, dev)
     _check_cuda("dequant_matvec w8", w8, torch.int8, dev, (t, c, d))
-    _check_cuda("dequant_matvec scale", scale, torch.float32, dev, (t, d))
+    _check_cuda("dequant_matvec scale", scale, dtype, dev, (t, d))
     out = torch.empty((b, t, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = build()
-    _launch("dequant_matvec", lib.wadt_dequant_matvec, dev, x.data_ptr(), w8.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), b, t, c, d)
+    fn = lib.wadt_dequant_matvec_bf16 if bf16 else lib.wadt_dequant_matvec
+    _launch("dequant_matvec", fn, dev, x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), b, t, c, d)
     return out
 
 

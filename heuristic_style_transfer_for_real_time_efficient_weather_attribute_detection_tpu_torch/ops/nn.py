@@ -92,14 +92,18 @@ class _MatmulBf16F32(torch.autograd.Function):
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` [..., K] x [K, N] summed in float32 with a float32 result,
-    whatever the operands' float types (JAX's ``preferred_element_type``).
-    bf16 operands on a CUDA card go to cuBLAS as they are, with a float32
-    output (under autograd through :class:`_MatmulBf16F32`); elsewhere they
-    are upcast, which is exact."""
+    """``a @ b`` [..., K] x [K, N], or batched [N, M, K] x [N, K, P], summed
+    in float32 with a float32 result, whatever the operands' float types
+    (JAX's ``preferred_element_type``).  bf16 operands on a CUDA card go to
+    cuBLAS as they are, with a float32 output (a 2-D b under autograd
+    through :class:`_MatmulBf16F32`); elsewhere they are upcast, which is
+    exact."""
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 3 and not grad:
+        return torch.bmm(a, b, out_dtype=torch.float32)
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
         a2 = a.reshape(-1, a.shape[-1])
-        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if grad:
             y = _MatmulBf16F32.apply(a2, b)
         else:
             y = torch.mm(a2, b, out_dtype=torch.float32)

@@ -108,11 +108,15 @@ def _device_affine(
         return tuple(torch.as_tensor(a).to(device, dtype) for a in packed_affine(k))
 
 
-def normalize_uint8_packed(z8: torch.Tensor, k: int) -> torch.Tensor:
+def normalize_uint8_packed(
+    z8: torch.Tensor, k: int, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
     """Normalize for ``s2d_pack`` output [B, H/k, W/k, k*k*3] uint8: the
-    per-RGB affine tiled k*k times over the packed channels, on z8's device."""
-    scale, shift = _device_affine(z8.device, k)
-    return z8.to(torch.float32) * scale - shift
+    per-RGB affine tiled k*k times over the packed channels, on z8's device,
+    in ``dtype`` with its constants rounded to ``dtype`` (as
+    :func:`normalize_uint8`)."""
+    scale, shift = _device_affine(z8.device, k, dtype)
+    return z8.to(dtype) * scale - shift
 
 
 def s2d_pack(x: torch.Tensor, k: int) -> torch.Tensor:

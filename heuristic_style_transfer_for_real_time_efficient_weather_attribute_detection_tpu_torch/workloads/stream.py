@@ -11,10 +11,11 @@ For the shipped PMG the forward is two kernels: the fused trunk + Gram
 (``ops.cuda_kernels.fused_head``) on a compressed ``fold_head_weights``
 tree.  For RTM the default forward runs on the int8 ``fold_stream_weights``
 tree, whose fold product is the ``dequant_matvec`` kernel.  PM runs its
-generic forward on the normalized frame.  The stream runs in float32.  Parity
-features: threshold -> Unknown labels, translucent text box overlay, XVID
-recording at 20 FPS, per-frame latency -> times_camera.json; keys r
-(record), f (fullscreen), q (quit); headless runs with no display.
+generic forward on the normalized frame.  The stream runs in float32 or
+bf16 (``dtype``), as the JAX package's does.  Parity features: threshold ->
+Unknown labels, translucent text box overlay, XVID recording at 20 FPS,
+per-frame latency -> times_camera.json; keys r (record), f (fullscreen), q
+(quit); headless runs with no display.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..engine.checkpoint import to_device
 from ..engine.executor import class_mask, masked_softmax
 from ..models import get_family
 from ..ops import cuda_kernels, kalman
+from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8, normalize_uint8_packed, s2d_pack
 
 _TRUNK_KERNELS = ("auto", "fused", "packed", "generic", "folded", "folded_q8")
@@ -103,8 +105,20 @@ class StreamPredictor:
     frame), which ``"auto"`` picks, as the JAX package's generic uint8 step.
 
     ``params`` may be a ready ``fold_stream_weights`` tree for the folded
-    routes (of the same kind as the route), so a fold built once, on the card,
-    can be reused.  ``head_fold`` applies to PMG's fused route only.
+    routes (of the same kind and type as the route and ``dtype``), so a
+    fold built once, on the card, can be reused.  ``head_fold`` applies to
+    PMG's fused route only.
+
+    ``dtype`` (float32 or bfloat16) is the JAX package's: the ``fused``
+    route ignores it (its trunk fold and head fold carry their own types),
+    so its bf16 predictor equals the float32 one bit for bit; ``packed``
+    runs ``apply_packed`` in bf16 on a bf16 copy of the params and its own
+    bf16 stem fold, as ``Engine(dtype=bfloat16)`` does at batch 1;
+    ``folded`` / ``folded_q8`` run on ``fold_stream_weights(dtype=...)``
+    (on the int8 fold, ``dequant_matvec``'s bf16 mode); ``generic`` runs
+    the family's ``apply`` on a bf16 copy of the params and the frame
+    normalized in bf16.  The logits go to float32 before the masked softmax;
+    the Kalman state stays float32.
 
     ``device`` defaults to the CUDA card and raises when there is none; pass
     ``device="cpu"`` to run the plain versions of the kernels.
@@ -117,11 +131,8 @@ class StreamPredictor:
 
         mod = get_family(family)  # raises for an unknown family
         family = family.lower()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "the port's stream runs in float32 only so far (bf16 StreamPredictor: "
-                "ROADMAP.md A25)"
-            )
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"StreamPredictor dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if trunk_kernel not in _TRUNK_KERNELS:
             raise ValueError(f"unknown trunk_kernel {trunk_kernel!r}; expected one of {_TRUNK_KERNELS}")
         if head_fold != "auto" and head_fold not in _HEAD_FOLDS:
@@ -177,6 +188,7 @@ class StreamPredictor:
             )
         self.family = family
         self.route = route
+        self.dtype = dtype
         self.head_fold = None
         self._mod = mod
         params = to_device(params, self.device)
@@ -195,13 +207,18 @@ class StreamPredictor:
 
                 self._head = head
         elif route == "packed":
-            self._stem = pmg.fold_stem(params, spec)
+            params = cast_tree(params, dtype)
+            self._stem = pmg.fold_stem(params, spec, dtype)
         elif route in ("folded", "folded_q8"):
             q8 = route == "folded_q8"
             if "attn_pq" not in params:
-                params = rtm.fold_stream_weights(params, spec, quantize_fold=q8)
-            elif ("attn_fold_q8" in params) != q8:
-                raise ValueError(f"the given fold_stream_weights tree does not fit route {route!r}")
+                params = rtm.fold_stream_weights(params, spec, dtype=dtype, quantize_fold=q8)
+            elif ("attn_fold_q8" in params) != q8 or (
+                    params["attn_fold_scale" if q8 else "attn_fold"].dtype != dtype):
+                raise ValueError(
+                    f"the given fold_stream_weights tree does not fit route {route!r} in {dtype}")
+        else:
+            params = cast_tree(params, dtype)
         self.params = params
         self.kstate = kalman.init_state(len(self.tasks), self.tasks.max_classes, self.device)
 
@@ -218,12 +235,13 @@ class StreamPredictor:
             logits = self._head(cuda_kernels.fused_trunk_gram(x8, self._trunk, self.spec),
                                 self.params, self.spec)
         elif self.route == "packed":
-            logits, _ = pmg.apply_packed(self.params, x8, self.spec, stem=self._stem)
+            logits, _ = pmg.apply_packed(self.params, x8, self.spec, stem=self._stem,
+                                         dtype=self.dtype)
         elif self.route in ("folded", "folded_q8"):
-            x = normalize_uint8_packed(s2d_pack(x8, 2), 2)
+            x = normalize_uint8_packed(s2d_pack(x8, 2), 2, self.dtype)
             logits = rtm.apply_stream(self.params, x, self.spec)
         else:
-            logits, _ = self._mod.apply(self.params, normalize_uint8(x8), self.spec)
+            logits, _ = self._mod.apply(self.params, normalize_uint8(x8, self.dtype), self.spec)
         probs = masked_softmax(logits.float(), self._mask)[0]
         self.kstate, smoothed = kalman.filter_update(self.kstate, probs)
         return smoothed if self.use_kalman else probs

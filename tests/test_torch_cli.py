@@ -1,8 +1,9 @@
 """The port's CLI (``…_torch/cli.py``, ``weather_torch.py``) on the CPU: the
 JAX CLI's flags plus ``--device``, the classifier, export and train modes
 on a tiny synthetic set writing the JAX CLI's artifacts (with the explain
-and style-transfer epilogues), and the modes not ported yet refusing by
-their ROADMAP.md item."""
+and style-transfer epilogues), and ``--data_parallel`` over several cards
+refusing by its ROADMAP.md item.  The embedding modes (tsne,
+tsne_interactive, clustering): tests/test_torch_embed.py."""
 
 import json
 import os
@@ -143,17 +144,6 @@ def test_cli_missing_build_classifier_is_usage_error(tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["pmg", "--mode", "classifier", "--save_dir", str(tmp_path), "--device", "cpu"])
     assert e.value.code == 2
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--mode", "tsne"], 17),
-    (["--mode", "tsne_interactive"], 17),
-    (["--mode", "clustering"], 17),
-])
-def test_unported_modes_name_their_roadmap_item(env, argv, item):
-    base, _, root = _base(env)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        cli.main(base + argv + ["--save_dir", os.path.join(root, "unported"), "--device", "cpu"])
 
 
 def test_cli_classifier_explain_and_style_transfer_write_the_jax_files(env):

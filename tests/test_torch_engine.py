@@ -135,20 +135,15 @@ def test_default_device_raises_without_a_card(shipped, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(dtype=torch.bfloat16), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
 ])
 def test_unported_options_raise(shipped, kwargs, err):
-    """``mesh`` raises in the Engine.  bf16 runs in the Engine now
-    (tests/test_torch_bf16.py) and still raises in the stream."""
-    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.stream import (
-        StreamPredictor,
-    )
-
+    """``mesh`` raises in the Engine.  bf16 runs in the Engine
+    (tests/test_torch_bf16.py) and in the stream
+    (tests/test_torch_stream_bf16.py)."""
     spec, params = shipped
-    make = StreamPredictor if "dtype" in kwargs else Engine
     with pytest.raises(err, match="ROADMAP"):
-        make("pmg", spec, params, device="cpu", **kwargs)
+        Engine("pmg", spec, params, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("bad", [

@@ -191,6 +191,31 @@ def test_explain_modules_are_scanned_and_clean(rel, explain_imports):
     assert explain_imports == "[]"
 
 
+EMBED_MODULES = ["utils/tsne.py", "utils/hdbscan.py", "workloads/embed.py",
+                 "workloads/_embed_html.py"]
+
+
+@pytest.fixture(scope="module")
+def embed_imports():
+    """One fresh interpreter imports the embedding slice's modules and lists
+    what it loaded of JAX, optax, scikit-learn and the JAX package."""
+    mods = ", ".join(_module(rel) for rel in EMBED_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'optax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", EMBED_MODULES)
+def test_embed_modules_are_scanned_and_clean(rel, embed_imports):
+    """The embedding slice's modules (the port's own t-SNE and HDBSCAN) are
+    among those the scan reads, and import without JAX or scikit-learn."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert embed_imports == "[]"
+
+
 def test_export_module_imports_no_model_code():
     """The serving side of an artifact needs no model: importing the export
     module and the operator registrations loads no ``models`` module."""

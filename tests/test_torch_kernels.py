@@ -467,7 +467,9 @@ def test_operator_gradients_match_plain_on_card(cuda_device):
     z = torch.from_numpy(rng.randn(4, 14, 14, 96).astype(np.float32)).to(cuda_device)
     r = torch.from_numpy(rng.randn(4, 9, 96 * 96).astype(np.float32)).to(cuda_device)
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        got, want = (z.to(dtype).requires_grad_() for _ in range(2))
+        # leaves of their own: z.to(float32) is z itself, and after the first
+        # pass z would require grad and make the bf16 cast a non-leaf
+        got, want = (z.to(dtype).detach().clone().requires_grad_() for _ in range(2))
         ck.reset_launches()
         (ck.patch_gram(got, 3).float() * r).sum().backward()
         assert ck.LAUNCHES["patch_gram"] == 1

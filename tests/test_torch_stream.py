@@ -351,15 +351,6 @@ def test_stream_rejects_bad_choices(model):
         pred.submit(np.zeros((1, 64, 64, 3), np.uint8))
 
 
-@pytest.mark.parametrize("family,item", [("pm", "A25"), ("pmg", "A25")])
-def test_stream_other_families_name_the_roadmap(model, family, item):
-    """Every family streams in float32; bf16 names the ROADMAP item that
-    will port it (PM's own stream: tests/test_torch_pm.py)."""
-    _, _, tspec, tparams = model
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tstream.StreamPredictor(family, tspec, tparams, dtype=torch.bfloat16, device="cpu")
-
-
 def test_stream_labels_and_reset(model):
     _, _, tspec, tparams = model
     pred = tstream.StreamPredictor("pmg", tspec, tparams, use_kalman=True, device="cpu")
