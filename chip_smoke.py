@@ -3,7 +3,7 @@
 
 Run from the root of the repository:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--record]
 
 Phases, each of which raises on failure:
 
@@ -40,7 +40,8 @@ Phases, each of which raises on failure:
    batch 1 and 8, clusters of 8 and 16), each called twice: bit-identical;
 7. the golden-fixture walk of the fused head variants on the card: argmax
    agrees on decisive samples, drift <= HEAD_FOLD_MAX_DRIFT;
-8. camera path: ``StreamPredictor`` with its default routes on the shipped
+8. camera path: ``StreamPredictor`` on the fused route and the fused bf16
+   head, named explicitly (``"auto"`` follows phase 23's record), on the shipped
    checkpoint over 64 seeded frames, launch counts reset just before; both
    camera kernels must have launched, the probabilities follow the Kalman
    recursion and match the port's CPU path on 8 frames; the packed route
@@ -222,6 +223,36 @@ Phases, each of which raises on failure:
     writing the JAX CLI's file names (the PNGs into phase 18's recording
     stand-in where matplotlib is missing), with the wall time of each.
 
+23. multi-device execution and the measured route selection
+    (``mesh_phase``, ``select_phase``): (a) the shipped PMG
+    ``Engine(mesh=make_mesh())`` over a world of 1 on NCCL (one all-reduce
+    run on NCCL) at batch 256 over phase 4's 600 frames, float32 and bf16:
+    logits within 1e-5 x max|logit| of the engine without a mesh, K1 and
+    K2 (and K5 in bf16) launched; (b) the sharded PMG-shipped train step
+    on 2 ranks sharing the card over gloo, ``("data",)`` (2,) and
+    ``("data", "model")`` (1, 2), global batch 64, three float32 steps
+    (TF32 off) and three bf16 steps (dropout 0.1), each from the
+    one-process run's state: losses within 1e-5 relative (bf16 1e-2) of
+    the one-process step; in float32 the one-process step rerun on the
+    sharded run's branch at every LeakyReLU and ReLU (the elements whose
+    own branch differs counted), and the sharded gradients within 1e-4 x
+    each leaf's max and params within 1e-5 x each leaf's max of it (2 x lr
+    where a gradient is float32 noise); bf16 params within the larger of
+    1e-2 x max and 2 x lr; K1 once a step and K5 once a bf16 step on every
+    rank, ms a step beside the unsharded step's; (c) the port's
+    ``parallel.dryrun`` (``host_local_batch``, 1e-5) over gloo on the CPU
+    and on the card, in two processes beside (a); (d) every selectable
+    op's variants (the PMG camera routes and head folds and the RTM camera
+    routes at batch 1, each a step's time over 20 back-to-back steps; the
+    engine's scan chunk for PMG at batch 256 and RTM at 128 in float32 and
+    bf16, per image of ``Engine.run`` over 8 batches), 5 rounds in turns,
+    median and spread beside the committed record's calls, the kernel
+    routes whose every round beat the default's, ``--record`` adding the
+    call to the record; every ``"auto"`` checked against the record in
+    effect and every entry against the rule that wrote it; and the
+    batch-1 K1, K2 (bf16 mode) and K5 of PMG's bf16 packed and generic
+    camera routes beside their bounds and plain versions.
+
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, and in phase 14 K1's bf16
 time with its work cut stage by stage.  Host times come from runs
@@ -234,7 +265,9 @@ their launches on each path of phases 18 and 19, and K1's and K5's
 ``train_launches``, their launches in phase 20's twenty steps, K1's
 ``explain_launches``, its launches in phase 21's Grad-CAM and IG calls, and
 every kernel's ``stream_bf16_launches`` and ``embed_launches``, its
-launches on each bf16 camera route and each embedding path of phase 22;
+launches on each bf16 camera route and each embedding path of phase 22,
+and K1's, K2's and K5's ``mesh_launches``, their launches on the mesh
+engine and on each rank of the sharded train step in phase 23;
 K6's bf16 mode has an entry of its own, ``dequant_matvec_bf16``), the
 card's nvidia-smi line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -245,6 +278,7 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -752,9 +786,10 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old: dic
 
     # -- 8. camera path ---------------------------------------------------------
     cam = np.random.RandomState(4).randint(0, 256, (CAMERA_FRAMES, 224, 224, 3), np.uint8)
-    pred = stream.StreamPredictor("pmg", spec, params, use_kalman=True)
+    pred = stream.StreamPredictor("pmg", spec, params, use_kalman=True, trunk_kernel="fused",
+                                  head_fold="fused_bf16")
     if (pred.route, pred.head_fold) != ("fused", "fused_bf16"):
-        raise AssertionError(f"default camera route is {pred.route}/{pred.head_fold}")
+        raise AssertionError(f"camera route is {pred.route}/{pred.head_fold}")
     ck.reset_launches()
     handles = [pred.submit(f) for f in cam]
     probs = np.stack([np.asarray(h) for h in handles])
@@ -774,7 +809,8 @@ def camera_phases(profile: bool, card: str, spec, params, routes: list, old: dic
             or np.abs(probs[:, ~mask]).max() != 0):
         raise AssertionError("camera probability rows do not sum to 1 over the real classes")
     cpu_params = checkpoint.to_device(params, "cpu")
-    cpu_pred = stream.StreamPredictor("pmg", spec, cpu_params, use_kalman=True, device="cpu")
+    cpu_pred = stream.StreamPredictor("pmg", spec, cpu_params, use_kalman=True, trunk_kernel="fused",
+                                      head_fold="fused_bf16", device="cpu")
     cam_err = max_err(torch.from_numpy(probs[:8]), torch.from_numpy(np.stack(
         [cpu_pred(f) for f in cam[:8]])), 1e-3, 1e-3, "camera probs vs the port's CPU path")
     packed = stream.StreamPredictor("pmg", spec, params, use_kalman=True, trunk_kernel="packed")
@@ -1042,9 +1078,9 @@ def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
     # -- 13. RTM camera path at full width -------------------------------------
     cam = np.random.RandomState(14).randint(0, 256, (CAMERA_FRAMES, 224, 224, 3), np.uint8)
     gparams = checkpoint.to_device(params, dev)
-    pred = stream.StreamPredictor("rtm", spec, gparams, use_kalman=True)
+    pred = stream.StreamPredictor("rtm", spec, gparams, use_kalman=True, trunk_kernel="folded_q8")
     if pred.route != "folded_q8":
-        raise AssertionError(f"default RTM camera route is {pred.route}")
+        raise AssertionError(f"RTM camera route is {pred.route}")
     torch.cuda.synchronize()
     ck.reset_launches()
     handles = [pred.submit(f) for f in cam]
@@ -3344,10 +3380,648 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda") -> tu
     return k6, stream_launches, embed_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: multi-device execution and the measured route selection
+# ---------------------------------------------------------------------------
+
+MESH_BATCH = 64  # (b): the sharded train step's global batch (phase 20's)
+MESH_STEPS = 3
+MESH_RUNS = (("data", ("data",), (2,)), ("data_model", ("data", "model"), (1, 2)))
+BF16_TRAIN_TOL = 1e-2  # PERF.md section 2's bf16 limit
+SELECT_ROUNDS = 5
+STREAM_STEPS = 20  # back-to-back camera steps between two events, per round
+SCAN_KS = {"standalone": 1, "scan_k4": 4, "scan_k8": 8}
+# each selectable op's fixed rule: what its reader runs where no record applies
+SELECT_DEFAULTS = {"fused_trunk_gram": "fused", "pmg_head_fold": "fused_bf16",
+                   "rtm_stream_folded": "folded_q8",
+                   **{f"eval_scan_chunk_{fam}_{dt}": "standalone" for fam in ("pmg", "pm", "rtm")
+                      for dt in ("f32", "bf16")}}
+
+
+def shipped_train_start():
+    """(spec, params) of the shipped PMG checkpoint, on the CPU."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg
+
+    with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+        meta = json.load(f)
+    spec = pmg.build_spec(meta["tasks"], meta["hparams"])
+    return spec, checkpoint.load_torch_checkpoint("pmg", os.path.join(FIXTURES, "pmg_shipped.pth"), spec)
+
+
+def mesh_reference(spec, params, x, y) -> dict:
+    """(b)'s one-process run: MESH_STEPS PMG train steps (dropout 0.1) from
+    ``params`` in float32 and bf16 -> per dtype the state before each step
+    and after the last (CPU trees), each step's gradients (numpy), losses
+    and host ms a step (median)."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+
+    ref = {}
+    for label, dt in (("float32", None), ("bf16", torch.bfloat16)):
+        opt = ptrain.make_optimizer()
+        _, step = ptrain.make_train_step("pmg", spec, opt, compute_dtype=dt, device="cuda")
+        p = ptrain.trainable_params(params, "cuda")
+        state = ptrain.TrainState(p, opt.init(p), 0)
+        out = {"states": [ptrain.snapshot(checkpoint._train_state_tree(state))], "grads": [],
+               "losses": [], "times": []}
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y)
+            out["losses"].append(float(loss))  # waits for the step
+            out["times"].append(time.perf_counter() - t0)
+            out["grads"].append(step_grads(state))
+            out["states"].append(ptrain.snapshot(checkpoint._train_state_tree(state)))
+        out["ms"] = statistics.median(out.pop("times")) * 1e3
+        ref[label] = out
+    return ref
+
+
+def step_grads(state, mesh=None) -> dict:
+    """The gradients of a train state's last step by leaf path (numpy),
+    the task-sharded leaves gathered over the mesh's model axis."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+
+    ost = state.opt_state
+    grads = {"acc": {q: t.grad for q, t in zip(ost.paths, ost.leaves)}}
+    if mesh is not None:
+        grads = ptrain._map_opt_tree(lambda t: mesh.gather(t, "model"), grads, mesh)
+    return {q: t.cpu().numpy() for q, t in grads["acc"].items()}
+
+
+@contextlib.contextmanager
+def activation_branches(force=None):
+    """Within: the port's LeakyReLUs (``models.trunk`` and ``models.pmg``)
+    and every ``torch.relu`` (the SE block's and the transformer FFN's)
+    record, in call order, which branch each element takes (input >= 0,
+    or > 0 for the ReLU) into the yielded list.  With ``force`` (such a
+    list from another run, on the host), each element takes ``force``'s
+    branch instead of its own, slope and gradient included; the list then
+    holds the branches the inputs would have taken.  The forward is the
+    same function (``torch.where`` on the branch, as ``ops.nn.leaky_relu``),
+    so a run whose branches all agree with ``force`` is unchanged."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import (
+        pmg, trunk,
+    )
+
+    taken = []
+    relu, leaky = torch.relu, trunk.leaky_relu
+
+    def pick(x, own, other):
+        branch = own if force is None else force[len(taken)].to(x.device)
+        if branch.shape != x.shape:
+            raise AssertionError(f"activation {len(taken)}: forced branches {tuple(branch.shape)} for an "
+                                 f"input of {tuple(x.shape)}")
+        taken.append(own)
+        return torch.where(branch, x, other)
+
+    def leaky_relu(x, negative_slope=0.2):
+        return pick(x, x >= 0, x * negative_slope)
+
+    torch.relu = lambda x: pick(x, x > 0, torch.zeros_like(x))
+    trunk.leaky_relu = pmg.leaky_relu = leaky_relu
+    try:
+        yield taken
+    finally:
+        torch.relu, trunk.leaky_relu, pmg.leaky_relu = relu, leaky, leaky
+
+
+def adamw_applied(tree: dict, grads: dict) -> dict:
+    """The trainable params after AdamW's update in one process from the
+    state ``tree`` (of :func:`mesh_reference`) with ``grads`` (numpy, by
+    leaf path) -> numpy, by leaf path."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+
+    p = ptrain.trainable_params(tree["params"], "cuda")
+    full = ptrain.make_optimizer().init(p)
+    full.load_tree(tree["opt_state"])
+    for q, t in zip(full.paths, full.leaves):
+        t.grad = torch.from_numpy(grads[q]).cuda()
+    full.update()
+    return {q: t.detach().cpu().numpy() for q, t in zip(full.paths, full.leaves)}
+
+
+def hold_sharded_step(got: dict, got_grads: dict, want: dict, grads: dict, applied: dict, bf16: bool,
+                      what: str) -> tuple:
+    """Hold a sharded step (params and gradients by leaf path, numpy) to the
+    one-process step from the same state (``want``, ``grads``) and to
+    AdamW applied in one process to the sharded gradients (``applied``).
+
+    Every trainable param within 1e-5 x its leaf's max of ``applied``: the
+    sharded update (task slices, their moments, weight decay) is the
+    one-process update of the same gradients.  float32, the one-process
+    step taking the sharded run's branch at every LeakyReLU and ReLU
+    (:func:`forced_reference_step`): every gradient element within 1e-4 x
+    its leaf's max (phase 20's bar; a leaf whose max is at most 1e-5 x the
+    step's largest gradient, the attention key bias's exact 0, is noise in
+    both runs), the running statistics within 1e-5 x their leaf's max;
+    the params' distance to ``want`` is reported as a share of 1e-5 x
+    each leaf's max (2 x lr where the element's gradient is float32 noise,
+    at most 1e-4 x the step's largest), not gated: Adam divides each
+    element's gradient difference by the element's own second moment, so
+    a gradient element held to 1e-4 x its leaf's max can move its param by
+    more than 1e-5 x the leaf's max where the leaf has moved by a few lr
+    from 0.  bf16: every param and running statistic within the larger of
+    BF16_TRAIN_TOL x its leaf's max and 2 x lr of ``want``, the gradients'
+    relative l2 error reported.  Returns (the worst gradient error, as a
+    share of its leaf's max in float32 and in relative l2 norm in bf16; the
+    worst param error against ``applied`` and against ``want``, each as a
+    share of its limit, with the leaf of the latter)."""
+    import numpy as np
+
+    top = max(float(np.abs(v).max()) for v in grads.values())
+    worst_g = worst_a = 0.0
+    worst_w = (0.0, "")
+    for q, w in want.items():
+        scale = float(np.abs(w).max())
+        err = np.abs(got[q] - w)
+        if q in grads:  # a trainable leaf (the others: batch norm's running statistics)
+            g, gerr = np.abs(grads[q]), np.abs(got_grads[q] - grads[q])
+            if float(g.max()) > 1e-5 * top:
+                rel = (float(np.linalg.norm(gerr)) / float(np.linalg.norm(g)) if bf16
+                       else float(gerr.max()) / float(g.max()))
+                if not bf16 and rel > 1e-4:
+                    raise AssertionError(f"{what} gradient {q}: max err {rel:.3e} x its leaf's max")
+                worst_g = max(worst_g, rel)
+            a_share = float(np.abs(got[q] - applied[q]).max()) / max(1e-5 * scale, 1e-30)
+            if a_share > 1.0:
+                raise AssertionError(f"{what} param {q}: {a_share:.3e} x 1e-5 x its leaf's max from AdamW "
+                                     "applied in one process to the sharded gradients")
+            worst_a = max(worst_a, a_share)
+        # Adam moves an element whose gradient is float32 noise (at most 1e-4
+        # x the step's largest) by up to lr in either run: 2 x lr (phase 20)
+        noisy = np.full(w.shape, bf16) if q not in grads else bf16 | (np.abs(grads[q]) <= 1e-4 * top)
+        tol = (BF16_TRAIN_TOL if bf16 else 1e-5) * scale
+        share = max(float(err[~noisy].max(initial=0.0)) / max(tol, 1e-30),
+                    float(err[noisy].max(initial=0.0)) / max(tol, 2 * TRAIN_LR))
+        if share > 1.0 and (bf16 or q not in grads):
+            raise AssertionError(f"{what} {q}: max err {float(err.max()):.3e} (leaf max {scale:.3e})")
+        worst_w = max(worst_w, (share, q))
+    return worst_g, worst_a, worst_w
+
+
+def mesh_train_rank(rank: int, ref_path: str) -> dict:
+    """(b), one rank of 2 sharing the card over gloo: on each of MESH_RUNS'
+    meshes, in float32 (TF32 off) and bf16, one sharded PMG-shipped train
+    step from each state of the one-process run (``ref_path``, saved by
+    :func:`mesh_reference`, so that rounding differences do not compound
+    from step to step), launch counts reset just before the steps.
+    Returns each run's losses, launches and host ms a step (median), and
+    for each step the gathered params and gradients after it (rank 0) and
+    in float32 the branch each activation took (:func:`activation_branches`;
+    one rank per data index, for its rows), which the parent holds to the
+    one-process step."""
+    import torch
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    port.config.enable_parity_precision()
+    ref = torch.load(ref_path, weights_only=False)
+    spec, _ = shipped_train_start()
+    x, y = train_batch(spec.tasks, MESH_BATCH, 23)
+    out = {}
+    for name, axes, shape in MESH_RUNS:
+        mesh = make_mesh(axes=axes, shape=shape)
+        for label, dt in (("float32", None), ("bf16", torch.bfloat16)):
+            opt = ptrain.make_optimizer()
+            _, step = ptrain.make_train_step("pmg", spec, opt, mesh=mesh, compute_dtype=dt,
+                                             device="cuda")
+            torch.cuda.synchronize()
+            ck.reset_launches()
+            res = {"losses": [], "steps": []}
+            times = []
+            for i in range(MESH_STEPS):
+                tree = ref[label]["states"][i]
+                p = ptrain.trainable_params(tree["params"], "cuda")
+                full = opt.init(p)
+                full.load_tree(tree["opt_state"])
+                state = ptrain.shard_state(ptrain.TrainState(p, full, int(tree["step"])), mesh)
+                with (activation_branches() if dt is None else contextlib.nullcontext([])) as taken:
+                    t0 = time.perf_counter()
+                    state, loss = step(state, x, y)
+                    res["losses"].append(float(loss))  # waits for the step
+                    times.append(time.perf_counter() - t0)
+                got = {q: t.detach().cpu().numpy() for q, t in
+                       ptrain.leaf_dict(ptrain.gather_params(state.params, mesh)).items()}
+                got_grads = step_grads(state, mesh)
+                res["steps"].append({
+                    "branches": ([m.cpu().numpy() for m in taken]
+                                 if dt is None and mesh.index("model") == 0 else None),
+                    "params": got if rank == 0 else None, "grads": got_grads if rank == 0 else None})
+            res["launches"] = dict(ck.LAUNCHES)
+            res["ms"] = statistics.median(times) * 1e3
+            out[(name, label)] = res
+    return out
+
+
+def forced_reference_step(spec, tree: dict, x, y, branches: list) -> tuple:
+    """The one-process float32 step from ``tree`` (a state of
+    :func:`mesh_reference`) with every activation on ``branches`` ->
+    (params, gradients, the number of elements whose own branch differs
+    from ``branches`` in each activation, in call order)."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+
+    opt = ptrain.make_optimizer()
+    _, step = ptrain.make_train_step("pmg", spec, opt, device="cuda")
+    p = ptrain.trainable_params(tree["params"], "cuda")
+    full = opt.init(p)
+    full.load_tree(tree["opt_state"])
+    with activation_branches(force=branches) as own:
+        state, _ = step(ptrain.TrainState(p, full, int(tree["step"])), x, y)
+    if len(own) != len(branches):
+        raise AssertionError(f"the forced step ran {len(own)} activations, the sharded run {len(branches)}")
+    flips = [int((a.cpu() != b).sum()) for a, b in zip(own, branches)]
+    params = {q: t.detach().cpu().numpy() for q, t in ptrain.leaf_dict(state.params).items()}
+    return params, step_grads(state), flips
+
+
+def stream_us(step, x1) -> float:
+    """One camera route's time a frame: CUDA events around STREAM_STEPS
+    back-to-back steps (host enqueue and device work both count, as they
+    do for a camera), in microseconds."""
+    import torch
+
+    for _ in range(3):
+        step(x1)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(STREAM_STEPS):
+        step(x1)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / STREAM_STEPS * 1e3
+
+
+def run_us(eng, frames, k: int) -> float:
+    """``Engine.run`` over host frames with ``scan_chunk=k``, CUDA events
+    around it: microseconds an image end to end."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    eng.run(frames, collect=("probs",), scan_chunk=k)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(frames) * 1e3
+
+
+def measure_variants(fns: dict) -> dict:
+    """Each variant's times over SELECT_ROUNDS rounds, the variants in
+    turns within each round."""
+    times = {v: [] for v in fns}
+    for _ in range(SELECT_ROUNDS):
+        for v, fn in fns.items():
+            times[v].append(fn())
+    return times
+
+
+def sharded_train_phase(card: str) -> dict:
+    """Phase 23 (b): the sharded PMG-shipped train step on 2 ranks sharing
+    the card over gloo, ``("data",)`` (2,) and ``("data", "model")``
+    (1, 2), float32 and bf16, against the one-process step.  Returns each
+    rank's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
+        train as ptrain,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel.multihost import (
+        spawn_world,
+    )
+
+    counts = {}
+    spec, params = shipped_train_start()
+    x, y = train_batch(spec.tasks, MESH_BATCH, 23)
+    ref = mesh_reference(spec, params, x, y)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        ranks = spawn_world(mesh_train_rank, 2, ref_path, backend="gloo", timeout_s=300)
+        spawn_s = time.perf_counter() - t0
+    for (name, label), res0 in ranks[0].items():
+        want = ref[label]
+        tol = 1e-5 if label == "float32" else BF16_TRAIN_TOL
+        for r, res in enumerate(ranks):
+            got = res[(name, label)]
+            if got["launches"]["patch_gram"] != MESH_STEPS or (
+                    label == "bf16" and got["launches"]["gram_proj"] != MESH_STEPS):
+                raise AssertionError(f"sharded {name} {label} rank {r} launched {got['launches']}")
+            counts[f"train_{name}_{label}_rank{r}"] = got["launches"]
+            for i, (a, b) in enumerate(zip(got["losses"], want["losses"])):
+                if abs(a - b) > tol * abs(b):
+                    raise AssertionError(f"sharded {name} {label} rank {r} step {i}: loss {a} vs {b}")
+        worst, flips = (0.0, 0.0, (0.0, "")), []
+        for i in range(MESH_STEPS):
+            mine, tree = res0["steps"][i], want["states"][i]
+            if label == "float32":
+                # the one-process step on the sharded run's branches (the
+                # rows of each data index, in order)
+                parts = [rr[(name, label)]["steps"][i]["branches"] for rr in ranks]
+                branches = [torch.from_numpy(np.concatenate(bs))
+                            for bs in zip(*[b for b in parts if b is not None])]
+                fp, fg, flipped = forced_reference_step(spec, tree, x, y, branches)
+                shapes = [tuple(b.shape) for b in branches]
+                top = max(float(np.abs(g).max()) for g in want["grads"][i].values())
+                unforced = max(float(np.abs(mine["grads"][q] - g).max()) / float(np.abs(g).max())
+                               for q, g in want["grads"][i].items() if np.abs(g).max() > 1e-5 * top)
+                flips.append(f"{flipped} elements by activation, gradients {unforced:.2e} x leaf max "
+                             "from the one-process step on its own")
+            else:
+                fp = {q: t.numpy() for q, t in ptrain.leaf_dict(want["states"][i + 1]["params"]).items()}
+                fg = want["grads"][i]
+            errs = hold_sharded_step(mine["params"], mine["grads"], fp, fg,
+                                     adamw_applied(tree, mine["grads"]), label == "bf16",
+                                     f"sharded {name} {label} step {i}")
+            worst = (max(worst[0], errs[0]), max(worst[1], errs[1]), max(worst[2], errs[2]))
+        if label == "float32":
+            held = (f"elements where the sharded run's branch differs from the one-process step's, by "
+                    f"step, at each LeakyReLU and ReLU in call order (inputs {shapes}): "
+                    f"{'; '.join(flips)}; on the sharded branches, gradients {worst[0]:.2e} x leaf max at "
+                    f"worst (limit 1e-4), params {worst[2][0]:.2f} x (1e-5 x leaf max; 2 x lr where a "
+                    f"gradient is float32 noise) at worst ({worst[2][1]}; reported)")
+        else:
+            held = (f"gradients {worst[0]:.2e} in relative l2 norm at worst (not gated), params at worst "
+                    f"{worst[2][0]:.2e} of their limit (the larger of {BF16_TRAIN_TOL} x leaf max and 2 x lr)")
+        print(f"[23] (b) sharded PMG-shipped train step, {name} mesh of 2 ranks sharing the card (gloo), "
+              f"global batch {MESH_BATCH}, {label}, {MESH_STEPS} steps, each from the one-process run's "
+              f"state: losses {[round(v, 6) for v in res0['losses']]} vs "
+              f"{[round(v, 6) for v in want['losses']]} (limit {tol} relative); held to the one-process "
+              f"step: {held}; params {worst[1]:.2e} x (1e-5 x leaf max) at worst from AdamW applied in one "
+              f"process to the sharded gradients (limit 1); launches rank 0 {res0['launches']}, rank 1 "
+              f"{ranks[1][(name, label)]['launches']}; {res0['ms']:.1f} ms a step (rank 0, host, median of "
+              f"{MESH_STEPS}{', branches recorded' if label == 'float32' else ''}) vs {want['ms']:.1f} ms "
+              f"unsharded | {card}")
+    print(f"[23] (b) the 2-rank world took {spawn_s:.1f} s (spawn, CUDA start, both meshes)")
+    del ranks, ref
+
+    return counts
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 23 (a)-(c): (a) the shipped PMG ``Engine`` over a world of 1 on
+    NCCL against the engine without a mesh; (b) the sharded PMG-shipped
+    train step on 2 ranks sharing the card over gloo, ``("data",)`` (2,)
+    and ``("data", "model")`` (1, 2), against the one-process step; (c) the
+    ``host_local_batch`` dryrun over gloo on the CPU and on the card.
+    Returns the mesh paths' launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch as port
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel.multihost import (
+        initialize_process,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    counts = {}
+    # (c) runs beside (a): the dryrun's own processes, on the CPU and on the card
+    dry = {d: subprocess.Popen([sys.executable, "-m", f"{PORT}.parallel.dryrun", "--device", d],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+           for d in ("cpu", "cuda")}
+
+    # -- (a) the engine over a world of 1 on NCCL ---------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_process("file://" + os.path.join(tmp, "rendezvous"), 1, 0, backend="nccl",
+                           timeout_s=120)
+        try:
+            one = torch.ones(4, device=dev)
+            dist.all_reduce(one)  # NCCL itself, once
+            if not torch.equal(one, torch.ones(4, device=dev)):
+                raise AssertionError("an all-reduce over a world of 1 changed its tensor")
+            mesh = make_mesh()
+            with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
+                meta = json.load(f)
+            frames = np.random.RandomState(1).randint(0, 256, (N_FRAMES, 224, 224, 3), np.uint8)
+            errs = {}
+            for label, dt in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+                kw = dict(batch_size=BATCH, dtype=dt, device="cuda")
+                plain = port.load_engine("pmg", os.path.join(FIXTURES, "pmg_shipped.pth"),
+                                         meta["tasks"], meta["hparams"], **kw)
+                eng = executor.Engine("pmg", plain.spec, plain.params, mesh=mesh, **kw)
+                want = plain.run(frames, collect=("logits",))["logits"]
+                torch.cuda.synchronize()
+                ck.reset_launches()
+                got = eng.run(frames, collect=("logits", "probs"))
+                torch.cuda.synchronize()
+                counts[f"engine_{label}"] = launches = dict(ck.LAUNCHES)
+                need = ("patch_gram", "stem") + (("gram_proj",) if dt == torch.bfloat16 else ())
+                if any(launches[k] == 0 for k in need):
+                    raise AssertionError(f"mesh engine {label} launched {launches}")
+                errs[label] = within_max(torch.from_numpy(got["logits"]), torch.from_numpy(want),
+                                         1e-5, f"mesh engine {label} logits")
+                check_probs(got, N_FRAMES, plain.spec, f"mesh engine {label}")
+            del eng, plain
+        finally:
+            dist.destroy_process_group()
+    print(f"[23] (a) Engine(mesh=make_mesh()) over a world of 1 on NCCL (one all-reduce run), shipped "
+          f"PMG at batch {BATCH} over {N_FRAMES} frames: logits vs the engine without a mesh "
+          + ", ".join(f"{k} {v:.2e} x max|logit|" for k, v in errs.items())
+          + f" (limit 1e-5); launches float32 {counts['engine_float32']}, bf16 {counts['engine_bf16']}")
+    for d, proc in dry.items():
+        out, _ = proc.communicate(timeout=600)
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        if proc.returncode != 0 or "PASS" not in last:
+            raise AssertionError(f"dryrun on {d} failed (rc {proc.returncode}):\n{out[-3000:]}")
+        print(f"[23] (c) the port's parallel.dryrun --device {d} (2 processes over gloo): {last}")
+
+    counts.update(sharded_train_phase(card))
+    print(f"[23] (a)-(c) took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def select_phase(card: str, record: bool) -> None:
+    """Phase 23 (d): every selectable op's variants measured beside the
+    committed record (one call added to it with ``record``), each
+    ``"auto"`` checked against the record in effect, and the batch-1 K1,
+    K2 (bf16 mode) and K5 of PMG's bf16 camera routes."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import (
+        checkpoint, executor,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import rtm
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck, kernel_select as ks,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    spec, params = shipped_train_start()
+    kind = torch.cuda.get_device_name(0)
+    committed = json.loads(json.dumps(ks._table()))  # the record as committed, before any write
+    for backend, ops in committed.items():
+        for op, entry in ops.items():
+            known = ks.known_variants(op)
+            if (entry["winner"] not in ks.KERNEL_ROUTES[op] or entry["default"] != SELECT_DEFAULTS[op]
+                    or any(not set(c) <= set(known) for c in entry["calls"])
+                    or entry["winner"] != ks.decide(op, entry["calls"], entry["default"])):
+                raise AssertionError(f"record {backend} / {op} is not one the code would write: {entry}")
+    gparams = checkpoint.to_device(params, dev)
+    cam = np.random.RandomState(4).randint(0, 256, (1, 224, 224, 3), np.uint8)
+    x1 = torch.from_numpy(cam).to(dev)
+
+    def cam_fn(family, fspec, fparams, **kw):
+        p = stream.StreamPredictor(family, fspec, fparams, use_kalman=True, **kw)
+        return lambda: stream_us(p.step, x1)
+
+    fused = {"fused": cam_fn("pmg", spec, gparams, trunk_kernel="fused", head_fold="fused_bf16"),
+             "packed": cam_fn("pmg", spec, gparams, trunk_kernel="packed")}
+    heads = {hf: cam_fn("pmg", spec, gparams, trunk_kernel="fused", head_fold=hf)
+             for hf in ks.known_variants("pmg_head_fold")}
+    rspec = rtm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    rparams = checkpoint.to_device(random_rtm_params(rspec, seed=12), dev)
+    rtm_routes = {r: cam_fn("rtm", rspec, rparams, trunk_kernel=r)
+                  for r in ks.known_variants("rtm_stream_folded")}
+    measured = {
+        "fused_trunk_gram": (measure_variants(fused), "batch 1 224 px shipped PMG, a camera step "
+                             "(fused: K3 + K4 on the bf16 fold; packed: K2, K1 and the plain head)"),
+        "pmg_head_fold": (measure_variants(heads), "batch 1 224 px shipped PMG, a camera step on "
+                          "the fused route by head fold"),
+        "rtm_stream_folded": (measure_variants(rtm_routes), "batch 1 224 px RTM headline (ResNet-50 "
+                              "through layer4, d 2048), a camera step"),
+    }
+    del fused, heads, rtm_routes
+    for family, fspec, fparams, bs, n in (("pmg", spec, gparams, BATCH, 8 * BATCH),
+                                          ("rtm", rspec, rparams, RTM_BATCH, 8 * RTM_BATCH)):
+        frames = np.random.RandomState(23).randint(0, 256, (n, 224, 224, 3), np.uint8)
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            eng = executor.Engine(family, fspec, fparams, batch_size=bs, dtype=dt, device="cuda")
+            eng.run(frames[: 2 * bs], collect=("probs",))
+            fns = {v: (lambda k=k: run_us(eng, frames, k)) for v, k in SCAN_KS.items()}
+            measured[f"eval_scan_chunk_{family}_{label}"] = (
+                measure_variants(fns), f"b{bs} {label} 224px, Engine.run over {n} host frames, "
+                "per image end to end")
+            del eng
+        del frames
+    agree = []
+    for op, (rounds, shape) in measured.items():
+        default = SELECT_DEFAULTS[op]
+        beat = [v for v in ks.KERNEL_ROUTES[op] if v != default and max(rounds[v]) < min(rounds[default])]
+        old = committed.get(kind, {}).get(op)
+        agree.append(f"{op} {'/'.join(beat) or 'none'}"
+                     + ("" if old is None else f" (recorded winner {old['winner']})"))
+        print(f"[23] (d) {op}: " + ", ".join(
+            f"{v} {statistics.median(t):.2f} (spread {max(t) - min(t):.2f})" for v, t in rounds.items())
+            + f" us, median (max - min) of {SELECT_ROUNDS} rounds; recorded calls: "
+            + ("; ".join("[" + ", ".join(f"{v} {statistics.median(t):.2f}" for v, t in c.items()) + "]"
+                         for c in old["calls"]) if old else "none for this card") + f" | {card}")
+        if record:
+            ks.record(op, rounds, shape, default, backend=kind)
+    print(f"[23] (d) kernel routes whose every round beat the default's in this call: {'; '.join(agree)}"
+          + (f"; this call added to {ks.RECORD_PATH}" if record else "; the record was not written"))
+    # each "auto" resolves to the record in effect (the defaults where none)
+    ks._table.cache_clear()
+    rec = ks._table().get(kind, {})
+
+    def recorded(op):
+        return rec[op]["winner"] if op in rec else SELECT_DEFAULTS[op]
+
+    pa = stream.StreamPredictor("pmg", spec, gparams)
+    want_route = recorded("fused_trunk_gram")
+    want_fold = recorded("pmg_head_fold") if want_route == "fused" else None
+    ra = stream.StreamPredictor("rtm", rspec, rparams)
+    got_auto = {"pmg": (pa.route, pa.head_fold), "rtm": ra.route}
+    want_auto = {"pmg": (want_route, want_fold), "rtm": recorded("rtm_stream_folded")}
+    for family, fspec, fparams in (("pmg", spec, gparams), ("rtm", rspec, rparams)):
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            eng = executor.Engine(family, fspec, fparams, batch_size=2, dtype=dt, device="cuda")
+            got_auto[f"{family}_{label}"] = eng.resolve_scan_chunk("auto")
+            want_auto[f"{family}_{label}"] = SCAN_KS[recorded(f"eval_scan_chunk_{family}_{label}")]
+    if got_auto != want_auto:
+        raise AssertionError(f"'auto' resolves to {got_auto}, the record to {want_auto}")
+    print(f"[23] (d) every 'auto' follows the record in effect for {kind} "
+          f"({'written now' if record else 'committed' if rec else 'none: the fixed rules'}): {got_auto}")
+    del pa, ra
+
+    # the batch-1 kernels of PMG's bf16 packed and generic camera routes
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(23)
+    z16 = torch.from_numpy(rng.randn(1, 14, 14, spec.gram_channels).astype(np.float32)).to(dev).to(bf16)
+    g16 = ck.patch_gram(z16, spec.patch_div)
+    eng16 = executor.Engine("pmg", spec, gparams, batch_size=1, dtype=bf16, device="cuda")
+    st, tp = eng16._stem, eng16._run_params["token_proj"]
+    w16, b32 = tp["w"].contiguous(), tp["b"].float()
+    m, k, nout = g16.shape[0] * g16.shape[1], g16.shape[2], w16.shape[1]
+    cout = st["w"].shape[1]
+    rows = []
+    for name, fn, plain, nbytes, flops in (
+            ("patch_gram bf16 [1,14,14,96] div 3", lambda: ck.patch_gram(z16, spec.patch_div),
+             lambda: ck.patch_gram_plain(z16, spec.patch_div), 2 * (z16.numel() + g16.numel()),
+             2.0 * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2),
+            ("stem bf16 mode [1,224,224,3] -> 32",
+             lambda: ck.stem(x1, st["w"], st["scale"], st["shift"], 4, leaky=True, out_dtype=bf16,
+                             bias=st["bias"]),
+             lambda: ck.stem_plain(x1, st["w"], st["scale"], st["shift"], 4, leaky=True, out_dtype=bf16,
+                                   bias=st["bias"]),
+             x1.numel() + st["w"].numel() * 4 + cout * 8 + 56 * 56 * cout * 2, 2.0 * 56 * 56 * cout * 48),
+            (f"gram_proj [{m},{k}] x [{k},{nout}] bf16 out",
+             lambda: ck.gram_proj(g16, w16, b32, bf16), lambda: ck.gram_proj_plain(g16, w16, b32, bf16),
+             2 * g16.numel() + 2 * w16.numel() + 4 * nout + 2 * m * nout, 2.0 * m * k * nout)):
+        b_ms, b_by = bound_ms(nbytes, 0.0, bf16_flops=flops)
+        rows.append(f"{name} {device_ms(fn) * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), "
+                    f"plain {device_ms(plain) * 1e3:.1f} us")
+    print("[23] (d) batch-1 kernels of PMG's bf16 packed and generic camera routes: " + "; ".join(rows)
+          + f" | {card}")
+    del eng16
+    print(f"[23] (d) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel from torch.profiler")
+    ap.add_argument("--record", action="store_true",
+                    help="add phase 23's measured routes to the port's ops/kernel_ab.json "
+                         "for this card, as one more call")
     args = ap.parse_args()
 
     import numpy as np
@@ -3640,6 +4314,8 @@ def main() -> int:
     explain_counts = explain_phase(card)
     k6_16, stream16_counts, embed_counts = stream_bf16_embed_phase(card, routes)
     kernels.append(k6_16)
+    mesh_counts = mesh_phase(card)
+    select_phase(card, args.record)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:
@@ -3675,6 +4351,14 @@ def main() -> int:
         k["embed_launches"] = {path: c[name] for path, c in embed_counts.items() if c.get(name)
                                and not (k["name"] == "stem" and path.startswith("bf16"))
                                and not (k["name"] == "stem_bf16" and not path.startswith("bf16"))}
+    # and on the mesh paths of phase 23 (the mesh engine; each rank of the
+    # sharded train step)
+    for k in kernels:
+        name = {"stem_bf16": "stem"}.get(k["name"], k["name"])
+        if name in ("stem", "patch_gram", "gram_proj"):
+            k["mesh_launches"] = {path: c[name] for path, c in mesh_counts.items() if c[name]
+                                  and not (k["name"] == "stem" and "bf16" in path)
+                                  and not (k["name"] == "stem_bf16" and "bf16" not in path)}
     kernels_per_step(routes, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)

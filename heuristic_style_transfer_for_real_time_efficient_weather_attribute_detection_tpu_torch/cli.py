@@ -6,9 +6,14 @@ Modes: classifier (with the ``--visualize_gradcam``,
 ``--integrated_gradients`` and ``--style_transfer`` epilogues), tsne,
 tsne_interactive, clustering, benchmark, inference (``--visualize_gradcam``
 fusions too), folder, watch_folder, camera, serve (a live engine, or
-``--exported`` from an AOT artifact), export and train.  Not yet ported:
-``--data_parallel`` with more than one visible card raises
-``NotImplementedError`` naming ROADMAP.md item 22.
+``--exported`` from an AOT artifact), export and train.
+``--data_parallel`` runs one process per card: under ``torchrun`` (more
+than one process in the environment's ``WORLD_SIZE``) the engine and the
+train mode run on a mesh over the world, every rank runs the mode's engine
+calls in step, and rank 0 alone writes into ``--save_dir``; the modes that
+serve or watch a live source (serve, camera, watch_folder) and export run
+one process.  A single process that sees one card runs unsharded, and one
+that sees several raises with the ``torchrun`` command line to use.
 
 Examples:
   python weather_torch.py pmg --mode classifier --data ds.json \\
@@ -24,7 +29,9 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
+import tempfile
 from typing import Any, Dict
 
 MODES = [
@@ -35,6 +42,9 @@ MODES = [
 
 # each family's own embedding tap for tsne, tsne_interactive and clustering
 _NATIVE_KIND = {"pmg": "logits", "rtm": "task", "pm": "task"}
+# the modes --data_parallel cannot spread over processes: a live source or
+# a port serves one process, and an export takes an engine without a mesh
+_ONE_PROCESS_MODES = ("serve", "camera", "watch_folder", "export")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -111,9 +121,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "lines): the CUDA kernels are built once per source "
                         "hash and cached under the package's csrc/_build/")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the batch axis across all visible devices "
-                        "(not ported: with more than one card it raises, "
-                        "ROADMAP.md item 22)")
+                   help="shard the batch axis over the processes of a torchrun "
+                        "launch, one per card (torchrun --nproc_per_node=N "
+                        "weather_torch.py ... --data_parallel)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default the CUDA card; "
                         "'cpu' runs the kernels' plain versions)")
@@ -228,6 +238,51 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def _data_parallel_mesh(args):
+    """``--data_parallel``: the mesh over a ``torchrun`` world (each process
+    on its own card, ``LOCAL_RANK``; NCCL on cards, gloo on the CPU; a
+    process group already up is used as it is), or None for a single
+    process that sees one device.  A single process that sees several
+    cards raises: the port runs one process per card, where the JAX package
+    runs one controller over them all.  So do the modes of
+    ``_ONE_PROCESS_MODES`` under a world of several processes."""
+    import torch
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    cuda = torch.device(args.device).type == "cuda"
+    if world <= 1:
+        n = torch.cuda.device_count() if cuda else 1
+        if n > 1:
+            raise RuntimeError(
+                f"--data_parallel runs one process per card (ROADMAP.md section C): launch "
+                f"it as torchrun --nproc_per_node={n} weather_torch.py ... --data_parallel"
+            )
+        print("[data_parallel] single device visible; running unsharded")
+        return None
+    if args.mode in _ONE_PROCESS_MODES:
+        raise ValueError(f"--mode {args.mode} runs in one process; --data_parallel over {world} "
+                         "processes runs the batch modes and train (ROADMAP.md section C)")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} must divide evenly over {world} "
+                         "processes for --data_parallel")
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import initialize_process
+
+    if cuda:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    if not dist.is_initialized():
+        initialize_process(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", world,
+                           int(os.environ["RANK"]), backend="nccl" if cuda else "gloo")
+    if dist.get_world_size() != world:
+        raise RuntimeError(f"WORLD_SIZE is {world}, the process group's {dist.get_world_size()}")
+    print(f"data-parallel over {world} processes")
+    return make_mesh()
+
+
 def build_engine(args) -> "Any":
     import torch
 
@@ -244,13 +299,9 @@ def build_engine(args) -> "Any":
         print("--compilation_cache has no effect here: the CUDA kernels are built once "
               "per source hash and cached under the package's csrc/_build/")
 
+    mesh = None
     if args.data_parallel:
-        n = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
-        if n > 1:
-            raise NotImplementedError(
-                f"--data_parallel over {n} cards is not ported yet (ROADMAP.md item 22)"
-            )
-        print("[data_parallel] single device visible; running unsharded")
+        mesh = _data_parallel_mesh(args)
 
     tasks = load_tasks(args.build_classifier)
     print(f"Tasks: {len(tasks)} -> {list(tasks)}")
@@ -286,6 +337,7 @@ def build_engine(args) -> "Any":
         batch_size=args.batch_size,
         prob_threshold=args.prob_threshold,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        mesh=mesh,
         device=args.device,
     )
     if native_dir:
@@ -352,7 +404,29 @@ def main(argv=None) -> int:
     if not args.build_classifier:
         parser.error("--build_classifier is required for this mode")
     engine = build_engine(args)
+    mesh = engine.mesh
+    scratch = None
+    if mesh is not None and not mesh.is_main and args.mode != "train":
+        # every rank runs the mode's engine calls (collectives) in step; rank
+        # 0 alone writes into --save_dir, the others into a directory removed
+        # at the end (fit writes from rank 0 itself, and resumes on every rank)
+        scratch = tempfile.mkdtemp(prefix=f"weather_torch_rank{mesh.rank}_")
+        args.save_dir = scratch
+    try:
+        _run_mode(args, engine)
+    finally:
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are whole when any rank returns
+    return 0
 
+
+def _run_mode(args, engine) -> None:
+    """Run ``args.mode`` on a built engine.  Under a mesh, the work that
+    runs no collective after the engine's calls (Grad-CAM, integrated
+    gradients, style transfer, t-SNE) runs on rank 0 alone."""
+    main_rank = engine.mesh is None or engine.mesh.is_main
     writer = None
     if args.tensorboard:
         from torch.utils.tensorboard import SummaryWriter
@@ -369,9 +443,9 @@ def main(argv=None) -> int:
                  show_gt_labels=not args.no_gt_labels,
                  scan_chunk=args.scan_chunk)
 
-        if args.visualize_gradcam or args.integrated_gradients:
+        if (args.visualize_gradcam or args.integrated_gradients) and main_rank:
             _run_explain(args, engine, ds, writer)
-        if args.style_transfer:
+        if args.style_transfer and main_rank:
             _run_style_transfer(args, engine, ds)
 
     elif args.mode == "train":
@@ -443,7 +517,7 @@ def main(argv=None) -> int:
                       num_samples=args.num_samples,
                       save_test_images=args.save_test_images,
                       num_workers=args.num_workers,
-                      visualize_gradcam=args.visualize_gradcam,
+                      visualize_gradcam=args.visualize_gradcam and main_rank,
                       gradcam_task=args.gradcam_task, colormap=args.colormap)
 
     elif args.mode == "folder":
@@ -505,7 +579,7 @@ def main(argv=None) -> int:
         kind = args.embedding_kind or _NATIVE_KIND[args.family]
         per_task = args.per_task_tsne or args.mode == "tsne_interactive"
         embs, labs, paths = compute_embeddings(engine, loader, kind=kind, per_task=per_task)
-        if args.mode == "tsne":
+        if main_rank and args.mode == "tsne":
             if per_task:
                 for t in engine.tasks.names:
                     perform_tsne(embs[t], labs[t], tasks_dict[t], args.colors, args.save_dir, t,
@@ -514,7 +588,7 @@ def main(argv=None) -> int:
                 first = engine.tasks.names[0]
                 perform_tsne(embs, labs, tasks_dict[first], args.colors, args.save_dir,
                              "AllTasks", device=engine.device)
-        else:
+        elif main_rank:
             x2d = {}
             for t in engine.tasks.names:
                 x2d[t], _ = perform_tsne(embs[t], labs[t], tasks_dict[t], args.colors,
@@ -539,7 +613,6 @@ def main(argv=None) -> int:
 
     if writer:
         writer.close()
-    return 0
 
 
 def _run_explain(args, engine, ds, writer=None):

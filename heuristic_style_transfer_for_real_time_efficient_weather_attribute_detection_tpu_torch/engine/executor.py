@@ -21,6 +21,7 @@ from ..config import IGNORE_INDEX, UNKNOWN_PRED, TaskSpec
 from ..models import get_family
 from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8
+from ..parallel.mesh import Mesh
 from .checkpoint import to_device
 from .wire import pad_batch, to_host_async, validate_and_pack, wait_host
 
@@ -74,6 +75,14 @@ class Engine:
     which assigning ``params`` derives anew, with the stem fold.  Logits
     are cast to float32 before the masked softmax; captured taps come back
     as float32 (host numpy has no bf16).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank builds the engine alike
+    and calls it in step, with the same host batches, as the JAX API takes
+    them): each rank holds a full copy of the params, runs its rows of each
+    (padded) batch over the mesh's 'data' axis and gathers the results, so
+    :meth:`run`, :meth:`step`, :meth:`step_scan` and :meth:`run_stream`
+    return on every rank what the engine without a mesh returns.
+    ``batch_size`` must divide by the 'data' size.
     """
 
     def __init__(
@@ -92,9 +101,11 @@ class Engine:
     ):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"Engine dtype must be torch.float32 or torch.bfloat16, got {dtype}")
-        if mesh is not None:
-            raise NotImplementedError("mesh execution is not ported yet (ROADMAP.md item 22)")
-        self.mesh = None
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got {type(mesh).__name__}")
+        self.mesh = mesh
+        # this rank's rows of every batch (ValueError where they do not split evenly)
+        self._rows = slice(*mesh.row_range(batch_size)) if mesh is not None else None
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -170,10 +181,30 @@ class Engine:
             y = torch.as_tensor(labels).to(self.device, non_blocking=True)
         return x, y
 
+    def _local(self, images, labels, dim: int):
+        """This rank's rows (along ``dim``) of host images and labels."""
+        if self.mesh is None:
+            return images, labels
+        rows = (slice(None),) * dim + (self._rows,)
+        return images[rows], (None if labels is None else labels[rows])
+
+    def _gather(self, out: Dict[str, torch.Tensor], dim: int) -> Dict[str, torch.Tensor]:
+        """Every rank's rows of a step's results, concatenated along ``dim``
+        over the mesh's 'data' axis; the per-task loss from the global
+        sums (the ranks' count-weighted losses over their summed counts)."""
+        if self.mesh is None:
+            return out
+        m = self.mesh
+        res = {k: m.gather(v, "data", dim) for k, v in out.items() if k not in _UNBATCHED}
+        count = m.all_reduce(out["count_per_task"], "data")
+        loss = m.all_reduce(out["loss_per_task"] * out["count_per_task"], "data")
+        res.update(loss_per_task=loss / count.clamp(min=1), count_per_task=count)
+        return res
+
     def step(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """One forward on exactly one batch of uint8 images (numpy or a
         tensor); results stay on the device."""
-        return self._step(*self._upload(images, labels))
+        return self._gather(self._step(*self._upload(*self._local(images, labels, 0))), 0)
 
     @torch.inference_mode()
     def step_scan(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
@@ -181,9 +212,9 @@ class Engine:
         upload, then the k steps back to back.  Results stay on the device,
         each leaf stacked ``[k, batch_size, ...]`` (per-task aggregates
         ``[k, T]``), and equal k calls of :meth:`step` bit for bit."""
-        x, y = self._upload(images, labels)
+        x, y = self._upload(*self._local(images, labels, 1))
         outs = [self._step(x[i], y[i]) for i in range(x.shape[0])]
-        return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+        return self._gather({key: torch.stack([o[key] for o in outs]) for key in outs[0]}, 1)
 
     def warmup(self, img_size: int = 224) -> None:
         z = np.zeros((self.batch_size, img_size, img_size, 3), np.uint8)
@@ -303,9 +334,17 @@ class Engine:
 
     def resolve_scan_chunk(self, scan_chunk) -> int:
         """Micro-batches per dispatch: an int passes through; ``None`` and
-        ``"off"`` are 1; ``"auto"`` is 1 as well, because the port has no
-        measured record of a better k yet (ROADMAP.md A10)."""
-        if scan_chunk in (None, "off", "auto"):
+        ``"off"`` are 1; ``"auto"`` is the winner measured on this engine's
+        card for its family and dtype (``ops.kernel_select``, op
+        ``eval_scan_chunk_<family>_<f32|bf16>``: ``scan_k<k>`` is k,
+        ``standalone`` 1), and 1 where nothing is recorded (the CPU)."""
+        if scan_chunk == "auto":
+            from ..ops.kernel_select import winner
+
+            dt = "bf16" if self.dtype == torch.bfloat16 else "f32"
+            w = winner(f"eval_scan_chunk_{self.family}_{dt}", "standalone", self.device)
+            return int(w[len("scan_k"):]) if w.startswith("scan_k") else 1
+        if scan_chunk in (None, "off"):
             return 1
         return int(scan_chunk)
 

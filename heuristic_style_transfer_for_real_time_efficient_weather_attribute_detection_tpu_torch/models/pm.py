@@ -115,7 +115,7 @@ def _head_outputs(
     attention [B,T,H,W])."""
     hp = {k: v.float() for k, v in params["heads"].items()}
     b, h, w, c = feats.shape
-    nt = len(spec.tasks)
+    nt = hp["attn_w"].shape[0]  # the params' tasks: a task-sharded tree's own
     f32 = feats.float()
 
     if spec.attn_use_se and not spec.ablate_attention:
@@ -192,14 +192,15 @@ def apply(
 
 def apply_train(
     params: Dict[str, Any], x: torch.Tensor, spec: Spec,
-    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0, shard=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Train-mode forward: batch norm (``spec.norm == "batch"``) on batch
-    statistics with new running statistics; instance norm trains as it
+    statistics with new running statistics (the global batch's with a
+    ``shard``, as in ``pmg.apply_train``); instance norm trains as it
     evaluates, and the heads have no norm.  PM has no dropout sites, so
     ``generator`` and ``dropout_rate`` are unused.  Returns (stacked logits,
     {"trunk": trunk params with new running statistics})."""
     del generator, dropout_rate
-    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm)
+    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm, shard=shard)
     logits, _ = _head_outputs(params, feats, spec)
     return logits, {"trunk": new_trunk}

@@ -175,10 +175,13 @@ def head_apply(
     capture: Sequence[str] = (),
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Everything after the trunk: SE -> chan_proj -> Gram -> transformer ->
     task pooling -> heads.  ``dropout_rate``/``generator`` turn on the
-    transformer's train-mode dropout (``apply_train``).  The Gram (K1) and
+    transformer's train-mode dropout (``apply_train``; ``shard``: see
+    ``ops.attention.dropout``).  The task count is the params' (a
+    task-sharded tree gives its own tasks' logits).  The Gram (K1) and
     the bf16 ``token_proj`` (K5) are operators with registered gradients,
     so autograd runs through both."""
     aux: Dict[str, torch.Tensor] = {}
@@ -193,7 +196,7 @@ def head_apply(
         tokens = linear(grams, tp)
     if spec.has_transformer:
         tokens = transformer_encoder(tokens, params["transformer"], spec.transformer_heads,
-                                     dropout_rate, generator)
+                                     dropout_rate, generator, shard)
     if "tokens" in capture:
         aux["tokens"] = tokens
     pooled = task_query_pool(tokens, params["queries"])
@@ -283,14 +286,19 @@ def apply_train(
     spec: Spec,
     generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.1,
+    shard=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Train-mode forward on normalized NHWC images: batch norm on batch
     statistics, and the reference transformer's dropout (rate 0.1) drawn
     from ``generator`` when one is given (None: no dropout).  Returns
     (stacked logits, {"trunk": trunk params with new running statistics});
-    the train step takes only the statistics from it."""
-    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm)
-    logits, _ = head_apply(params, feats, spec, dropout_rate=dropout_rate, generator=generator)
+    the train step takes only the statistics from it.  ``shard`` (the
+    sharded train step's ``parallel.mesh.RowShard``: x holds this rank's
+    rows of the global batch) takes the batch norms' statistics and the
+    dropout masks over the global batch."""
+    feats, new_trunk = apply_trunk_train(params["trunk"], x, spec.plan, spec.norm, shard=shard)
+    logits, _ = head_apply(params, feats, spec, dropout_rate=dropout_rate, generator=generator,
+                           shard=shard)
     return logits, {"trunk": new_trunk}
 
 

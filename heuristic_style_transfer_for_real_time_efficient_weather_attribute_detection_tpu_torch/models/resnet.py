@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.nn import conv2d_nchw, init_batch_norm, init_conv
-from ..ops.norms import batch_norm_affine, batch_norm_train, update_running_stats
+from ..ops.norms import batch_norm_affine, train_batch_norm
 
 # (num_blocks, planes) per stage; expansion 4 (ResNet-50).
 STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -156,35 +156,37 @@ def apply_truncated_from_stem(
 # ---------------------------------------------------------------------------
 
 
-def _bn_train(x: torch.Tensor, p: Dict[str, torch.Tensor]):
+def _bn_train(x: torch.Tensor, p: Dict[str, torch.Tensor], shard=None):
     """Train-mode batch norm on NCHW -> (y, norm params with new running
-    statistics): ``norms.batch_norm_train`` on the NHWC view, whose output
+    statistics): ``norms.train_batch_norm`` on the NHWC view, whose output
     keeps x's memory layout, so y comes back contiguous NCHW."""
-    y, mean, var = batch_norm_train(x.permute(0, 2, 3, 1), p)
-    return y.permute(0, 3, 1, 2), update_running_stats(p, mean, var, x.numel() // x.shape[1])
+    y, new_p = train_batch_norm(x.permute(0, 2, 3, 1), p, shard)
+    return y.permute(0, 3, 1, 2), new_p
 
 
-def _apply_block_train(p: Dict[str, Any], x: torch.Tensor, stride: int):
+def _apply_block_train(p: Dict[str, Any], x: torch.Tensor, stride: int, shard=None):
     """One bottleneck block in train mode, NCHW -> (y, block params with new
     running statistics)."""
     new_p = dict(p)
     identity = x
-    h, new_p["bn1"] = _bn_train(_conv(x, p["conv1"]), p["bn1"])
+    h, new_p["bn1"] = _bn_train(_conv(x, p["conv1"]), p["bn1"], shard)
     h, new_p["bn2"] = _bn_train(_conv(torch.relu(h), p["conv2"], stride=stride, padding=1),
-                                p["bn2"])
-    h, new_p["bn3"] = _bn_train(_conv(torch.relu(h), p["conv3"]), p["bn3"])
+                                p["bn2"], shard)
+    h, new_p["bn3"] = _bn_train(_conv(torch.relu(h), p["conv3"]), p["bn3"], shard)
     if "downsample" in p:
         identity, ds_bn = _bn_train(_conv(x, p["downsample"]["conv"], stride=stride),
-                                    p["downsample"]["bn"])
+                                    p["downsample"]["bn"], shard)
         new_p["downsample"] = {"conv": p["downsample"]["conv"], "bn": ds_bn}
     return torch.relu(h + identity), new_p
 
 
 def apply_truncated_train(
-    params: Dict[str, Any], x: torch.Tensor, truncate_after_layer: int
+    params: Dict[str, Any], x: torch.Tensor, truncate_after_layer: int, shard=None
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Train-mode truncated forward, NHWC -> (features, params with new
-    batch-norm running statistics; the weights are the same tensors)."""
+    batch-norm running statistics; the weights are the same tensors).
+    Every batch norm takes the global batch's statistics with a ``shard``
+    (``norms.batch_norm_train``)."""
     n = max(1, min(truncate_after_layer, len(CHILDREN)))
     new_params = dict(params)
     x = _nchw(x)
@@ -192,7 +194,7 @@ def apply_truncated_train(
         if child == "conv1":
             x = _conv(x, params["conv1"], stride=2, padding=3)
         elif child == "bn1":
-            x, new_params["bn1"] = _bn_train(x, params["bn1"])
+            x, new_params["bn1"] = _bn_train(x, params["bn1"], shard)
         elif child == "relu":
             x = torch.relu(x)
         elif child == "maxpool":
@@ -201,7 +203,7 @@ def apply_truncated_train(
             si = int(child[-1]) - 1
             blocks = []
             for bi, bp in enumerate(params[child]):
-                x, nb = _apply_block_train(bp, x, 1 if (si == 0 or bi > 0) else 2)
+                x, nb = _apply_block_train(bp, x, 1 if (si == 0 or bi > 0) else 2, shard)
                 blocks.append(nb)
             new_params[child] = blocks
     return _nhwc(x), new_params

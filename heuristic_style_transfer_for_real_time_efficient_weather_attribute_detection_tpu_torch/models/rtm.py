@@ -146,7 +146,8 @@ def head_apply(
     if spec.use_attention:
         emb = rtm_task_attention(feats.reshape(b, h * w, c), params["attn"])
     else:
-        emb = feats.mean(dim=(1, 2))[:, None, :].expand(b, len(spec.tasks), c)
+        # the params' tasks: a task-sharded tree's own
+        emb = feats.mean(dim=(1, 2))[:, None, :].expand(b, params["final"]["w"].shape[0], c)
     if "task_embeddings" in capture:
         aux["task_embeddings"] = emb
     return _classify(params, emb), aux
@@ -278,15 +279,16 @@ def apply_stream(folded: Dict[str, Any], x: torch.Tensor, spec: Spec) -> torch.T
 
 def apply_train(
     params: Dict[str, Any], x: torch.Tensor, spec: Spec,
-    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None, dropout_rate: float = 0.0, shard=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Train-mode forward: the backbone's batch norms on batch statistics,
-    with new running statistics.  RTM has no dropout sites, so
-    ``generator`` and ``dropout_rate`` are unused.  Returns (stacked logits,
-    {"backbone": backbone params with new running statistics})."""
+    with new running statistics (the global batch's with a ``shard``, as in
+    ``pmg.apply_train``).  RTM has no dropout sites, so ``generator`` and
+    ``dropout_rate`` are unused.  Returns (stacked logits, {"backbone":
+    backbone params with new running statistics})."""
     del generator, dropout_rate
     feats, new_backbone = resnet.apply_truncated_train(params["backbone"], x,
-                                                       spec.truncate_after_layer)
+                                                       spec.truncate_after_layer, shard)
     logits, _ = head_apply(params, feats, spec)
     return logits, {"backbone": new_backbone}
 

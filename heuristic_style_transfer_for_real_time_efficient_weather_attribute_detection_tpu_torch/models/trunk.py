@@ -13,7 +13,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from ..ops.nn import conv2d, init_conv, init_norm, leaky_relu
-from ..ops.norms import apply_norm, batch_norm_train, update_running_stats
+from ..ops.norms import apply_norm, train_batch_norm
 
 
 class ConvBlock(NamedTuple):
@@ -92,18 +92,18 @@ def apply_trunk_train(
     plan: Tuple[ConvBlock, ...],
     norm: str,
     momentum: float = 0.1,
+    shard=None,
 ) -> Tuple[torch.Tensor, List[Dict]]:
     """Train-mode trunk -> (features, trunk params with new running
     statistics).  Batch norm uses batch statistics and moves the running
-    ones (momentum 0.1, unbiased variance); instance and group norms keep no
-    statistics, so train equals eval for them."""
+    ones (momentum 0.1, unbiased variance), over the global batch with a
+    ``shard`` (``norms.batch_norm_train``); instance and group norms keep
+    no statistics, so train equals eval for them."""
     new_params: List[Dict] = []
     for p, b in zip(params, plan):
         x = conv2d(x, p["conv"], stride=b.stride, padding=b.pad)
         if norm == "batch":
-            x, mean, var = batch_norm_train(x, p["norm"])
-            new_norm = update_running_stats(p["norm"], mean, var, x.numel() // x.shape[-1],
-                                            momentum)
+            x, new_norm = train_batch_norm(x, p["norm"], shard, momentum)
         else:
             x = apply_norm(x, p["norm"], norm)
             new_norm = p["norm"]

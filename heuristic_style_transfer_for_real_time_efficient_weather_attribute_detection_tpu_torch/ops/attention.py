@@ -24,27 +24,36 @@ from .nn import linear, matmul_f32
 from .norms import layer_norm
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard=None) -> torch.Tensor:
     """Inverted dropout (torch semantics: kept units scaled by 1/keep), the
     mask drawn from ``generator`` on x's device.  Identity when there is no
-    generator or the rate is 0 (eval mode)."""
+    generator or the rate is 0 (eval mode).  With a ``shard``
+    (``parallel.mesh.RowShard``: x holds rows of a global batch) the mask is
+    drawn for the global batch and x takes its own rows of it, so a sharded
+    step drops what the unsharded step drops."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if shard is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = shard.rows(torch.rand((shard.total,) + tuple(x.shape[1:]), generator=generator,
+                                  device=x.device), x.shape[0])
+    m = u < keep
     return torch.where(m, x / keep, 0.0).to(x.dtype)
 
 
 def multi_head_attention(
     x: torch.Tensor, p: Dict[str, torch.Tensor], num_heads: int, dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, shard=None,
 ) -> torch.Tensor:
     """Self-attention matching ``torch.nn.MultiheadAttention`` (batch_first).
 
     x: [B, N, D]; wq/wk/wv/wo: [D, D] input-major, bq/bk/bv/bo: [D].
     q is scaled by 1/sqrt(head_dim) before the score product.
     ``dropout_rate``/``generator``: dropout on the attention probabilities
-    (train mode).
+    (train mode; ``shard``: see :func:`dropout`).
     """
     b, n, d = x.shape
     h = num_heads
@@ -58,7 +67,7 @@ def multi_head_attention(
     v = split(matmul_f32(x, p["wv"]) + p["bv"].float())
     q = q * (1.0 / math.sqrt(hd))
     w = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k), dim=-1)
-    w = dropout(w, dropout_rate, generator)
+    w = dropout(w, dropout_rate, generator, shard)
     o = torch.einsum("bhqk,bhkd->bhqd", w, v)
     o = o.transpose(1, 2).reshape(b, n, d)
     return (torch.matmul(o, p["wo"].float()) + p["bo"].float()).to(x.dtype)
@@ -66,20 +75,20 @@ def multi_head_attention(
 
 def transformer_encoder(
     x: torch.Tensor, layers: List[Dict], num_heads: int, dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, shard=None,
 ) -> torch.Tensor:
     """Pre-norm transformer encoder stack, ReLU FFN, no final norm
     (``TransformerEncoderLayer(norm_first=True)``).  With a generator and a
     rate above 0, train mode's four dropout sites per layer (attention
     probabilities, attention output, FFN inner, FFN output), drawn in that
-    order; without, eval mode."""
+    order (for the global batch with a ``shard``); without, eval mode."""
     for p in layers:
         a = multi_head_attention(layer_norm(x, p["norm1"]), p["attn"], num_heads, dropout_rate,
-                                 generator)
-        x = x + dropout(a, dropout_rate, generator)
+                                 generator, shard)
+        x = x + dropout(a, dropout_rate, generator, shard)
         h = dropout(torch.relu(linear(layer_norm(x, p["norm2"]), p["ffn1"])), dropout_rate,
-                    generator)
-        x = x + dropout(linear(h, p["ffn2"]), dropout_rate, generator)
+                    generator, shard)
+        x = x + dropout(linear(h, p["ffn2"]), dropout_rate, generator, shard)
     return x
 
 

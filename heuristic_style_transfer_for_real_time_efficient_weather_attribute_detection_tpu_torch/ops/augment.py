@@ -33,6 +33,7 @@ def augment_batch(
     translate: int = 0,
     brightness: float = 0.0,
     contrast: float = 0.0,
+    shard=None,
 ) -> torch.Tensor:
     """Randomly augment a normalized NHWC float batch, keeping its shape and
     dtype.
@@ -46,15 +47,23 @@ def augment_batch(
 
     Every knob defaults to off.  The four draws are made in a fixed order
     whatever knobs are on, so each knob's draws do not depend on the others.
-    Deterministic per generator state.
+    Deterministic per generator state.  With a ``shard``
+    (``parallel.mesh.RowShard``: the images are rows of a global batch)
+    every draw is made for the global batch and the images take their own
+    rows of it, so a sharded step augments as the unsharded step does.
     """
     b, h, w, _ = images.shape
     dev = images.device
-    do_flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    n = b if shard is None else shard.total
+
+    def mine(draws):
+        return draws if shard is None else shard.rows(draws, b)
+
+    do_flip = mine(torch.rand(n, generator=generator, device=dev)) < 0.5
     pad = int(translate)
-    off = torch.randint(0, 2 * pad + 1, (b, 2), generator=generator, device=dev)
-    u_contrast = torch.rand((b, 1, 1, 1), generator=generator, device=dev)
-    u_bright = torch.rand((b, 1, 1, 1), generator=generator, device=dev)
+    off = mine(torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=dev))
+    u_contrast = mine(torch.rand((n, 1, 1, 1), generator=generator, device=dev))
+    u_bright = mine(torch.rand((n, 1, 1, 1), generator=generator, device=dev))
     if flip:
         images = torch.where(do_flip[:, None, None, None], images.flip(2), images)
     if pad:

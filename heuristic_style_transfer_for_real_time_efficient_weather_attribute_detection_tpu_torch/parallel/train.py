@@ -1,4 +1,4 @@
-"""Multi-task training step of the port, on one device.
+"""Multi-task training step of the port, on one device or over a mesh.
 
 Counterpart of the JAX package's ``parallel/train.py``: the train-mode
 forward (batch norm on batch statistics with running-statistic updates,
@@ -20,8 +20,19 @@ trainable: they take no gradient, stay out of the optimizer (optax gives
 them a zero update and no decay, the same result) and are copied in from
 the train-mode forward.
 
-``mesh`` is the JAX package's data/task sharding: not ported yet (ROADMAP.md
-item 22), it raises.
+``mesh`` (``parallel.mesh.make_mesh``, one process per device) is the JAX
+package's data and task sharding.  Each rank takes its rows of the batch
+over ``data``; the stacked per-task leaves (root keys ``queries``,
+``heads``, ``attn``, ``final``, ``mlp``) are split over ``model``, each
+rank holding, updating and computing only its tasks' slice, params and
+AdamW moments alike; everything else is replicated.  The step computes
+what the unsharded step computes on the global batch: batch norms take the
+global batch's statistics, dropout and augmentation draw for the global
+batch from the same ``(seed, step)`` generators and keep their own rows,
+each task's masked mean divides by the global count (or class-weight sum)
+of that task and the present-task count is global, and the gradients are
+summed, over the whole world for replicated leaves and over ``data`` for
+task-sharded ones.  Every rank returns the global loss.
 """
 
 from __future__ import annotations
@@ -34,8 +45,16 @@ import torch
 from ..config import IGNORE_INDEX
 from ..engine.executor import class_mask
 from ..models import get_family
+from .mesh import Mesh, RowShard, batch_rows
 
 _STATS_KEYS = {"mean", "var"}
+# Param-tree ROOT keys whose subtrees are stacked per-task tensors with a
+# leading task axis T (split over a mesh's 'model' axis): PMG's
+# ``queries``/``heads``, PM's ``heads``, RTM's ``attn``/``mlp``/``final``.
+# The match is on the first path component only: PMG's
+# ``transformer/[i]/attn``, whose [d_model, d_model] weights carry no task
+# axis, is replicated.
+_TASK_AXIS_ROOTS = frozenset({"queries", "heads", "attn", "final", "mlp"})
 _ENCODER_ROOTS = {"trunk", "backbone"}
 
 
@@ -234,6 +253,18 @@ def masked_cross_entropy_ex(
     focal_gamma: each sample's NLL times (1 - p_target)^gamma.
     Returns (per-task loss [T], per-task count [T]).
     """
+    num, den, count = _ce_parts(logits, labels, mask, class_weights, focal_gamma)
+    return num / den.clamp(min=_den_floor(class_weights)), count
+
+
+def _den_floor(class_weights) -> float:
+    return 1 if class_weights is None else 1e-9
+
+
+def _ce_parts(logits, labels, mask, class_weights=None, focal_gamma=None):
+    """Per task: (the summed masked NLL, weighted where there are class
+    weights; its denominator, the count of labels or the sum of their
+    weights; the count of labels)."""
     neg = torch.finfo(torch.float32).min
     logp = torch.log_softmax(torch.where(mask, logits.float(), neg), dim=-1)
     valid = labels != IGNORE_INDEX
@@ -245,9 +276,8 @@ def masked_cross_entropy_ex(
     if class_weights is not None:
         cw = class_weights.expand(labels.shape[0], *class_weights.shape)
         w = torch.where(valid, torch.gather(cw, -1, safe[..., None])[..., 0], 0.0)
-        num = (torch.where(valid, nll, 0.0) * w).sum(dim=0)
-        return num / w.sum(dim=0).clamp(min=1e-9), count
-    return torch.where(valid, nll, 0.0).sum(dim=0) / count.clamp(min=1), count
+        return (torch.where(valid, nll, 0.0) * w).sum(dim=0), w.sum(dim=0), count
+    return torch.where(valid, nll, 0.0).sum(dim=0), count, count
 
 
 def compute_class_weights(labels, num_classes, mode: str = "median", cap: float = 10.0):
@@ -304,11 +334,122 @@ def train_device(device) -> torch.device:
     return dev
 
 
+def _shards_tasks(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and "model" in mesh.axis_names
+
+
+def _is_task_leaf(path, mesh: Optional[Mesh]) -> bool:
+    """True for a leaf of a task-stacked root when the mesh has a 'model'
+    axis; ``path`` is a tuple of keys or a "/"-joined string."""
+    if not _shards_tasks(mesh) or not path:
+        return False
+    root = path.split("/")[0] if isinstance(path, str) else path[0]
+    return root in _TASK_AXIS_ROOTS
+
+
+def task_range(mesh: Mesh, n_tasks: int) -> Tuple[int, int]:
+    """This rank's tasks [lo, hi) of ``n_tasks`` split over 'model'.  As in
+    the JAX package, whose sharding of the leading task axis needs it to
+    divide by the axis's size, an uneven split raises ``ValueError``."""
+    m = mesh.axis_size("model")
+    if n_tasks % m:
+        raise ValueError(f"the {n_tasks} tasks do not split evenly over the {m} ranks of the "
+                         "mesh's 'model' axis: a task-stacked leaf's dimension 0 must divide by it")
+    per = n_tasks // m
+    lo = mesh.index("model") * per
+    return lo, lo + per
+
+
+def param_shardings(params: Any, mesh: Mesh) -> Any:
+    """Each leaf's layout over the mesh, as the JAX package's PartitionSpec
+    tuple: ``("model", None, ...)`` for a leaf of a task-stacked root
+    (``_TASK_AXIS_ROOTS``, matched on the first path component) when the
+    mesh has a 'model' axis, its leading task axis split over it; ``()``
+    (replicated) for every other leaf."""
+    return _map_tree(lambda path, t: ("model",) + (None,) * (t.dim() - 1)
+                     if _is_task_leaf(path, mesh) else (), params)
+
+
+def shard_params(params: Any, mesh: Optional[Mesh]) -> Any:
+    """This rank's part of a full param tree: each task-stacked leaf's rows
+    of this rank's tasks (a view), every other leaf as it is."""
+    def one(path, t):
+        if not _is_task_leaf(path, mesh):
+            return t
+        lo, hi = task_range(mesh, t.shape[0])
+        return t[lo:hi]
+
+    return _map_tree(one, params)
+
+
+def gather_params(params: Any, mesh: Optional[Mesh]) -> Any:
+    """The full param tree from every rank's part (a collective over each
+    'model' group): task-stacked leaves gathered, detached; the others as
+    they are."""
+    return _map_tree(lambda path, t: mesh.gather(t.detach(), "model")
+                     if _is_task_leaf(path, mesh) else t, params)
+
+
+def _map_opt_tree(fn, tree: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
+    """An optimizer state tree with ``fn`` applied to its task-stacked
+    leaves (moments and accumulated gradients, keyed by leaf path)."""
+    out = dict(tree)
+    for key in ("exp_avg", "exp_avg_sq", "acc"):
+        if key in tree:
+            out[key] = {p: fn(t) if _is_task_leaf(p, mesh) else t for p, t in tree[key].items()}
+    return out
+
+
+def gather_state(state: TrainState, mesh: Optional[Mesh]) -> TrainState:
+    """The full train state (what one device would hold) from every rank's
+    part: params and optimizer state gathered over 'model', on the state's
+    device.  A collective: every rank calls it."""
+    if mesh is None:
+        return state
+    ost = state.opt_state
+    params = trainable_params(gather_params(state.params, mesh), ost.leaves[0].device)
+    full = ost.optimizer.init(params)
+    full.load_tree(_map_opt_tree(lambda t: mesh.gather(t, "model"), ost.tree(), mesh))
+    return TrainState(params, full, state.step)
+
+
+def shard_state(state: TrainState, mesh: Optional[Mesh]) -> TrainState:
+    """This rank's part of a full train state: its tasks' slices of the
+    task-stacked params and of their optimizer state."""
+    if mesh is None:
+        return state
+    ost = state.opt_state
+    params = trainable_params(shard_params(state.params, mesh), ost.leaves[0].device)
+    part = ost.optimizer.init(params)
+    part.load_tree(_map_opt_tree(lambda t: t[slice(*task_range(mesh, t.shape[0]))],
+                                 ost.tree(), mesh))
+    return TrainState(params, part, state.step)
+
+
+def _sum_grads(ost: "OptState", mesh: Mesh) -> None:
+    """Sum the ranks' gradients in place, each leaf's ``.grad`` (zero where
+    missing): over the whole world for replicated leaves, over the 'data'
+    group for task-stacked ones (a rank's tasks are its own).  One
+    all-reduce per group, on one flat buffer."""
+    for t in ost.leaves:
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+    for task, axis in ((False, None), (True, "data")):
+        grads = [t.grad for p, t in zip(ost.paths, ost.leaves) if _is_task_leaf(p, mesh) == task]
+        if not grads:
+            continue
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
+        i = 0
+        for g in grads:
+            g.copy_(flat[i: i + g.numel()].view_as(g))
+            i += g.numel()
+
+
 def make_train_step(
     family: str,
     spec,
     optimizer: Optional[Optimizer] = None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     *,
     use_focal: bool = False,
     focal_gamma: float = 2.0,
@@ -339,11 +480,18 @@ def make_train_step(
     float32 through the cast; the optimizer state stays float32; the loss is
     reduced in float32; in batch-statistics mode the running statistics
     skip the cast, so their update runs in float32).  ``device`` defaults
-    to the CUDA card and raises where there is none; ``mesh`` raises
-    (ROADMAP.md item 22).
+    to the CUDA card and raises where there is none.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank builds the same step and
+    calls it in step) shards the step as the module docstring says.  The
+    batch is the global batch, of which the step takes this rank's rows, or
+    this rank's rows marked by ``multihost.host_local_batch``; B must
+    divide by the 'data' size and the task count by the 'model' size
+    (``ValueError`` otherwise).  ``init_fn`` returns this rank's part of
+    the state (``gather_state`` gives the whole).
     """
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh is not ported yet (ROADMAP.md item 22)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got {type(mesh).__name__}")
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None, float32 or bfloat16, got {compute_dtype}")
     dev = train_device(device)
@@ -351,6 +499,11 @@ def make_train_step(
     mask = torch.as_tensor(class_mask(spec.tasks), device=dev)
     cw = None if class_weights is None else torch.as_tensor(
         np.asarray(class_weights, np.float32), device=dev)
+    tasks = slice(None)
+    if _shards_tasks(mesh):
+        tasks = slice(*task_range(mesh, len(spec.tasks)))
+        mask = mask[tasks]
+        cw = None if cw is None else cw[tasks]
     gamma = focal_gamma if use_focal else None
     # PMG's transformer is the only dropout site; PM/RTM would otherwise be
     # forced into batch statistics against an explicit bn_train=False
@@ -387,7 +540,7 @@ def make_train_step(
 
         return _map_tree(one, params)
 
-    def loss_fn(params, images, labels, step_idx):
+    def loss_fn(params, images, labels, step_idx, shard):
         if mixed:
             params = _cast_compute(params)
             images = images.to(compute_dtype)
@@ -397,28 +550,42 @@ def make_train_step(
             if dropout_rate > 0:
                 gen = drop_gen.manual_seed(_step_seed(dropout_seed, step_idx))
             logits, stat_updates = mod.apply_train(params, images, spec, generator=gen,
-                                                   dropout_rate=dropout_rate)
+                                                   dropout_rate=dropout_rate, shard=shard)
             if not stats_update_mode:
                 stat_updates = None
         else:
             logits, _ = mod.apply(params, images, spec)
-        per_task, counts = masked_cross_entropy_ex(logits, labels, mask, class_weights=cw,
-                                                   focal_gamma=gamma)
+        num, den, counts = _ce_parts(logits, labels, mask, cw, gamma)
+        if mesh is not None:
+            # the global batch's denominators: a mean of the ranks' means
+            # would weigh unevenly spread missing labels wrongly
+            den, counts = mesh.all_reduce(den, "data"), mesh.all_reduce(counts, "data")
+        per_task = num / den.clamp(min=_den_floor(cw))
         present = (counts > 0).float()
-        return (per_task * present).sum() / present.sum().clamp(min=1.0), stat_updates
+        n_present = present.sum() if mesh is None else mesh.all_reduce(present.sum(), "model")
+        return (per_task * present).sum() / n_present.clamp(min=1.0), stat_updates
 
     def step(state: TrainState, images, labels) -> Tuple[TrainState, torch.Tensor]:
+        shard = None
+        if mesh is not None:
+            images, lo, total = batch_rows(mesh, images)
+            labels, _, _ = batch_rows(mesh, labels)
+            if mesh.axis_size("data") > 1:
+                shard = RowShard(lo, total, mesh)
         x = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        y = torch.as_tensor(labels, device=dev)
+        y = torch.as_tensor(labels, device=dev)[:, tasks]
         if aug_kwargs is not None:
             x = augment_batch(aug_gen.manual_seed(_step_seed(dropout_seed ^ 0x5EED, state.step)),
-                              x, **aug_kwargs)
+                              x, shard=shard, **aug_kwargs)
         ost = state.opt_state
         for t in ost.leaves:
             t.grad = None
         with torch.enable_grad():
-            loss, stat_updates = loss_fn(state.params, x, y, state.step)
+            loss, stat_updates = loss_fn(state.params, x, y, state.step, shard)
             loss.backward()
+        if mesh is not None:
+            _sum_grads(ost, mesh)
+            loss = mesh.all_reduce(loss.detach())  # the ranks' parts sum to the global loss
         ost.update(freeze_encoder)
         if stat_updates is not None:
             # running statistics take no gradient: adopt the train-mode
@@ -429,7 +596,7 @@ def make_train_step(
 
     def init_fn(seed=0) -> TrainState:
         g = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
-        params = trainable_params(mod.init(g, spec), dev)
+        params = trainable_params(shard_params(mod.init(g, spec), mesh), dev)
         return TrainState(params, opt.init(params), 0)
 
     return init_fn, step

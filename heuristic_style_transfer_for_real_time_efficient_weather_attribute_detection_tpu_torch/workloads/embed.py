@@ -50,7 +50,8 @@ def compute_embeddings(engine: Engine, loader, kind: str = "logits", per_task: b
     single arrays of the first task.
 
     If the engine lacks the capture tap this kind needs, an engine with it
-    is built on the same params, batch size, threshold, dtype and device.
+    is built on the same params, batch size, threshold, dtype, mesh and
+    device.
     """
     tasks = engine.tasks
     supported = _FAMILY_KINDS.get(engine.family, {"logits"})
@@ -65,7 +66,7 @@ def compute_embeddings(engine: Engine, loader, kind: str = "logits", per_task: b
             engine.family, engine.spec, engine.params,
             batch_size=engine.batch_size, prob_threshold=engine.prob_threshold,
             dtype=engine.dtype, capture=tuple(set(engine.capture) | set(capture)),
-            packed="auto" if engine.pack_k else "off", device=engine.device,
+            mesh=engine.mesh, packed="auto" if engine.pack_k else "off", device=engine.device,
         )
     embs: Dict[str, List[np.ndarray]] = {t: [] for t in tasks.names}
     labs: Dict[str, List[int]] = {t: [] for t in tasks.names}

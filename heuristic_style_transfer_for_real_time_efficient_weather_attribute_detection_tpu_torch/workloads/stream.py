@@ -33,7 +33,7 @@ from ..config import TaskSpec
 from ..engine.checkpoint import to_device
 from ..engine.executor import class_mask, masked_softmax
 from ..models import get_family
-from ..ops import cuda_kernels, kalman
+from ..ops import cuda_kernels, kalman, kernel_select
 from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8, normalize_uint8_packed, s2d_pack
 
@@ -83,11 +83,13 @@ class StreamPredictor:
     - ``"packed"``: ``pmg.apply_packed``, the stem kernel on the raw frame,
       then the batch path's ops and Gram kernel at batch 1.
     - ``"generic"``: ``pmg.apply`` on the normalized frame.
-    - ``"auto"``: ``"fused"`` with ``head_fold="fused_bf16"`` wherever the
-      fused kernel takes the spec, else ``"packed"`` where the first block
-      is non-overlapping, else ``"generic"``.  It is a fixed rule: unlike
-      the JAX package, which reads a recorded TPU measurement, the port
-      has no measured record of its own to choose from yet.
+    - ``"auto"``: where the fused kernel takes the spec, the route that
+      ``ops.kernel_select`` records as faster on this predictor's card (op
+      ``fused_trunk_gram``: ``"fused"`` or ``"packed"``), and on the fused
+      route the recorded head fold (op ``pmg_head_fold``); with no record
+      (the CPU), ``"fused"`` with ``head_fold="fused_bf16"``.  Where the
+      fused kernel does not take the spec, ``"packed"`` where the first
+      block is non-overlapping, else ``"generic"``.
 
     RTM routes:
 
@@ -97,9 +99,9 @@ class StreamPredictor:
     - ``"folded_q8"``: the same on the int8 fold, whose product is the
       ``dequant_matvec`` kernel.  The folded routes pack the frame on the
       device (k = 2) and run the packed 4x4 stem.
-    - ``"auto"``: ``"folded_q8"`` where ``spec.use_attention``, else
-      ``"generic"``: a fixed rule that mirrors the JAX package's recorded
-      winner on the TPU, not a measurement of the port's.
+    - ``"auto"``: where ``spec.use_attention``, the route recorded as
+      fastest on this predictor's card (op ``rtm_stream_folded``), with no
+      record ``"folded_q8"``; else ``"generic"``.
 
     PM has one route, ``"generic"`` (``pm.apply`` on the normalized
     frame), which ``"auto"`` picks, as the JAX package's generic uint8 step.
@@ -153,7 +155,8 @@ class StreamPredictor:
         if family == "rtm":
             fusable = packable = False
             if trunk_kernel == "auto":
-                route = "folded_q8" if spec.use_attention else "generic"
+                route = (kernel_select.winner("rtm_stream_folded", "folded_q8", self.device)
+                         if spec.use_attention else "generic")
             else:
                 route = trunk_kernel
             if route in ("folded", "folded_q8") and not spec.use_attention:
@@ -165,7 +168,8 @@ class StreamPredictor:
             fusable = cuda_kernels.supports_fused_trunk_gram(spec) and spec.norm == "batch"
             packable = pmg.supports_packed_input(spec)
             if trunk_kernel == "auto":
-                route = "fused" if fusable else ("packed" if packable else "generic")
+                route = (kernel_select.winner("fused_trunk_gram", "fused", self.device) if fusable
+                         else ("packed" if packable else "generic"))
             else:
                 route = trunk_kernel
         if route not in _ROUTES[family]:
@@ -194,7 +198,8 @@ class StreamPredictor:
         params = to_device(params, self.device)
         self._trunk = self._stem = None
         if route == "fused":
-            self.head_fold = "fused_bf16" if head_fold == "auto" else head_fold
+            self.head_fold = (kernel_select.winner("pmg_head_fold", "fused_bf16", self.device)
+                              if head_fold == "auto" else head_fold)
             self._trunk = cuda_kernels.fold_trunk_gram_weights(params, spec)
             fold = self.head_fold[len("fused_"):] if self.head_fold.startswith("fused_") else self.head_fold
             if fold != "f32":

@@ -14,7 +14,8 @@ epochs, ``last_state/`` (params, optimizer state and step) and
 
 Frames cross to the device as uint8 and are normalized there with the
 host normalize's affine (the JAX package normalizes on the host).  It runs
-on the CUDA card unless ``device="cpu"``.
+on the CUDA card unless ``device="cpu"``, and over a ``parallel.mesh.Mesh``
+(one process per device) where ``mesh`` is given.
 """
 
 from __future__ import annotations
@@ -33,10 +34,15 @@ from ..engine import checkpoint
 from ..engine.executor import Engine
 from ..models import get_family
 from ..ops.preprocess import normalize_uint8
+from ..parallel.multihost import host_local_batch
 from ..parallel.train import (
     TrainState,
     cached_train_step,
     compute_class_weights,
+    gather_params,
+    gather_state,
+    shard_params,
+    shard_state,
     snapshot,
     train_device,
     trainable_params,
@@ -112,7 +118,16 @@ def fit(
     (reference-loadable), hyperparameters.json (reference sidecar schema),
     training_history.json; last_state/ and train_progress.json for resume.
     ``init_params`` (copied, never modified) replaces the seeded random init.
-    ``mesh`` raises (ROADMAP.md item 22).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls ``fit`` alike)
+    runs the sharded train step (``parallel.train.make_train_step``): each
+    rank feeds its own rows of every batch (``batch_size`` must divide by
+    the 'data' size) and holds its tasks' slice of the task-stacked
+    leaves.  The per-epoch validation engine runs on the mesh too.  Rank 0
+    writes every file, from the state gathered over the mesh; a resume
+    loads the whole state and takes each rank's part.  Every rank returns
+    the same result: the gathered best params, the global losses and F1s,
+    and each epoch's seconds as the slowest rank's.
     """
     opts = {**DEFAULT_OPTIONS, **(options or {})}
     get_family(family)  # fail fast on an unknown family
@@ -180,12 +195,14 @@ def fit(
     if init_params is None:
         state = init_fn(opts["seed"])
     else:
-        params = trainable_params(init_params, dev)
+        params = trainable_params(shard_params(init_params, mesh), dev)
         state = TrainState(params, optimizer.init(params), 0)
+    main = mesh is None or mesh.is_main  # the rank that writes
 
     bs = opts["batch_size"]
+    rows = slice(*mesh.row_range(bs)) if mesh is not None else slice(None)
     history = []
-    best_f1, best_params = -1.0, snapshot(state.params)
+    best_f1, best_params = -1.0, snapshot(gather_params(state.params, mesh))
     start_epoch = 0
     last_dir = os.path.join(save_dir, "last_state")
     best_dir = os.path.join(save_dir, "best_model")
@@ -193,7 +210,8 @@ def fit(
     if opts["resume"] and os.path.exists(progress_path):
         with open(progress_path) as f:
             progress = json.load(f)
-        state = checkpoint.load_native(last_dir, like=state)
+        state = shard_state(checkpoint.load_native(last_dir, like=gather_state(state, mesh)),
+                            mesh)
         start_epoch = int(progress["next_epoch"])
         history = progress["history"]
         best_f1 = float(progress["best_f1"])
@@ -206,14 +224,14 @@ def fit(
     # one eval engine for all epochs and across repeat fits of the same
     # configuration; each epoch hands it a detached copy of the params
     try:
-        eng_key = (family, spec, min(bs, 64), str(dev))
+        eng_key = (family, spec, min(bs, 64), str(dev), None if mesh is None else id(mesh))
         hash(eng_key)
     except TypeError:  # unhashable custom spec: no caching
         eng_key = None
     eval_engine = _EVAL_ENGINE_CACHE.get(eng_key) if eng_key is not None else None
     if eval_engine is None:
-        eval_engine = Engine(family, spec, snapshot(state.params, dev), batch_size=min(bs, 64),
-                             prob_threshold=0.0, device=dev)
+        eval_engine = Engine(family, spec, snapshot(gather_params(state.params, mesh), dev),
+                             batch_size=min(bs, 64), prob_threshold=0.0, mesh=mesh, device=dev)
         if eng_key is not None:
             if len(_EVAL_ENGINE_CACHE) >= 8:
                 _EVAL_ENGINE_CACHE.pop(next(iter(_EVAL_ENGINE_CACHE)))
@@ -231,34 +249,50 @@ def fit(
         pending = fetch_async(order[starts[0]: starts[0] + bs]) if starts else None
         for si, s in enumerate(starts):
             idx = order[s: s + bs]
-            images = normalize_uint8(torch.from_numpy(pending()).to(dev))
+            images = normalize_uint8(torch.from_numpy(pending()[rows]).to(dev))
             if si + 1 < len(starts):  # decode the next batch during this step
                 nxt = starts[si + 1]
                 pending = fetch_async(order[nxt: nxt + bs])
-            state, loss = step_fn(state, images, all_labels[idx])
+            labels = all_labels[idx][rows]
+            if mesh is not None:  # this rank's rows of the global batch
+                images, labels = host_local_batch(mesh, images, labels)
+            state, loss = step_fn(state, images, labels)
             losses.append(float(loss))
 
-        eval_engine.params = snapshot(state.params, dev)
+        eval_engine.params = snapshot(gather_params(state.params, mesh), dev)
         val_f1 = _val_overall_f1(eval_engine, val_imgs, val_labels)
+        seconds = time.perf_counter() - t0
+        if mesh is not None:
+            seconds = float(mesh.all_reduce(torch.tensor(seconds, device=dev), op="max"))
         entry = {
             "epoch": epoch,
             "train_loss": float(np.mean(losses)),
             "val_overall_f1": val_f1,
-            "seconds": round(time.perf_counter() - t0, 3),
+            "seconds": round(seconds, 3),
         }
         history.append(entry)
         print(f"[epoch {epoch}] loss={entry['train_loss']:.4f} val_f1={val_f1:.4f} "
               f"({entry['seconds']}s)")
         if val_f1 >= best_f1:
-            best_f1, best_params = val_f1, snapshot(state.params)
-            checkpoint.save_native(best_params, best_dir)
+            best_f1, best_params = val_f1, snapshot(gather_params(state.params, mesh))
+            if main:
+                checkpoint.save_native(best_params, best_dir)
         if opts["save_every"] and (epoch + 1) % opts["save_every"] == 0:
             # the full TrainState: resuming reproduces the run, not a warm restart
-            checkpoint.save_native(state, last_dir)
-            with open(progress_path, "w") as f:
-                json.dump({"next_epoch": epoch + 1, "history": history, "best_f1": best_f1},
-                          f, indent=2)
+            full = gather_state(state, mesh)
+            if main:
+                checkpoint.save_native(full, last_dir)
+                with open(progress_path, "w") as f:
+                    json.dump({"next_epoch": epoch + 1, "history": history, "best_f1": best_f1},
+                              f, indent=2)
 
+    if decode_pool is not None:
+        decode_pool.shutdown()
+    result = {"params": best_params, "history": history, "best_f1": best_f1,
+              "ckpt_dir": best_dir}
+    if not main:
+        mesh.barrier()  # rank 0 has written everything
+        return result
     checkpoint.save_native(best_params, best_dir)
     pth_path = os.path.join(save_dir, "best_model.pth")
     checkpoint.save_torch_checkpoint(family, best_params, spec, pth_path)
@@ -272,10 +306,9 @@ def fit(
         json.dump(sidecar, f, indent=2)
     with open(os.path.join(save_dir, "training_history.json"), "w") as f:
         json.dump(history, f, indent=2)
-    if decode_pool is not None:
-        decode_pool.shutdown()
-    return {"params": best_params, "history": history, "best_f1": best_f1,
-            "ckpt_dir": best_dir}
+    if mesh is not None:
+        mesh.barrier()
+    return result
 
 
 def _spec_hparams(family: str, spec) -> Dict[str, Any]:

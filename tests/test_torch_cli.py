@@ -2,7 +2,7 @@
 JAX CLI's flags plus ``--device``, the classifier, export and train modes
 on a tiny synthetic set writing the JAX CLI's artifacts (with the explain
 and style-transfer epilogues), and ``--data_parallel`` over several cards
-refusing by its ROADMAP.md item.  The embedding modes (tsne,
+without torchrun refusing with the command line to use.  The embedding modes (tsne,
 tsne_interactive, clustering): tests/test_torch_embed.py."""
 
 import json
@@ -189,9 +189,12 @@ def test_cli_train_mode_writes_the_artifacts(env):
 
 
 def test_data_parallel_over_cards_names_its_roadmap_item(env, monkeypatch):
+    """One process that sees several cards raises with the torchrun command
+    line, naming the deliberate difference in ROADMAP.md section C."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     base, synth, root = _base(env)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 22"):
+    with pytest.raises(RuntimeError, match=r"ROADMAP.md section C.*torchrun --nproc_per_node=2"):
         cli.main(base + ["--mode", "inference", "--image_folder", os.path.join(synth, "images"),
                          "--save_dir", os.path.join(root, "dp"), "--data_parallel"])
 

@@ -134,15 +134,17 @@ def test_default_device_raises_without_a_card(shipped, monkeypatch):
         port.load_engine("pmg", SHIPPED + ".pth", meta["tasks"], meta["hparams"])
 
 
-@pytest.mark.parametrize("kwargs,err", [
-    (dict(mesh=object()), NotImplementedError),
+@pytest.mark.parametrize("kwargs,err,match", [
+    (dict(mesh=object()), TypeError, "make_mesh"),
+    (dict(dtype=torch.float16), ValueError, "float32 or torch.bfloat16"),
 ])
-def test_unported_options_raise(shipped, kwargs, err):
-    """``mesh`` raises in the Engine.  bf16 runs in the Engine
-    (tests/test_torch_bf16.py) and in the stream
-    (tests/test_torch_stream_bf16.py)."""
+def test_unported_options_raise(shipped, kwargs, err, match):
+    """A ``mesh`` that is not a ``parallel.mesh.Mesh`` raises in the Engine
+    (a mesh runs: tests/test_torch_parallel.py), as does a dtype other than
+    float32 and bf16.  bf16 runs in the Engine (tests/test_torch_bf16.py)
+    and in the stream (tests/test_torch_stream_bf16.py)."""
     spec, params = shipped
-    with pytest.raises(err, match="ROADMAP"):
+    with pytest.raises(err, match=match):
         Engine("pmg", spec, params, device="cpu", **kwargs)
 
 

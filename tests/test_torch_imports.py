@@ -216,6 +216,34 @@ def test_embed_modules_are_scanned_and_clean(rel, embed_imports):
     assert embed_imports == "[]"
 
 
+MESH_MODULES = ["parallel/mesh.py", "parallel/multihost.py", "parallel/dryrun.py",
+                "parallel/train.py", "ops/kernel_select.py", "engine/executor.py",
+                "workloads/stream.py"]
+
+
+@pytest.fixture(scope="module")
+def mesh_imports():
+    """One fresh interpreter imports the multi-device and route-selection
+    slice's modules and lists what it loaded of JAX, optax, scikit-learn
+    and the JAX package."""
+    mods = ", ".join(_module(rel) for rel in MESH_MODULES)
+    out = _run(f"import sys, {mods}; print(sorted(n for n in sys.modules if n.split('.')[0] in "
+               f"('jax', 'optax', 'sklearn', 'wadt', '{JAX_PKG}')))")
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_mesh_modules_are_scanned_and_clean(rel, mesh_imports):
+    """The mesh, multihost, dryrun and kernel-selection modules (and the
+    engine, train step and camera that use them) are among those the scan
+    reads, and import without JAX or optax."""
+    path = os.path.join(REPO, PORT, rel)
+    assert path in _scanned_files()
+    assert not _forbidden_import_lines(path)
+    assert mesh_imports == "[]"
+
+
 def test_export_module_imports_no_model_code():
     """The serving side of an artifact needs no model: importing the export
     module and the operator registrations loads no ``models`` module."""

@@ -480,7 +480,7 @@ def test_native_train_state_roundtrip(tmp_path):
 
 def test_train_step_guards(monkeypatch):
     spec, _ = _port_init("pmg")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 22"):
+    with pytest.raises(TypeError, match="make_mesh"):
         ttrain.make_train_step("pmg", spec, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
