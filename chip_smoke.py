@@ -59,8 +59,12 @@ Phases, each of which raises on failure:
    ``--profile`` adds each route's table of device time by kernel, and the
    head kernel's time with its fold cut to its first 0, 1, ... layers;
 10. the RTM int8 kernel (K6, ``dequant_matvec``) against its plain version
-    on the card, at the camera path's full-width shape and on the fixtures'
-    ragged shapes, within 1e-4 x max|y|;
+    on the card, in float32 and in bf16, at the camera path's full-width
+    shape and on the fixtures' ragged shapes (K6_SHAPES), within 1e-4 x
+    max|y|, two calls bit-identical; and its dequantization over every int8
+    value and every finite bf16 scale pattern (a float32 sweep in float32
+    mode), on the 16-byte and the byte-wise paths, bit for bit the plain
+    version's (``k6_exhaustive``);
 11. the three RTM golden fixtures on the card: logits of the loaded
     engine's params at 2e-4, and the ``apply_stream`` walk on the float32
     and int8 folds (argmax agrees on every fixture; drift printed);
@@ -78,7 +82,8 @@ Phases, each of which raises on failure:
     of phase 9, and its device kernels per step at the end of the run; K6
     at batch 1 with L2 out of play beside its bound, its plain version, a
     ``torch.bmm`` yardstick and ``torch._weight_int8pack_mm`` where this
-    torch has it;
+    torch has it, and the previous K6 in turns where ``_archive/`` holds it
+    as ``int8_matvec_v1.cu``;
 14. the bf16 path's kernels on the card at its shapes: K1 in bf16 against
     its plain version at batch 256 and on two ragged shapes (atol 0, rtol
     2^-8; two calls bit-identical), with its time, bound and yardsticks
@@ -207,7 +212,8 @@ Phases, each of which raises on failure:
     latency as in phase 9; (b) K6's bf16 mode against its plain version at
     [1,12,2048] x [12,2048,2048] within 1e-4 x max|y|, its time with L2 out
     of play beside its bound, its plain version and ``torch.bmm`` on the
-    bf16-dequantized fold; (c) the PM headline (generic) and RTM headline
+    bf16-dequantized fold (and the previous K6 in turns where ``_archive/``
+    holds it); (c) the PM headline (generic) and RTM headline
     (generic, folded, folded_q8 with K6's bf16 mode once a frame) bf16
     cameras against the card's float32 predictors: the drift in
     probability (RTM within RTM_BF16_DRIFT, PM within BF16_CAMERA_DRIFT) and
@@ -251,11 +257,16 @@ Phases, each of which raises on failure:
     call to the record; every ``"auto"`` checked against the record in
     effect and every entry against the rule that wrote it; and the
     batch-1 K1, K2 (bf16 mode) and K5 of PMG's bf16 packed and generic
-    camera routes beside their bounds and plain versions.
+    camera routes beside their bounds, plain versions and library calls
+    (K1 ``torch.baddbmm`` on the split patches plus the split copy, K2
+    ``torch.addmm`` on the packed bf16 operand, K5 ``torch.addmm`` with the
+    bias).
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
-kernel time and table of device time by kernel, and in phase 14 K1's bf16
-time with its work cut stage by stage.  Host times come from runs
+kernel time and table of device time by kernel, in phase 14 K1's bf16
+time with its work cut stage by stage, and in phase 13 K6's stage cut
+(``k6_cuts``: loads only and math only, both modes, of the current K6 and
+of the previous one where ``_archive/`` holds it).  Host times come from runs
 without ``--profile``: once a profiler session has run, the host's launch
 cost stays higher for the rest of the process.
 
@@ -303,6 +314,9 @@ LATENCY_FRAMES = 200
 K3_TOL = 5e-3  # the JAX package's own bound for the fused trunk (tests/test_pallas.py:133)
 K4_TOL = 1e-3
 K6_TOL = 1e-4  # times max|y| of the plain version
+# [B, T, C, D] of phase 10: the camera's fold at full width, the
+# rtm_trunc5_attn fold and its mlp_q8 layer, the byte-wise path with 4-row groups
+K6_SHAPES = ((1, 12, 2048, 2048), (2, 3, 256, 256), (2, 3, 256, 32), (5, 3, 40, 24))
 RTM_BATCH = 128
 RTM_FRAMES = 384
 K5_TOL = 1e-4  # times max|y| of the plain version
@@ -463,6 +477,7 @@ ARCHIVE = "_archive"  # gitignored: earlier kernel versions kept for an A/B in o
 ARCHIVED = {
     "gram_proj_v2.cu": {"wadt_gram_proj_bf16": "PPPPPIIIIP"},
     "head_v2.cu": {"wadt_fused_head": "PPIPPTIPPPPIPIIIIIIIIP"},
+    "int8_matvec_v1.cu": {"wadt_dequant_matvec": "PPPPIIIIP", "wadt_dequant_matvec_bf16": "PPPPIIIIP"},
     "patch_gram_v1.cu": {"wadt_patch_gram_f32": "PPIIIIIP", "wadt_patch_gram_bf16": "PPIIIIIP"},
     "stem_v1.cu": {"wadt_stem_u8_f32": "PPPPPIIIIIIIP"},
     "trunk_gram_v1.cu": {"wadt_trunk_gram_u8": "PPPPPPPPPPIIIIIIIIIIIP"},
@@ -528,7 +543,8 @@ def archived_kernels() -> dict:
     """The previous versions of the redesigned kernels that the gitignored
     ``_archive/`` holds (copies of earlier commits' sources, not committed:
     K5 and K4 as ``gram_proj_v2.cu`` and ``head_v2.cu``, K1 and K3 as
-    ``patch_gram_v1.cu`` and ``trunk_gram_v1.cu``; each optional), built
+    ``patch_gram_v1.cu`` and ``trunk_gram_v1.cu``, K2 as ``stem_v1.cu``, K6
+    as ``int8_matvec_v1.cu``; each optional), built
     into one library of their own: entry point name -> ctypes function.
     Empty where the checkout has none of them."""
     import ctypes
@@ -966,7 +982,181 @@ def random_rtm_params(spec, seed: int):
     return params
 
 
-def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
+def k6_exhaustive(dev) -> str:
+    """K6's dequantization over every int8 value, bit for bit against its
+    plain version, in both modes and on both load paths.  x is 256 one-hot
+    rows (row b selects c = b) and row c of w8 holds the int8 value c - 128
+    in every column, so each y[b, 0, d] is the one exact product
+    (b - 128) x scale[d], rounded as the mode rounds it.  The columns' scales
+    are every finite bf16 bit pattern whose product with 128 stays finite
+    (63,488 columns, subnormals and zeros included; bf16 mode), and those
+    patterns with seeded random low 16 bits (float32 mode).  The byte-wise
+    path runs on the first D - 8 columns (D % 16 == 8)."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    bits = bits[((bits >> 7) & 0xFF) <= 247]  # exponent <= 247: finite, and 128 x s finite
+    low = np.random.RandomState(101).randint(0, 1 << 16, bits.size).astype(np.uint32)
+    scales = {
+        "bf16": torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16),
+        "float32": torch.from_numpy((bits << 16 | low).view(np.float32).copy()),
+    }
+    d = bits.size
+    w8 = torch.arange(-128, 128, dtype=torch.int8, device=dev)[None, :, None].expand(1, 256, d).contiguous()
+    eye = torch.eye(256, device=dev)[:, None, :]
+    rows = []
+    for mode, sc in scales.items():
+        dt = torch.bfloat16 if mode == "bf16" else torch.float32
+        x, sc = eye.to(dt), sc.to(dev)[None]
+        for path, n in (("16-byte", d), ("byte-wise", d - 8)):
+            w, s = (w8, sc) if n == d else (w8[..., :n].contiguous(), sc[..., :n].contiguous())
+            if ck.dequant_matvec_plan(256, 1, 256, n).vec16 != (n == d):
+                raise AssertionError(f"dequant_matvec plan: D {n} takes the wrong path")
+            got = ck.dequant_matvec(x, w, s)
+            want = ck.dequant_matvec_plain(x, w, s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:4].tolist()
+                raise AssertionError(f"dequant_matvec {mode} {path}: {int((got != want).sum())} of "
+                                     f"{got.numel()} one-hot products differ from the plain version, "
+                                     f"first at [b, t, d] {bad}")
+            rows.append(f"{mode} {path} {got.numel():,}")
+        del x, sc
+    return ("dequant_matvec exhaustive dequantization, every int8 value x every finite bf16 scale "
+            f"pattern ({d:,} columns; float32: with seeded low bits), one-hot x: bit for bit the plain "
+            "version's products in " + ", ".join(rows))
+
+
+def k6_turns(old: dict, name: str, xq, copies, card: str) -> str | None:
+    """The archived K6 (``_archive/int8_matvec_v1.cu``, entry point
+    ``name``) and the current one in turns (old, new, new, old), both
+    reading the weights from device memory (``copies``: 4 rotating copies
+    of (w8, scale)); None where the archive does not hold it."""
+    import itertools
+
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    if name not in old:
+        return None
+    b, t, c = xq.shape
+    d = copies[0][0].shape[-1]
+    y = torch.empty((b, t, d), dtype=torch.float32, device=xq.device)
+    calls = [archived_call(old[name], xq.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), b, t, c, d)
+             for w, s in copies]
+    calls[0]()
+    torch.cuda.synchronize()
+    err = float((y - ck.dequant_matvec(xq, *copies[0])).abs().max())
+    olds, ring = itertools.cycle(calls), itertools.cycle(copies)
+    old_ms, new_ms = in_turns(lambda: next(olds)(), lambda: ck.dequant_matvec(xq, *next(ring)))
+    return (f"dequant_matvec{' bf16 mode' if xq.dtype == torch.bfloat16 else ''} at [{b},{t},{c}] x "
+            f"[{t},{c},{d}] in turns, L2 out of play: archived v1 {old_ms * 1e3:.1f} us, new "
+            f"{new_ms * 1e3:.1f} us (max |new - v1| {err:.3e}) | {card}")
+
+
+# K6's stage cut for --profile: each variant replaces these source lines of
+# the archived v1 (where _archive/ holds it) or of the current kernel
+K6_CUTS = {
+    "int8_matvec_v1.cu": (
+        ("loads only (each word XORed into a sum)", (
+            ("    const float w = weight<BF16>(static_cast<signed char>(word >> (8 * e)), sc[base + e]);",
+             "    const float w = 0.f;\n    if (e == 0) acc[0][base] = __int_as_float(__float_as_int(acc[0][base]) ^ word);"),
+            ("    for (int j = 0; j < BT; ++j) acc[j][base + e] = fmaf(xs[j * C + c], w, acc[j][base + e]);",
+             "    (void)w;"))),
+        ("math only (register data, no loads)", (
+            ("        v[u] = c < C ? __ldg(reinterpret_cast<const int4*>(wc + (size_t)c * D))\n"
+             "                     : make_int4(0, 0, 0, 0);",
+             "        v[u] = make_int4(c * 0x01010101 ^ col, c * 0x01030507 + r, c ^ 0x5a5a5a5a ^ col, "
+             "c + r * 0x00010001);"),)),
+    ),
+    "int8_matvec.cu": (
+        ("loads only (each row's 16 bytes XORed into a sum)", (
+            ("      fma_row<BT, BF16>(acc, xv, sc2, v);",
+             "      acc[0][0] = __uint_as_float(__float_as_uint(acc[0][0]) ^ v.x ^ v.y ^ v.z ^ v.w);"),)),
+        ("math only (register data, no weight copies)", (
+            ("      const uint4 v = ring[(k % kStages) * kThreads + threadIdx.x];",
+             "      const uint4 v = make_uint4(k * 0x01010101u ^ col, k * 0x01030507u + r, "
+             "k ^ 0x5a5a5a5au ^ col, k + r * 0x00010001u);"),
+            ("      if (s < ksteps) issue(s);", "      (void)issue;"),
+            ("      if (k + kStages - 1 < ksteps) issue(k + kStages - 1);  // into the slot read at k - 1",
+             ""))),
+    ),
+}
+
+
+def k6_cuts(card: str) -> None:
+    """``--profile``: K6 at the camera shape, L2 out of play, both modes,
+    whole and with its loads or its math cut out (``K6_CUTS``), for the
+    current kernel and the archived v1 where ``_archive/`` holds it.  Each
+    variant is built alone into ``_archive/k6_cuts/`` (one nvcc a variant,
+    all started together)."""
+    import ctypes
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    sources = {"int8_matvec.cu": os.path.join(ck._CSRC, "int8_matvec.cu"),
+               "int8_matvec_v1.cu": os.path.join(ARCHIVE, "int8_matvec_v1.cu")}
+    out = os.path.join(ARCHIVE, "k6_cuts")
+    os.makedirs(out, exist_ok=True)
+    variants = []  # (source, label, .cu path)
+    for src, path in sources.items():
+        if not os.path.isfile(path):
+            continue
+        with open(path) as f:
+            text = f.read()
+        for i, (label, subs) in enumerate((("whole", ()),) + K6_CUTS[src]):
+            cut = text
+            for a, b in subs:
+                if cut.count(a) != 1:
+                    raise AssertionError(f"K6 cut {label!r} of {src}: the line {a!r} is not in it once")
+                cut = cut.replace(a, b)
+            cu = os.path.join(out, f"{src[:-3]}_{i}.cu")
+            with open(cu, "w") as f:
+                f.write(cut)
+            variants.append((src, label, cu))
+    nvcc = ck._nvcc()
+    ck._run_all([[nvcc, *ck._NVCC_FLAGS, "-shared", cu, "-o", cu[:-3] + ".so"] for _, _, cu in variants],
+                "nvcc (K6 cuts)")
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(15)
+    t, c, d = 12, 2048, 2048
+    x = torch.from_numpy(rng.randn(1, t, c).astype(np.float32)).to(dev)
+    w8 = torch.from_numpy(rng.randint(-127, 128, (t, c, d)).astype(np.int8)).to(dev)
+    sc = torch.from_numpy((rng.rand(t, d).astype(np.float32) + 0.5) * 1e-3).to(dev)
+    y = torch.empty((1, t, d), dtype=torch.float32, device=dev)
+    plan = ck.dequant_matvec_plan(1, t, c, d)
+    copies = [(w8.clone(), sc.clone(), sc.to(torch.bfloat16)) for _ in range(4)]
+    rows = []
+    for src, label, cu in variants:
+        lib = ctypes.CDLL(os.path.abspath(cu[:-3] + ".so"))
+        for mode, xm in (("float32", x), ("bf16", x.to(torch.bfloat16))):
+            fn = getattr(lib, "wadt_dequant_matvec" + ("_bf16" if mode == "bf16" else ""))
+            extra = () if src.endswith("_v1.cu") else (plan.group, plan.stages, plan.smem)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(extra)) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            calls = itertools.cycle([archived_call(fn, xm.data_ptr(), w.data_ptr(),
+                                                   (s16 if mode == "bf16" else s).data_ptr(), y.data_ptr(),
+                                                   1, t, c, d, *extra) for w, s, s16 in copies])
+            rows.append(f"{src} {mode} {label} {device_ms(lambda: next(calls)()) * 1e3:.1f} us")
+    print(f"[13] K6 stage cut at [1,{t},{c}] x [{t},{c},{d}], L2 out of play: " + "; ".join(rows)
+          + f" | {card}")
+
+
+def rtm_phases(profile: bool, card: str, routes: list, old: dict) -> tuple:
     """Phases 10-13 (the RTM family) at full width; returns K6's entry of
     the kernels line and phase 12's float32 run (spec, params, frames,
     results, wall time) for phase 17, and appends each timed camera route
@@ -998,19 +1188,33 @@ def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
         scale = torch.from_numpy((rng.rand(t, d).astype(np.float32) + 0.5) * 1e-3).to(dev)
         return x, w8, scale
 
-    k6_err = k6_rel = 0.0
+    k6_err = k6_rel = k6_err16 = k6_rel16 = 0.0
     # full width at batch 1; the rtm_trunc5_attn fold (C 256) and its mlp_q8
-    # layer (D 32); a shape that takes the byte-wise path and 4-row groups
-    for shape in ((1, 12, 2048, 2048), (2, 3, 256, 256), (2, 3, 256, 32), (5, 3, 40, 24)):
+    # layer (D 32); a shape that takes the byte-wise path and 4-row groups.
+    # Both modes; two calls bit-identical.
+    plans = []
+    for shape in K6_SHAPES:
         x, w8, scale = k6_case(*shape)
-        got = ck.dequant_matvec(x, w8, scale)
-        torch.cuda.synchronize()
-        want = ck.dequant_matvec_plain(x, w8, scale)
-        ymax = float(want.abs().max())
-        err = max_err(got, want, K6_TOL * ymax, 0.0, f"dequant_matvec {list(shape)}")
-        k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / ymax)
-    print(f"[10] dequant_matvec vs plain: max abs err {k6_err:.3e}, {k6_rel:.3e} x max|y|, at [B,T,C,D] = "
-          f"[1,12,2048,2048], [2,3,256,256], [2,3,256,32], [5,3,40,24]; bound {K6_TOL} x max|y|")
+        for x_, s_, what in ((x, scale, ""), (x.to(torch.bfloat16), scale.to(torch.bfloat16), " bf16")):
+            got = ck.dequant_matvec(x_, w8, s_)
+            again = ck.dequant_matvec(x_, w8, s_)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"dequant_matvec{what} {list(shape)}: two calls differ")
+            want = ck.dequant_matvec_plain(x_, w8, s_)
+            ymax = float(want.abs().max())
+            err = max_err(got, want, K6_TOL * ymax, 0.0, f"dequant_matvec{what} {list(shape)}")
+            if what:
+                k6_err16, k6_rel16 = max(k6_err16, err), max(k6_rel16, err / ymax)
+            else:
+                k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / ymax)
+        p = ck.dequant_matvec_plan(*shape)
+        plans.append(f"{list(shape)}: {'ring of ' + str(p.stages) if p.vec16 else 'byte-wise'}, "
+                     f"group {p.group}, grid {p.grid}")
+    print(f"[10] dequant_matvec vs plain: max abs err float32 {k6_err:.3e} = {k6_rel:.3e} x max|y|, bf16 "
+          f"mode {k6_err16:.3e} = {k6_rel16:.3e} x max|y|, at [B,T,C,D] = "
+          + "; ".join(plans) + f"; bound {K6_TOL} x max|y|; two calls bit-identical in both modes")
+    print(f"[10] {k6_exhaustive(dev)}")
 
     # -- 11. RTM golden fixtures on the card ------------------------------------
     fix_err = 0.0
@@ -1126,6 +1330,7 @@ def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
     ring_plain = itertools.cycle(copies)
     k6_ms = device_ms(lambda: ck.dequant_matvec(xq, *next(ring)))
     plain_ms = device_ms(lambda: ck.dequant_matvec_plain(xq, *next(ring_plain)))
+    turns = k6_turns(old, "wadt_dequant_matvec", xq, copies, card)
     # partial yardstick: one torch.bmm on the float32-dequantized fold, which
     # reads 4x the bytes (201 MB, four times the L2 on its own)
     deq = (fold8.float() * fscale[:, None, :]).contiguous()
@@ -1152,6 +1357,10 @@ def rtm_phases(profile: bool, card: str, routes: list) -> tuple:
           f"plain {plain_ms * 1e3:.1f} us, torch.bmm on the float32-dequantized fold "
           f"{lib_ms * 1e3:.1f} us (partial yardstick, 4x the bytes); torch._weight_int8pack_mm: "
           f"{int8pack} | {card}")
+    if turns:
+        print(f"[13] {turns}")
+    if profile:
+        k6_cuts(card)
     return {
         "name": "dequant_matvec", "route": "cuda", "source": f"{PORT}/csrc/int8_matvec.cu",
         "replaces": "tools/exp_rtm_int8_stream.py:77",
@@ -3024,14 +3233,15 @@ TSNE_TRUST_TOL = 0.01
 EMBED_CLI_IMAGES = 64
 
 
-def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda") -> tuple:
+def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda", old: dict | None = None) -> tuple:
     """Phase 22: the bf16 camera path and the embedding workloads.  (a) The
     shipped PMG's bf16 camera on the fused, packed and generic routes,
     Kalman on and off: fused bit for bit float32's, packed bit for bit
     ``Engine(dtype=bf16, batch_size=1)``, generic bit for bit ``pmg.apply``
     on the bf16 tree at batch 1, both within BF16_CAMERA_DRIFT of float32;
     (b) K6's bf16 mode against its plain version at the camera shape, with
-    its time, bound and yardstick; (c) the PM and RTM headline bf16 cameras
+    its time, bound and yardstick (and the archived K6 in turns where
+    ``old`` holds it); (c) the PM and RTM headline bf16 cameras
     within BF16_CAMERA_DRIFT and RTM_BF16_DRIFT of the card's float32 ones;
     (d) ``compute_embeddings`` on the shipped PMG (float32 with the logits
     and pooled taps, bf16), the t-SNE on the card (and on its first TSNE_SUB points against the
@@ -3181,6 +3391,9 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda") -> tu
         ring, ring_plain = itertools.cycle(copies), itertools.cycle(copies)
         k6["ms"] = device_ms(lambda: ck.dequant_matvec(xq, *next(ring)))
         k6["plain_ms"] = device_ms(lambda: ck.dequant_matvec_plain(xq, *next(ring_plain)))
+        turns = k6_turns(old or {}, "wadt_dequant_matvec_bf16", xq, copies, card)
+        if turns:
+            print(f"[22] (b) {turns}")
         # partial yardstick: one torch.bmm, float32 out, on the fold
         # dequantized to bf16 beforehand (100.7 MB, twice the bytes of w8)
         deq = (w8.to(bf16) * sc[:, None, :]).contiguous()
@@ -3889,7 +4102,7 @@ def select_phase(card: str, record: bool) -> None:
     )
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import rtm
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
-        cuda_kernels as ck, kernel_select as ks,
+        cuda_kernels as ck, kernel_select as ks, preprocess as pre,
     )
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream
 
@@ -3992,23 +4205,36 @@ def select_phase(card: str, record: bool) -> None:
     w16, b32 = tp["w"].contiguous(), tp["b"].float()
     m, k, nout = g16.shape[0] * g16.shape[1], g16.shape[2], w16.shape[1]
     cout = st["w"].shape[1]
+    # each kernel's library yardstick at batch 1, in the forms of phase 5's
+    # and 14's: K1 torch.baddbmm on the split patches (plus the split copy,
+    # timed apart), K2's bf16 mode torch.addmm on the packed operand in bf16
+    # (no cast or pack, norm or LeakyReLU), K5 torch.addmm of the bf16 Gram
+    # rows, weight and bias (its whole function)
+    k1_yard = k1_yardsticks(z16, spec.patch_div)
+    a2d16 = pre.s2d_pack(x1, 4).reshape(-1, 48).float().to(bf16)
+    wst16, bst16, b16, g2d = st["w"].to(bf16), st["bias"].to(bf16), b32.to(bf16), g16.reshape(m, k)
     rows = []
-    for name, fn, plain, nbytes, flops in (
+    for name, fn, plain, lib, nbytes, flops in (
             ("patch_gram bf16 [1,14,14,96] div 3", lambda: ck.patch_gram(z16, spec.patch_div),
-             lambda: ck.patch_gram_plain(z16, spec.patch_div), 2 * (z16.numel() + g16.numel()),
-             2.0 * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2),
+             lambda: ck.patch_gram_plain(z16, spec.patch_div),
+             f"torch.baddbmm on the split patches {k1_yard['baddbmm'] * 1e3:.1f} us, plus "
+             f"{k1_yard['split'] * 1e3:.1f} us for the split copy",
+             2 * (z16.numel() + g16.numel()), 2.0 * spec.patch_div ** 2 * 25 * spec.gram_channels ** 2),
             ("stem bf16 mode [1,224,224,3] -> 32",
              lambda: ck.stem(x1, st["w"], st["scale"], st["shift"], 4, leaky=True, out_dtype=bf16,
                              bias=st["bias"]),
              lambda: ck.stem_plain(x1, st["w"], st["scale"], st["shift"], 4, leaky=True, out_dtype=bf16,
                                    bias=st["bias"]),
+             f"torch.addmm on the packed bf16 operand "
+             f"{device_ms(lambda: torch.addmm(bst16, a2d16, wst16)) * 1e3:.1f} us",
              x1.numel() + st["w"].numel() * 4 + cout * 8 + 56 * 56 * cout * 2, 2.0 * 56 * 56 * cout * 48),
             (f"gram_proj [{m},{k}] x [{k},{nout}] bf16 out",
              lambda: ck.gram_proj(g16, w16, b32, bf16), lambda: ck.gram_proj_plain(g16, w16, b32, bf16),
+             f"torch.addmm bf16 with the bias {device_ms(lambda: torch.addmm(b16, g2d, w16)) * 1e3:.1f} us",
              2 * g16.numel() + 2 * w16.numel() + 4 * nout + 2 * m * nout, 2.0 * m * k * nout)):
         b_ms, b_by = bound_ms(nbytes, 0.0, bf16_flops=flops)
         rows.append(f"{name} {device_ms(fn) * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by {b_by}), "
-                    f"plain {device_ms(plain) * 1e3:.1f} us")
+                    f"plain {device_ms(plain) * 1e3:.1f} us, library: {lib}")
     print("[23] (d) batch-1 kernels of PMG's bf16 packed and generic camera routes: " + "; ".join(rows)
           + f" | {card}")
     del eng16
@@ -4297,7 +4523,7 @@ def main() -> int:
 
     routes: list = []
     kernels += camera_phases(args.profile, card, eng.spec, eng.params, routes, old)
-    k6, rtm_f32 = rtm_phases(args.profile, card, routes)
+    k6, rtm_f32 = rtm_phases(args.profile, card, routes, old)
     kernels.append(k6)
     launches16, k5 = pmg_bf16_phases(card, eng, frames, out, big, wall5, args.profile, old)
     kernels.insert(4, k5)
@@ -4312,7 +4538,7 @@ def main() -> int:
     deploy_counts = deployment_phase(card)
     train_counts = training_phase(card, profile=args.profile)
     explain_counts = explain_phase(card)
-    k6_16, stream16_counts, embed_counts = stream_bf16_embed_phase(card, routes)
+    k6_16, stream16_counts, embed_counts = stream_bf16_embed_phase(card, routes, old=old)
     kernels.append(k6_16)
     mesh_counts = mesh_phase(card)
     select_phase(card, args.record)

@@ -164,7 +164,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         ]
         lib.wadt_fused_head.restype = i32
         for fn in (lib.wadt_dequant_matvec, lib.wadt_dequant_matvec_bf16):
-            fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
             fn.restype = i32
         lib.wadt_gram_proj_bf16.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.wadt_gram_proj_bf16.restype = i32
@@ -1183,6 +1183,51 @@ def dequant_matvec_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor)
     return torch.einsum("btc,tcd->btd", x, w8.to(torch.float32)) * scale
 
 
+class DequantMatvecPlan(NamedTuple):
+    """Launch plan of ``csrc/int8_matvec.cu``: one block per (tile of
+    ``tile_cols`` output columns, task, group of ``group`` batch rows); a
+    ring of ``stages`` shared-memory stages of ``rows_per_stage`` rows of
+    the tile (0 stages: the byte-wise path); ``smem`` bytes of shared
+    memory a block (the ring, x's rows zero-padded to ``k_steps`` whole
+    stages, the per-warp column sums)."""
+
+    tile_cols: int
+    rows_per_stage: int
+    group: int
+    stages: int
+    k_steps: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+    @property
+    def vec16(self) -> bool:
+        return self.stages > 0
+
+
+DEQUANT_TILE_COLS, DEQUANT_STAGE_ROWS = 64, 64  # 256 threads: 64 row lanes x 4 of 16 columns
+DEQUANT_STAGES = 4  # the ring's depth: 3 stages of 4 KB in flight a block
+DEQUANT_MAX_SMEM = 227 * 1024
+
+
+def dequant_matvec_plan(b: int, t: int, c: int, d: int, aligned: bool = True) -> DequantMatvecPlan:
+    """The launch plan of K6 for x [b, t, c] and w8 [t, c, d] (``aligned``:
+    w8 is 16-byte aligned): a block per 64 output columns of a task and a
+    group of 1 batch row (b = 1) or 4; the ring of 16-byte ``cp.async``
+    copies when d % 16 == 0 and w8 is aligned, else the byte-wise path.
+    (At the camera shape, b 1, t 12, c = d 2048: 32 x 12 x 1 = 384 blocks,
+    4 stages of 4 KB, 26,624 bytes of shared memory.)"""
+    group = 1 if b == 1 else 4
+    k_steps = -(-c // DEQUANT_STAGE_ROWS)
+    stages = DEQUANT_STAGES if d % 16 == 0 and aligned else 0
+    smem = (stages * DEQUANT_STAGE_ROWS * DEQUANT_TILE_COLS
+            + 4 * (group * k_steps * DEQUANT_STAGE_ROWS + 8 * DEQUANT_TILE_COLS))  # 8 warps' sums
+    grid = (-(-d // DEQUANT_TILE_COLS), t, -(-b // group))
+    if smem > DEQUANT_MAX_SMEM or t > 65535 or grid[2] > 65535:
+        raise ValueError(f"dequant_matvec: [B, T, C, D] = [{b}, {t}, {c}, {d}] is beyond the kernel's "
+                         f"limits ({smem} bytes of shared memory, grid {grid})")
+    return DequantMatvecPlan(DEQUANT_TILE_COLS, DEQUANT_STAGE_ROWS, group, stages, k_steps, grid, smem)
+
+
 def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Per-task weight-only int8 product, y float32 [B, T, D], summed in float32:
 
@@ -1195,9 +1240,13 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
     Replaces ``int8_pallas`` (``tools/exp_rtm_int8_stream.py:77``, body
     ``_dequant_matvec_kernel``).  On this card it is bound by reading w8
     once: 50.3 MB at the RTM camera shape (T 12, C = D 2048), ~15 us at
-    3.35 TB/s, in either mode.  CPU tensor: the plain version.  CUDA
-    tensor: the ``dequant_matvec`` kernel, contiguous tensors only; x and
-    scale of one type.
+    3.35 TB/s, in either mode.  The kernel dequantizes without the
+    conversion unit (a PRMT of each byte under the exponent of 2^23 and one
+    FADD; in bf16 mode one bf16x2 multiply by the column scales, rounded
+    once) and keeps a ring of 16-byte ``cp.async`` copies in flight while
+    it does the math, on :func:`dequant_matvec_plan`'s launch plan.  CPU
+    tensor: the plain version.  CUDA tensor: the ``dequant_matvec`` kernel,
+    contiguous tensors only; x and scale of one type.
     """
     if x.device.type == "cpu":
         return dequant_matvec_plain(x, w8, scale)
@@ -1218,10 +1267,11 @@ def dequant_matvec(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> to
     out = torch.empty((b, t, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    plan = dequant_matvec_plan(b, t, c, d, w8.data_ptr() % 16 == 0)
     lib = build()
     fn = lib.wadt_dequant_matvec_bf16 if bf16 else lib.wadt_dequant_matvec
     _launch("dequant_matvec", fn, dev, x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), b, t, c, d)
+            out.data_ptr(), b, t, c, d, plan.group, plan.stages, plan.smem)
     return out
 
 
