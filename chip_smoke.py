@@ -7,13 +7,13 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the six CUDA
+1. print the card's name and power limit (nvidia-smi), build the seven CUDA
    kernels from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths
    (K2: float32 at 2e-4, two calls bit-identical, the bf16 mode to limits
    (a) and (b) of PERF.md section 2, with the load and store paths each
-   call took);
+   call took; ``tsne_repulsion`` at N 64 and 4,099, phase 24's limits);
 3. golden fixture: the shipped PMG checkpoint's logits on the fixture input
    match the frozen reference logits at 2e-4;
 4. main path: ``Engine.run`` at batch 256 on 600 seeded uint8 224-px frames
@@ -221,10 +221,14 @@ Phases, each of which raises on failure:
     the shipped PMG over 2,048 seeded labelled frames at batch 256 (float32
     logits and pooled taps, bf16 logits; K1 and K2, and K5 in bf16, once a
     batch; the logits equal ``Engine.run``'s), img/s beside ``Engine.run``;
-    the port's t-SNE of one task's logits on the card (N 2,048: ms, KL),
-    its first 512 points on the card and on the CPU (KL within 1 %
-    relative, trustworthiness within 0.01) and ``hdbscan_clustering`` on
-    one class; (e) ``cli.main`` in this process: ``--mode tsne``,
+    the port's t-SNE (scikit-learn's Barnes-Hut objective, the repulsion
+    summed exactly by the ``tsne_repulsion`` kernel, once an iteration) of
+    one task's logits on the card (N 2,048: ms, KL, launches), its first
+    512 points on the card and on the CPU (KL within 1 % relative,
+    trustworthiness within 0.01; a second card run bit-identical),
+    ``tsne_repulsion`` against its float64 plain version at both final
+    layouts (phase 24's limits), and
+    ``hdbscan_clustering`` on one class; (e) ``cli.main`` in this process: ``--mode tsne``,
     ``tsne_interactive`` (thumbnails) and ``clustering`` on 64 seeded PNGs,
     writing the JAX CLI's file names (the PNGs into phase 18's recording
     stand-in where matplotlib is missing), with the wall time of each.
@@ -262,6 +266,24 @@ Phases, each of which raises on failure:
     ``torch.addmm`` on the packed bf16 operand, K5 ``torch.addmm`` with the
     bias).
 
+24. the t-SNE at dataset scale (``tsne_phase``): 65,536 seeded 48-D points
+    in 12 Gaussian clusters.  (a) ``tsne_repulsion`` against its plain
+    version in float64 at a seeded layout of std 10: rep within 1e-4 x
+    max|rep|, each row's z within 1e-4 relative and Z within 1e-5; (b) the
+    kNN and sparse P alone (s, entries), then the whole ``tsne`` with
+    launch counts reset just before: wall s, final KL,
+    iterations (one kernel launch each), and the peak of
+    ``torch.cuda.max_memory_allocated`` over the call's own baseline, under
+    4 GB (one dense N x N float32 matrix is 17.2 GB); the layout finite,
+    and its 5 nearest neighbours in the same cluster for at least 90 % of
+    (point, neighbour) pairs; (c) (a)'s check at the final layout; (d) the
+    kernel's device time (CUDA events, median of 5 rounds of 20 launches)
+    beside its bound (N (N - 1) pairs of 12 float32 FLOPs and one MUFU
+    reciprocal) and its plain version's time in float32.  ``--profile``
+    adds (e): 50 descent iterations at N 65,536 and on the first 2,048
+    points, host wall an iteration untraced, then device time by kernel and
+    the device's idle share (``tsne_descent_trace``).
+
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
 time with its work cut stage by stage, and in phase 13 K6's stage cut
@@ -276,7 +298,8 @@ their launches on each path of phases 18 and 19, and K1's and K5's
 ``train_launches``, their launches in phase 20's twenty steps, K1's
 ``explain_launches``, its launches in phase 21's Grad-CAM and IG calls, and
 every kernel's ``stream_bf16_launches`` and ``embed_launches``, its
-launches on each bf16 camera route and each embedding path of phase 22,
+launches on each bf16 camera route and each embedding path of phase 22
+(the t-SNE runs included),
 and K1's, K2's and K5's ``mesh_launches``, their launches on the mesh
 engine and on each rank of the sharded train step in phase 23;
 K6's bf16 mode has an entry of its own, ``dequant_matvec_bf16``), the
@@ -3489,20 +3512,20 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda", old: 
 
     x = torch.from_numpy(embs[t0_name]).to(dev)
     perp = min(30.0, max(1.0, (EMBED_FRAMES - 1) / 3.0))
-    sync()
     t0 = time.perf_counter()
-    y, kl = ts.tsne(x, perp)
-    sync()
+    (y, kl), launches = counted(lambda: ts.tsne(x, perp))
     tsne_s = time.perf_counter() - t0
     if y.shape != (EMBED_FRAMES, 2) or not torch.isfinite(y).all() or not np.isfinite(kl):
         raise AssertionError("t-SNE layout not finite")
+    if on_card and not 0 < launches.get("tsne_repulsion", 0) <= 1000:
+        raise AssertionError(f"t-SNE at N {EMBED_FRAMES} launched {launches}")
+    embed_launches[f"tsne_n{EMBED_FRAMES}"] = launches
     sub = embs[t0_name][:TSNE_SUB]
     psub = min(30.0, max(1.0, (TSNE_SUB - 1) / 3.0))
-    sync()
     t0 = time.perf_counter()
-    ys, kls = ts.tsne(torch.from_numpy(sub).to(dev), psub)
-    sync()
+    (ys, kls), launches = counted(lambda: ts.tsne(torch.from_numpy(sub).to(dev), psub))
     sub_s = time.perf_counter() - t0
+    embed_launches[f"tsne_n{TSNE_SUB}"] = launches
     t0 = time.perf_counter()
     yc, klc = ts.tsne(torch.from_numpy(sub), psub)
     cpu_s = time.perf_counter() - t0
@@ -3511,6 +3534,19 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda", old: 
     if abs(kls - klc) > TSNE_KL_REL * klc or abs(tr_card - tr_cpu) > TSNE_TRUST_TOL:
         raise AssertionError(f"t-SNE on {TSNE_SUB} points, card vs CPU: KL {kls:.5f} vs {klc:.5f}, "
                              f"trustworthiness {tr_card:.4f} vs {tr_cpu:.4f}")
+    rep_line = ""
+    if on_card:
+        ys2, kls2 = ts.tsne(torch.from_numpy(sub).to(dev), psub)
+        if not torch.equal(ys2, ys) or kls2 != kls:
+            raise AssertionError(f"t-SNE on {TSNE_SUB} points: two runs on the card differ "
+                                 f"(KL {kls!r} vs {kls2!r})")
+        rep_line = "; a second run on the card bit-identical"
+        # the kernel on this path's final layouts against its float64 plain version
+        for what, yl in ((f"N {EMBED_FRAMES}", y), (f"N {TSNE_SUB}", ys)):
+            c = repulsion_check(ck, yl.contiguous(), f"{what}, final layout of [22] (d)", sync)
+            rep_line += (f"; tsne_repulsion vs plain float64 at the {what} layout: rep "
+                         f"{c['rep_err'] / c['rep_max']:.2e} x max|rep| (limit {TSNE_REP_TOL}), z rows rel "
+                         f"{c['z_rel']:.2e}, Z rel {c['z_sum_rel']:.2e} (limit {TSNE_Z_TOL})")
     cls = int(np.bincount(labs[t0_name][labs[t0_name] >= 0]).argmax())
     keep = labs[t0_name] == cls
     t0 = time.perf_counter()
@@ -3519,13 +3555,14 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda", old: 
     t0 = time.perf_counter()
     hdb.hdbscan(embs[t0_name][keep], 10, 5)
     hdb1_s = time.perf_counter() - t0
-    print(f"[22] (d) t-SNE (exact, perplexity {perp:g}) of task {t0_name!r}'s logits on the card: "
-          f"N {EMBED_FRAMES} in {tsne_s * 1e3:.0f} ms, KL {kl:.5f}; its first {TSNE_SUB} points on the card "
+    print(f"[22] (d) t-SNE (Barnes-Hut objective, exact repulsion, perplexity {perp:g}) of task "
+          f"{t0_name!r}'s logits on the card: N {EMBED_FRAMES} in {tsne_s * 1e3:.0f} ms, KL {kl:.5f}, "
+          f"{embed_launches[f'tsne_n{EMBED_FRAMES}']}; its first {TSNE_SUB} points on the card "
           f"{sub_s * 1e3:.0f} ms and on the CPU {cpu_s * 1e3:.0f} ms: KL {kls:.5f} vs {klc:.5f} "
           f"(rel {abs(kls - klc) / klc:.2e}, bound {TSNE_KL_REL}), trustworthiness {tr_card:.4f} vs "
           f"{tr_cpu:.4f} (bound {TSNE_TRUST_TOL}); hdbscan_clustering on class {cls} ({int(keep.sum())} "
           f"points, 6-point grid): {hdb_s * 1e3:.0f} ms, {clus['n_clusters']} clusters; one HDBSCAN "
-          f"(10, 5) {hdb1_s * 1e3:.0f} ms (host) | {card}")
+          f"(10, 5) {hdb1_s * 1e3:.0f} ms (host){rep_line} | {card}")
     del frames, dataset, eng32, eng16, results, x
 
     # -- (e) the CLI's embedding modes on seeded PNGs, in the process ----------
@@ -4241,6 +4278,192 @@ def select_phase(card: str, record: bool) -> None:
     print(f"[23] (d) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the t-SNE at dataset scale
+# ---------------------------------------------------------------------------
+
+TSNE_N = 65_536  # points of phase 24: one dense N x N float32 matrix would be 17.2 GB
+TSNE_DIM = 48
+TSNE_CLUSTERS = 12
+TSNE_REP_TOL = 1e-4  # rep: times max|rep| of the float64 plain version; each row's z: relative
+TSNE_Z_TOL = 1e-5  # Z = sum of z, relative
+TSNE_MEM_LIMIT = 4e9  # bytes above the call's baseline, O(N k)
+TSNE_CLUSTER_AGREE = 0.9  # 5-NN pairs of the layout in one cluster (~1/12 if the clusters merged)
+# The MUFU's reciprocals a second: 16 a clock on an SM (CUDA C programming
+# guide, arithmetic instruction throughput, compute capability 9.0) at the
+# H100 SXM's 1.98 GHz boost clock, the clock of the 67 TFLOP/s above.
+PEAK_MUFU_PER_S = 132 * 16 * 1.98e9
+
+
+def cluster_points(n: int, dim: int, clusters: int, seed: int):
+    """n seeded float32 points in ``clusters`` Gaussian clusters of unit
+    spread in ``dim`` dimensions, centres drawn with std 4 -> (points,
+    cluster labels)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    centres = rng.randn(clusters, dim) * 4.0
+    labels = rng.randint(0, clusters, n)
+    return (centres[labels] + rng.randn(n, dim)).astype(np.float32), labels
+
+
+def repulsion_check(ck, y, what: str, sync) -> dict:
+    """``tsne_repulsion`` on the float32 layout y against its plain version
+    in float64 on the same points: rep within TSNE_REP_TOL x max|rep|, each
+    row's z within TSNE_REP_TOL relative, Z within TSNE_Z_TOL."""
+    import torch
+
+    rep, z = ck.tsne_repulsion(y)
+    sync()
+    want_rep, want_z = ck.tsne_repulsion_plain(y.double())
+    rep_err = max_err(rep.double(), want_rep, TSNE_REP_TOL * float(want_rep.abs().max()), 0.0,
+                      f"tsne_repulsion rep {what}")
+    z_rel = float(((z.double() - want_z).abs() / want_z).max())
+    big_z = float(want_z.sum())
+    z_sum_rel = abs(float(z.double().sum()) - big_z) / big_z
+    if not z_rel <= TSNE_REP_TOL or not z_sum_rel <= TSNE_Z_TOL:
+        raise AssertionError(f"tsne_repulsion {what}: z rows rel {z_rel:.3e} (limit {TSNE_REP_TOL}), "
+                             f"Z rel {z_sum_rel:.3e} (limit {TSNE_Z_TOL})")
+    return {"rep_err": rep_err, "rep_max": float(want_rep.abs().max()), "z_rel": z_rel,
+            "z_sum_rel": z_sum_rel}
+
+
+def tsne_descent_trace(ts, x, perp: float, what: str, card: str) -> None:
+    """``--profile``: 50 iterations of the exaggerated descent on x's sparse
+    P (one KL check, as the descent makes one each 50), timed without the
+    profiler (host wall a iteration, CUDA events) and then traced: device
+    time by kernel a iteration, and the device's idle share of the
+    untraced wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    iters = 50
+    p = ts.joint_p_nn(x, perp).scaled(12.0)
+    y0 = ts.pca_init(x)
+    lr = max(x.shape[0] / 12.0 / 4.0, 50.0)
+    ts._descend(y0, p, 0, iters, 0.5, lr, iters)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts._descend(y0, p, 0, iters, 0.5, lr, iters)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ts._descend(y0, p, 0, iters, 0.5, lr, iters)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / iters / 1e3
+    rep_ms = sum(v for k, v in by_name.items() if "tsne_repulsion" in k) / iters / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[24] (e) descent at N {x.shape[0]} ({what}), {iters} iterations: host wall "
+          f"{wall_ms * 1e3:.1f} us an iteration untraced; traced, {len(evs) / iters:.1f} device kernels "
+          f"and {busy_ms * 1e3:.1f} us of device time an iteration, tsne_repulsion {rep_ms * 1e3:.1f} us "
+          f"({rep_ms / busy_ms * 100:.1f} % of device time), device idle "
+          f"{max(0.0, 1.0 - busy_ms / wall_ms) * 100:.1f} % of the untraced wall; top kernels (us an "
+          f"iteration): " + "; ".join(f"{k[:60]} {v / iters:.1f}" for k, v in top) + f" | {card}")
+
+
+def tsne_phase(card: str, profile: bool) -> dict:
+    """Phase 24: the port's t-SNE at dataset scale on the card (see the
+    module docstring) -> the ``tsne_repulsion`` entry of the kernels line.
+    ``profile`` adds ``tsne_descent_trace`` at N TSNE_N and on its first
+    EMBED_FRAMES points."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import (
+        tsne as ts,
+    )
+
+    t_phase = time.perf_counter()
+    n = TSNE_N
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    pts, labels = cluster_points(n, TSNE_DIM, TSNE_CLUSTERS, 24)
+    x = torch.from_numpy(pts).to(dev)
+    y10 = torch.from_numpy((np.random.RandomState(24).randn(n, 2) * 10.0).astype(np.float32)).to(dev)
+    at10 = repulsion_check(ck, y10, f"N {n}, layout std 10", sync)
+    print(f"[24] (a) tsne_repulsion vs plain float64 at N {n}, seeded layout of std 10: rep max abs err "
+          f"{at10['rep_err']:.3e} (max|rep| {at10['rep_max']:.3e}, limit {TSNE_REP_TOL} x), z rows rel "
+          f"{at10['z_rel']:.2e} (limit {TSNE_REP_TOL}), Z rel {at10['z_sum_rel']:.2e} (limit {TSNE_Z_TOL})")
+
+    perp = min(30.0, max(1.0, (n - 1) / 3.0))
+    sync()
+    t0 = time.perf_counter()
+    entries = ts.joint_p_nn(x, perp).vals.numel()  # the sparse P alone, for the time's breakdown
+    sync()
+    p_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    y, kl = ts.tsne(x, perp)
+    sync()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    iters = launches["tsne_repulsion"]
+    if not 0 < iters <= 1000 or sum(launches.values()) != iters:
+        raise AssertionError(f"t-SNE at N {n} launched {launches}: want tsne_repulsion once an iteration")
+    if y.shape != (n, 2) or not torch.isfinite(y).all() or not np.isfinite(kl):
+        raise AssertionError(f"t-SNE at N {n}: layout {tuple(y.shape)} not finite or KL {kl}")
+    if peak >= TSNE_MEM_LIMIT:
+        raise AssertionError(f"t-SNE at N {n} peaked at {peak / 1e9:.2f} GB above its baseline "
+                             f"(limit {TSNE_MEM_LIMIT / 1e9:g} GB)")
+    _, nbr = ts.knn(y, 5)
+    lab = torch.from_numpy(labels).to(dev)
+    agree = float((lab[nbr] == lab[:, None]).float().mean())
+    if agree < TSNE_CLUSTER_AGREE:
+        raise AssertionError(f"t-SNE at N {n}: 5-NN cluster agreement {agree:.4f} < {TSNE_CLUSTER_AGREE}")
+    k = min(n - 1, int(3.0 * perp + 1))
+    print(f"[24] (b) t-SNE (Barnes-Hut objective, exact repulsion, perplexity {perp:g}, k {k}) of {n} "
+          f"seeded {TSNE_DIM}-D points in {TSNE_CLUSTERS} clusters on the card: {wall_s:.2f} s wall (the "
+          f"kNN and sparse P alone {p_s:.2f} s, {entries:,} entries), KL {kl:.5f}, {iters} iterations "
+          f"(launches {launches}); peak memory {peak / 1e9:.3f} GB above a "
+          f"{base / 1e9:.3f} GB baseline (limit {TSNE_MEM_LIMIT / 1e9:g}; one dense N x N float32 matrix "
+          f"{4.0 * n * n / 1e9:.1f} GB); 5-NN cluster agreement {agree:.4f} (limit {TSNE_CLUSTER_AGREE}) "
+          f"| {card}")
+    final = repulsion_check(ck, y.contiguous(), f"N {n}, final layout", sync)
+    print(f"[24] (c) tsne_repulsion vs plain float64 at the final layout (extent "
+          f"{float(y.abs().max()):.1f}): rep max abs err {final['rep_err']:.3e} (max|rep| "
+          f"{final['rep_max']:.3e}), z rows rel {final['z_rel']:.2e}, Z rel {final['z_sum_rel']:.2e}")
+
+    pairs = float(n) * (n - 1)
+    b_ms, b_by = bound_ms(n * 2 * 4 + n * 3 * 4, 12.0 * pairs)
+    mufu_ms = pairs / PEAK_MUFU_PER_S * 1e3
+    if mufu_ms > b_ms:
+        b_ms, b_by = mufu_ms, "operations"
+    yk = y.contiguous()
+    k_ms = device_ms(lambda: ck.tsne_repulsion(yk), reps=20, rounds=5)
+    plain_ms = device_ms(lambda: ck.tsne_repulsion_plain(yk), reps=2, rounds=3)
+    print(f"[24] (d) tsne_repulsion at N {n}: {k_ms * 1e3:.1f} us a launch (median of 5 rounds of 20), "
+          f"bound {b_ms * 1e3:.1f} us by {b_by} ({12.0 * pairs / PEAK_F32_FLOP_PER_S * 1e6:.1f} us of "
+          f"float32 FLOPs, {mufu_ms * 1e3:.1f} us of MUFU reciprocals), {b_ms / k_ms * 100:.1f} % of it; "
+          f"plain float32 {plain_ms * 1e3:.1f} us | {card}")
+    if profile:
+        tsne_descent_trace(ts, x, perp, "phase 24's points", card)
+        xs = x[:EMBED_FRAMES].contiguous()
+        tsne_descent_trace(ts, xs, min(30.0, max(1.0, (EMBED_FRAMES - 1) / 3.0)),
+                           f"the first {EMBED_FRAMES} of them, phase 22 (d)'s N", card)
+    print(f"[24] t-SNE phase took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "tsne_repulsion", "route": "cuda", "source": f"{PORT}/csrc/tsne_repulsion.cu",
+        "replaces": f"none: no TPU kernel; the JAX package's perform_tsne ({JAX_PKG}/workloads/embed.py:101) "
+                    "runs scikit-learn's t-SNE on the host",
+        "launches": iters, "max_abs_err": max(at10["rep_err"], final["rep_err"]),
+        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        # no one PyTorch call sums the all-pairs Student-t forces
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4347,6 +4570,21 @@ def main() -> int:
           "sum bit for bit; (b) the sum within one bf16 ulp of the plain version's rounding "
           "(2^-7 |want| + 2e-4), share of outputs that differ at all (limit 1 %): "
           + "; ".join(f"{c['what']} {c['path']} {c['share'] * 100:.4f} %" for c in checks))
+    # tsne_repulsion at ragged N: 64 (the CLI's t-SNE in phase 22 (e): one
+    # partial tile, the counted loop) and 4,099 (32 whole tiles, a 3-point
+    # tail, rows past N in the last block), at std 10 and at the PCA init's
+    # std 1e-4 (every q ~ 1), three duplicated points each
+    rep_checks = []
+    for n_r in (64, 4099):
+        for std in (10.0, 1e-4):
+            yr = rng.randn(n_r, 2) * std
+            yr[[1, n_r // 2, n_r - 1]] = yr[0]
+            c = repulsion_check(ck, torch.from_numpy(yr.astype(np.float32)).to(dev),
+                                f"N {n_r}, layout std {std:g}", torch.cuda.synchronize)
+            rep_checks.append(f"N {n_r} std {std:g}: rep {c['rep_err'] / c['rep_max']:.2e} x max|rep|, "
+                              f"z rows rel {c['z_rel']:.2e}, Z rel {c['z_sum_rel']:.2e}")
+    print(f"[2] tsne_repulsion vs plain float64 (limits {TSNE_REP_TOL} x max|rep|, z rows "
+          f"{TSNE_REP_TOL} rel, Z {TSNE_Z_TOL} rel): " + "; ".join(rep_checks))
 
     # -- 3. golden fixture on the card --------------------------------------
     with open(os.path.join(FIXTURES, "pmg_shipped.json")) as f:
@@ -4542,6 +4780,7 @@ def main() -> int:
     kernels.append(k6_16)
     mesh_counts = mesh_phase(card)
     select_phase(card, args.record)
+    kernels.append(tsne_phase(card, args.profile))
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

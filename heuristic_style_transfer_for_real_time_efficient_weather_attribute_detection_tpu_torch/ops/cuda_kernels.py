@@ -15,7 +15,10 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   int8 fold product and ``mlp_q8`` layers, in float32 and in bf16;
 - ``gram_proj`` (``csrc/gram_proj.cu``) replaces ``make_proj_kernel.proj``
   (``tools/exp_pmg_projkernel.py:65``), the bf16 token projection of the
-  PMG batch path read from the row-major Gram.
+  PMG batch path read from the row-major Gram;
+- ``tsne_repulsion`` (``csrc/tsne_repulsion.cu``) replaces no TPU kernel: the
+  JAX package runs scikit-learn's t-SNE on the host, and this kernel sums
+  the t-SNE's all-pairs repulsion on the card (``utils/tsne.py``).
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -65,7 +68,7 @@ from .preprocess import s2d_pack
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 _SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
-            "gram_proj.cu")
+            "gram_proj.cu", "tsne_repulsion.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,7 +77,7 @@ _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first laun
 
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
-    "gram_proj": 0,
+    "gram_proj": 0, "tsne_repulsion": 0,
 }
 
 _lib = None
@@ -168,6 +171,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             fn.restype = i32
         lib.wadt_gram_proj_bf16.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.wadt_gram_proj_bf16.restype = i32
+        lib.wadt_tsne_repulsion.argtypes = [ptr] * 3 + [i32, ptr]
+        lib.wadt_tsne_repulsion.restype = i32
         _lib = lib
         return lib
 
@@ -1434,6 +1439,72 @@ def _gram_proj_grad(ctx, dy):
 
 
 _gram_proj_op.register_autograd(_gram_proj_grad, setup_context=_gram_proj_setup)
+
+
+# ---------------------------------------------------------------------------
+# The t-SNE's all-pairs repulsion (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+_REPULSION_CHUNK = 1 << 24  # elements of one [rows, N] block of the plain version
+
+
+def tsne_repulsion_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch all-pairs repulsion in y's floating type, over row
+    chunks of [rows, N] (no [N, N] tensor): ``rep_i = sum_{j != i}
+    q_ij^2 (y_i - y_j)`` and ``z_i = sum_{j != i} q_ij``, q_ij = 1 / (1 +
+    |y_i - y_j|^2), j = i left out by index."""
+    n = y.shape[0]
+    rep = torch.empty_like(y)
+    z = torch.empty(n, dtype=y.dtype, device=y.device)
+    rows = max(1, _REPULSION_CHUNK // max(n, 1))
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        dx = y[lo:hi, 0, None] - y[None, :, 0]
+        dy = y[lo:hi, 1, None] - y[None, :, 1]
+        q = 1.0 / (1.0 + dx.square() + dy.square())
+        r = torch.arange(hi - lo, device=y.device)
+        q[r, r + lo] = 0.0
+        z[lo:hi] = q.sum(1)
+        q.square_()
+        rep[lo:hi, 0] = (q * dx).sum(1)
+        rep[lo:hi, 1] = (q * dy).sum(1)
+    return rep, z
+
+
+def tsne_repulsion(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The t-SNE's all-pairs repulsion of the layout y [N, 2] -> (rep [N, 2],
+    z_rows [N]): ``rep_i = sum_{j != i} q_ij^2 (y_i - y_j)``, ``z_i =
+    sum_{j != i} q_ij``, q_ij = 1 / (1 + |y_i - y_j|^2); the caller sums
+    z_rows in float64 for the normalization Z.
+
+    Replaces no TPU kernel (the JAX package's t-SNE is scikit-learn's, on
+    the host, whose Barnes-Hut method approximates this sum).  On this card
+    it is bound by operations: N^2 pairs of 12 float32 FLOPs and one MUFU
+    reciprocal, ~1.03 ms at N = 65,536.  The kernel gives each row one
+    thread, stages the points in shared-memory tiles of 128 and adds each
+    tile's float32 sums to the row's totals with Kahan compensation.  CPU
+    tensor: the plain version, in y's floating type.  CUDA tensor: the
+    ``tsne_repulsion`` kernel, float32 only.
+    """
+    if y.device.type == "cpu":
+        return tsne_repulsion_plain(y)
+    _require_cpu_or_cuda(y, "tsne_repulsion")
+    if y.ndim != 2 or y.shape[1] != 2:
+        raise ValueError(f"tsne_repulsion: expected y [N, 2], got {tuple(y.shape)}")
+    dev = y.device
+    _check_cuda("tsne_repulsion y", y, torch.float32, dev)
+    if y.data_ptr() % 8 != 0:
+        raise ValueError("tsne_repulsion: y must be 8-byte aligned")
+    n = y.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"tsne_repulsion: N = {n} is beyond the kernel's int indices")
+    rep = torch.empty_like(y)
+    z = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return rep, z
+    _launch("tsne_repulsion", build().wadt_tsne_repulsion, dev, y.data_ptr(), rep.data_ptr(),
+            z.data_ptr(), n)
+    return rep, z
 
 
 @functools.lru_cache(maxsize=None)

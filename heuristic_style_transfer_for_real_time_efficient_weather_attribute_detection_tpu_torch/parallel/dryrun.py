@@ -9,9 +9,10 @@ when the 2-process run's per-step losses are within 1e-5 of a
 single-process run on the same global data, the JAX tool's bar.  The
 spec, tasks, data and step count are the JAX tool's.  It writes nothing.
 
-Usage:  python -m <port>.parallel.dryrun [--device cpu|cuda]
-(``cuda``: both processes share the card over gloo, which, unlike NCCL,
-takes two ranks on one GPU.)
+Usage:  python -m <port>.parallel.dryrun [--device cuda|cpu]
+(``cuda``, the default: both processes share the card over gloo, which,
+unlike NCCL, takes two ranks on one GPU; without a card it raises, and
+``--device cpu`` runs it on the CPU.)
 """
 
 from __future__ import annotations
@@ -72,12 +73,19 @@ def _child(rank: int, device: str) -> List[float]:
     return _run_steps(step_fn, init_fn, *local)
 
 
-def run(device: str = "cpu") -> Dict[str, object]:
-    """The dryrun -> {"multi", "single", "max_diff"}; raises AssertionError
-    above the 1e-5 bar."""
+def run(device: str = "cuda") -> Dict[str, object]:
+    """The dryrun on ``device`` -> {"multi", "single", "max_diff"}; raises
+    AssertionError above the 1e-5 bar, and RuntimeError for ``"cuda"``
+    without a card."""
+    import torch
+
     from ..models import pmg
     from .multihost import spawn_world
     from .train import make_train_step
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun: no CUDA device is available; pass --device cpu (device='cpu') "
+                           "to run it on the CPU")
 
     multi = spawn_world(_child, NUM_PROC, device, backend="gloo")
     if any(m != multi[0] for m in multi):
@@ -93,7 +101,8 @@ def run(device: str = "cpu") -> Dict[str, object]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cpu", help="cpu, or cuda (both ranks on one card)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (both ranks on one card; the default) or cpu")
     args = ap.parse_args(argv)
     res = run(args.device)
     print(f"multi-process losses:  {res['multi']}")

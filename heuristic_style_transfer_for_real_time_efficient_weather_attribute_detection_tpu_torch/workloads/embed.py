@@ -8,10 +8,11 @@ The models' ``capture`` taps give the embeddings, one kind per call:
 - ``kind="shared"``: the GAP trunk embedding (RTM and PM);
 - ``kind="pooled"``: PMG's per-task pooled tokens.
 
-``perform_tsne`` lays them out with the port's exact t-SNE
-(``utils/tsne.py``) on the embeddings' device and draws the JAX package's
-scatter (seed 42, its colours, ``tsne_<task>.png``); matplotlib is imported
-when it draws.  ``export_interactive_html`` writes the JAX package's
+``perform_tsne`` lays them out with the port's t-SNE (``utils/tsne.py``:
+scikit-learn's default Barnes-Hut objective, as the JAX package calls it,
+with the repulsion summed exactly) on the embeddings' device and draws the
+JAX package's scatter (seed 42, its colours, ``tsne_<task>.png``);
+matplotlib is imported when it draws.  ``export_interactive_html`` writes the JAX package's
 self-contained HTML viewer, byte for byte.  ``hdbscan_clustering`` runs the
 port's HDBSCAN (``utils/hdbscan.py``) over the JAX package's grid, and
 ``clustering_mode`` writes ``<class>_clustering_results.json``.
@@ -109,6 +110,12 @@ def perform_tsne(
 ) -> Tuple[np.ndarray, str]:
     """The port's t-SNE on ``device`` (perplexity ``min(30, max(1, (n-1)/3))``)
     -> the JAX package's scatter PNG; returns (layout [n, 2], path).
+
+    The t-SNE minimizes what the JAX package's ``TSNE()`` call minimizes,
+    scikit-learn's Barnes-Hut objective on the sparse nearest-neighbour P,
+    with the repulsion summed exactly over all pairs (on the card by the
+    ``tsne_repulsion`` kernel), in O(N k) memory: N = 65,536 points fit
+    the card easily.
 
     ``seed`` is kept from the JAX signature: the PCA init leaves nothing to
     draw, so the layout does not depend on it.  ``device`` defaults to the

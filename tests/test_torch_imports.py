@@ -269,6 +269,22 @@ def test_gram_proj_source_is_built_and_noted():
     assert 'extern "C" int wadt_gram_proj_bf16' in src
 
 
+def test_tsne_repulsion_source_is_built_and_noted():
+    """The t-SNE repulsion's CUDA source is one the build compiles, says that
+    it replaces no TPU kernel and why it was added, and what bounds it."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels,
+    )
+
+    assert "tsne_repulsion.cu" in cuda_kernels._SOURCES
+    assert "tsne_repulsion" in cuda_kernels.LAUNCHES
+    with open(os.path.join(REPO, PORT, "csrc", "tsne_repulsion.cu")) as f:
+        src = f.read()
+    assert "Replaces no TPU kernel" in src and "perform_tsne" in src
+    assert "What bounds it" in src and "sm_90a" in src
+    assert 'extern "C" int wadt_tsne_repulsion' in src
+
+
 def _smoke(cuda_available, cwd):
     return _run("import runpy, sys, torch; "
                 f"torch.cuda.is_available = lambda: {cuda_available}; "

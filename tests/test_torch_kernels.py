@@ -291,8 +291,15 @@ def _gram_bf16_call():
     return ck.patch_gram, (x.to(torch.bfloat16), 2), ck.patch_gram_plain
 
 
-CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call]
-CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj"]
+def _tsne_repulsion_call():
+    y = torch.from_numpy(np.random.RandomState(9).randn(300, 2).astype(np.float32) * 10.0)
+    return ck.tsne_repulsion, (y,), ck.tsne_repulsion_plain
+
+
+CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call,
+         _tsne_repulsion_call]
+CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj",
+            "tsne_repulsion"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

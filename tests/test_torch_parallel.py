@@ -309,6 +309,18 @@ def test_host_local_batch_dryrun():
     assert res["max_diff"] < dryrun.TOL and len(res["multi"]) == dryrun.STEPS
 
 
+def test_dryrun_needs_a_card_by_default(monkeypatch):
+    """The dryrun runs on the card unless asked for the CPU: without one,
+    run() and the command line raise with the --device cpu hint before any
+    process starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "_child", None)  # a spawned world would fail on it
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        dryrun.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
+
+
 # ---------------------------------------------------------------------------
 # the engine over a mesh
 # ---------------------------------------------------------------------------

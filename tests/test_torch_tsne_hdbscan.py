@@ -1,19 +1,30 @@
-"""The port's t-SNE (``utils/tsne.py``) and HDBSCAN (``utils/hdbscan.py``)
-on the CPU against scikit-learn, which only the tests import.
+"""The port's t-SNE (``utils/tsne.py``, its repulsion in
+``ops/cuda_kernels.tsne_repulsion``) and HDBSCAN (``utils/hdbscan.py``) on
+the CPU against scikit-learn, which only the tests import.
 
 HDBSCAN is held label for label to ``sklearn.cluster.HDBSCAN`` on seeded
 data whose pairwise distances have no ties (continuous random draws), and
 ``hdbscan_clustering`` to the JAX package's test cases.
 
+The t-SNE computes the objective of scikit-learn's default Barnes-Hut
+method, which the JAX package's ``perform_tsne`` calls, with the repulsion
+summed exactly.  Its steps are held tightly: the nearest neighbours to
+``kneighbors_graph``, the sparse joint P to ``_joint_probabilities_nn``, the
+PCA init, the KL divergence and gradient at a layout and the first
+iterations of the descent to ``_kl_divergence_bh(angle=0.0)``, where the
+quadtree summarises nothing.  At the PCA init (std 1e-4) that quadtree still
+merges points within 1e-6 of each other in every coordinate
+(``EPSILON`` in ``sklearn/neighbors/_quad_tree.pyx``; 10 pairs of the data
+below), so there the steps are held to scikit-learn's exact objective
+``_kl_divergence`` on the same sparse P, which is the same sum with no tree.
+
 t-SNE is a non-convex descent whose trajectory amplifies any difference:
 scikit-learn's own exact method, given its input scaled by (1 + 1e-7),
 ends with a KL divergence up to 3.9 % away and coordinates several units
-apart on the data below.  So the steps are held tightly (the joint P, the
-PCA init, the KL divergence and gradient at a layout, the first iterations
-of the descent) and the whole run by what it is for: the final KL within
-5 % relative of scikit-learn's exact method, trustworthiness (n_neighbors
-5) within 0.01 of it, and within 0.02 of the JAX package's Barnes-Hut
-``perform_tsne``.
+apart on the data below.  So the whole run is held by what it is for: the
+final KL within 5 % relative of ``TSNE(angle=0.0)`` and of the JAX
+package's ``TSNE()`` call, trustworthiness (n_neighbors 5) within 0.01 of
+them, and within 0.02 of the JAX package's ``perform_tsne`` layout.
 """
 
 import warnings
@@ -136,17 +147,126 @@ def data():
 PERPLEXITY = 30.0  # perform_tsne's min(30, max(1, (n-1)/3)) at N = 200
 
 
-def test_joint_p_equals_sklearn(data):
-    from scipy.spatial.distance import squareform
-    from sklearn.manifold._t_sne import _joint_probabilities
-    from sklearn.metrics import pairwise_distances
+def _sk_joint_p(x, perplexity):
+    """scikit-learn's sparse P as ``TSNE._fit`` builds it for Barnes-Hut:
+    the kNN graph's distances squared, then ``_joint_probabilities_nn``."""
+    from sklearn.manifold._t_sne import _joint_probabilities_nn
+    from sklearn.neighbors import NearestNeighbors
 
-    want = _joint_probabilities(pairwise_distances(data, squared=True), PERPLEXITY, 0)
-    got = ttsne.joint_p(torch.from_numpy(data), PERPLEXITY).numpy()
-    assert np.diag(got).max() == 0.0
-    # scikit-learn rounds the distances to float32 before its search
-    np.testing.assert_allclose(squareform(got, checks=False), want, rtol=1e-5,
-                               atol=1e-6 * want.max())
+    k = min(len(x) - 1, int(3.0 * perplexity + 1))
+    graph = NearestNeighbors(algorithm="auto", n_neighbors=k).fit(x).kneighbors_graph(mode="distance")
+    graph.data **= 2
+    return _joint_probabilities_nn(graph, perplexity, 0)
+
+
+def _csr(p, n):
+    from scipy.sparse import csr_array
+
+    return csr_array((p.vals.numpy(), (p.rows.numpy(), p.cols.numpy())), shape=(n, n))
+
+
+def _assert_same_p(got, want, n):
+    """Same pattern, values within 1e-6 x max P (scikit-learn's distances
+    come from its tree's square roots squared again)."""
+    g = _csr(got, n)
+    assert (got.rows != got.cols).all()
+    assert np.array_equal(g.toarray() != 0, want.toarray() != 0)
+    np.testing.assert_allclose(g.toarray(), want.toarray(), rtol=0, atol=1e-6 * want.max())
+
+
+def test_joint_p_equals_sklearn(data):
+    want = _sk_joint_p(data, PERPLEXITY)
+    got = ttsne.joint_p_nn(torch.from_numpy(data), PERPLEXITY)
+    assert got.vals.dtype == torch.float64 and got.rows.shape == got.cols.shape == got.vals.shape
+    _assert_same_p(got, want, len(data))
+    print(f"joint P vs _joint_probabilities_nn: {want.nnz} entries each, max abs diff "
+          f"{np.abs(_csr(got, len(data)).toarray() - want.toarray()).max() / want.max():.2e} x max P")
+    # symmetric, and row-major as scipy's CSR keeps it, with each row's
+    # count of entries (the attraction's segmented sum reads them in order)
+    key = got.rows * len(data) + got.cols
+    assert (key[1:] > key[:-1]).all()
+    np.testing.assert_array_equal(got.counts.numpy(), np.diff(_csr(got, len(data)).indptr))
+    dense = _csr(got, len(data)).toarray()
+    np.testing.assert_array_equal(dense, dense.T)
+
+
+@pytest.mark.parametrize("n", [2, 4, 10])
+def test_joint_p_nn_tiny_n_equals_sklearn(n):
+    """perform_tsne's perplexity at tiny N gives k = N - 1 neighbours."""
+    x = np.random.RandomState(n).randn(n, 3)
+    perplexity = min(30.0, max(1.0, (n - 1) / 3.0))
+    assert min(n - 1, int(3.0 * perplexity + 1)) == n - 1
+    _assert_same_p(ttsne.joint_p_nn(torch.from_numpy(x), perplexity), _sk_joint_p(x, perplexity), n)
+
+
+def test_knn_with_duplicates_equals_sklearn(monkeypatch):
+    """Exact neighbours over row chunks; the point itself is left out by
+    index, so its duplicates stay neighbours at distance 0 (seeded data
+    with three duplicated points).  Each row's distances equal scikit-learn's;
+    its neighbours too where the k-th and (k+1)-th distances differ, and
+    where a duplicated pair ties there, each neighbour is within the k-th
+    distance."""
+    from sklearn.neighbors import NearestNeighbors
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(60, 5)
+    x[[7, 21, 40]] = x[[3, 3, 12]]
+    k = 6
+    graph = NearestNeighbors(n_neighbors=k).fit(x).kneighbors_graph(mode="distance")
+    want_idx = graph.indices.reshape(-1, k)
+    want_d2 = np.sort(graph.data.reshape(-1, k) ** 2, 1)
+    monkeypatch.setattr(ttsne, "_CHUNK", 7 * len(x))  # 7 rows a chunk: 9 chunks
+    d2, idx = ttsne.knn(torch.from_numpy(x), k)
+    d2, idx = d2.numpy(), idx.numpy()
+    assert (np.diff(d2, axis=1) >= 0).all()  # nearest first
+    np.testing.assert_allclose(d2, want_d2, rtol=1e-12, atol=1e-12)
+    full = ttsne.squared_distances(torch.from_numpy(x)).numpy()
+    np.fill_diagonal(full, np.inf)
+    kth = np.sort(full, 1)
+    untied = kth[:, k - 1] < kth[:, k]
+    assert untied.sum() >= len(x) - 6
+    assert (np.sort(idx[untied], 1) == np.sort(want_idx[untied], 1)).all()
+    assert (np.take_along_axis(full, idx, 1) <= kth[:, k - 1:k]).all()
+    for a, b in ((3, 7), (3, 21), (7, 21), (12, 40)):
+        assert b in idx[a] and a in idx[b] and full[a, b] == 0.0
+    assert all(i not in idx[i] for i in range(len(x)))
+    with pytest.raises(ValueError, match="0 < k < N"):
+        ttsne.knn(torch.from_numpy(x), len(x))
+
+
+def _brute_repulsion(y):
+    """float64 brute force of rep_i = sum_{j != i} q^2 (y_i - y_j) and
+    z_i = sum_{j != i} q, q = 1 / (1 + |y_i - y_j|^2), j = i left out by index."""
+    y = np.asarray(y, np.float64)
+    d = y[:, None, :] - y[None, :, :]
+    q = 1.0 / (1.0 + (d ** 2).sum(-1))
+    np.fill_diagonal(q, 0.0)
+    return ((q ** 2)[..., None] * d).sum(1), q.sum(1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tsne_repulsion_plain_equals_float64_formula(dtype, monkeypatch):
+    """The plain repulsion over row chunks (5 rows a chunk here) against a
+    float64 brute force, with duplicated points (they repel with q = 1 in z
+    and add nothing to rep) and a layout of std 10: float64 to 1e-12 x max,
+    float32 to 1e-5 x max."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    rng = np.random.RandomState(8)
+    y = rng.randn(53, 2) * 10.0
+    y[[4, 30, 31]] = y[[9, 9, 9]]
+    monkeypatch.setattr(ck, "_REPULSION_CHUNK", 5 * len(y))
+    rep, z = ck.tsne_repulsion_plain(torch.from_numpy(y).to(dtype))
+    assert rep.dtype == z.dtype == dtype and rep.shape == (53, 2) and z.shape == (53,)
+    want_rep, want_z = _brute_repulsion(torch.from_numpy(y).to(dtype).double().numpy())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(rep.double().numpy(), want_rep, rtol=0, atol=tol * np.abs(want_rep).max())
+    np.testing.assert_allclose(z.double().numpy(), want_z, rtol=tol, atol=0)
+    assert (z.double().numpy()[[4, 9, 30, 31]] >= 3.0).all()  # three duplicates at q = 1 each
+    one_rep, one_z = ck.tsne_repulsion_plain(torch.zeros(1, 2, dtype=dtype))
+    assert float(one_rep.abs().sum()) == float(one_z.sum()) == 0.0
 
 
 def test_pca_init_equals_sklearn(data):
@@ -159,39 +279,78 @@ def test_pca_init_equals_sklearn(data):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 
-def test_kl_and_gradient_equal_sklearn(data):
-    from scipy.spatial.distance import squareform
-    from sklearn.manifold._t_sne import _kl_divergence
+def _layouts(data):
+    """The PCA init, and a seeded layout of std 10."""
+    return {"pca_init": ttsne.pca_init(torch.from_numpy(data)),
+            "std10": torch.from_numpy((np.random.RandomState(1).randn(len(data), 2) * 10.0)
+                                      .astype(np.float32))}
 
-    p = ttsne.joint_p(torch.from_numpy(data), PERPLEXITY)
-    y = np.random.RandomState(1).randn(len(data), 2).astype(np.float32)
-    kl, grad = _kl_divergence(y.ravel(), squareform(p.numpy(), checks=False), 1, len(data), 2)
+
+def _sk_objective(layout, p, n, exaggeration=1.0):
+    """scikit-learn's objective and its P for a layout: at std 10
+    ``_kl_divergence_bh(angle=0.0)``; at the PCA init the exact
+    ``_kl_divergence`` on the same sparse P (its quadtree merges points
+    within 1e-6 there, see the module docstring)."""
+    from scipy.spatial.distance import squareform
+    from sklearn.manifold._t_sne import _kl_divergence, _kl_divergence_bh
+
+    pc = _csr(p, n) * exaggeration
+    if layout == "std10":
+        return _kl_divergence_bh, pc, dict(skip_num_points=0, angle=0.0)
+    return _kl_divergence, squareform(pc.toarray(), checks=False), dict(skip_num_points=0)
+
+
+def test_kl_and_gradient_equal_sklearn(data):
+    """At the PCA init against the exact ``_kl_divergence`` on the same P,
+    the KL divergence within 1e-9 relative; at a seeded layout of std 10
+    against ``_kl_divergence_bh(angle=0.0)``, within 1e-5 relative (its
+    float32 sums).  The gradient within 1e-5 relative at both (elementwise,
+    plus 1e-6 x max near zero)."""
+    from sklearn.manifold._t_sne import _kl_divergence_bh
+
+    n = len(data)
+    p = ttsne.joint_p_nn(torch.from_numpy(data), PERPLEXITY)
+    for layout, y in _layouts(data).items():
+        objective, pc, kw = _sk_objective(layout, p, n)
+        kl, grad = objective(y.numpy().ravel().copy(), pc, 1, n, 2, **kw)
+        tkl, tgrad = ttsne._kl_and_grad(y, p, True)
+        assert tgrad.dtype == torch.float32
+        grad = grad.reshape(-1, 2)
+        print(f"{layout} vs {objective.__name__}: KL rel {abs(tkl - kl) / kl:.2e}, gradient rel "
+              f"{np.linalg.norm(tgrad.numpy() - grad) / np.linalg.norm(grad):.2e}")
+        assert abs(tkl - kl) <= {"pca_init": 1e-9, "std10": 1e-5}[layout] * kl, layout
+        np.testing.assert_allclose(tgrad.numpy(), grad, rtol=1e-5,
+                                   atol=1e-6 * np.abs(grad).max(), err_msg=layout)
+    # what the quadtree's merge does at the init (printed, not held)
+    y = _layouts(data)["pca_init"].numpy()
+    close = (np.abs(y[:, None] - y[None]) <= 1e-6).all(-1)
+    bkl, bgrad = _kl_divergence_bh(y.ravel().copy(), _csr(p, n), 1, n, 2, angle=0.0)
     tkl, tgrad = ttsne._kl_and_grad(torch.from_numpy(y), p, True)
-    assert abs(tkl - kl) <= 1e-9 * kl
-    np.testing.assert_allclose(tgrad.numpy(), grad.reshape(-1, 2), rtol=1e-5,
-                               atol=1e-6 * np.abs(grad).max())
+    print(f"pca_init: {(close.sum() - n) // 2} pairs within 1e-6 in every coordinate; "
+          f"_kl_divergence_bh(angle=0.0) from the exact sum: KL rel {abs(tkl - bkl) / tkl:.2e}, gradient "
+          f"rel {np.linalg.norm(tgrad.numpy().ravel() - bgrad) / np.linalg.norm(tgrad.numpy()):.2e}")
 
 
 @pytest.mark.parametrize("steps", [1, 3])
 def test_first_iterations_equal_sklearn(data, steps):
-    """The descent's first steps (exaggerated P, momentum 0.5, gains) from the
-    same init, before the trajectory's amplification sets in."""
-    from scipy.spatial.distance import squareform
-    from sklearn.manifold._t_sne import _gradient_descent, _kl_divergence
+    """The descent's first steps (exaggerated P, momentum 0.5, gains) from
+    the PCA init and from a layout of std 10, before the trajectory's
+    amplification sets in."""
+    from sklearn.manifold._t_sne import _gradient_descent
 
     n = len(data)
-    p = ttsne.joint_p(torch.from_numpy(data), PERPLEXITY)
-    y0 = ttsne.pca_init(torch.from_numpy(data))
+    p = ttsne.joint_p_nn(torch.from_numpy(data), PERPLEXITY)
     lr = max(n / 12 / 4, 50.0)
-    want, _, _ = _gradient_descent(
-        _kl_divergence, y0.numpy().ravel().copy(), it=0, max_iter=steps, n_iter_check=50,
-        n_iter_without_progress=250, momentum=0.5, learning_rate=np.maximum(lr, 50),
-        min_gain=0.01, min_grad_norm=1e-7, verbose=0,
-        args=[squareform(p.numpy(), checks=False) * 12.0, 1, n, 2],
-        kwargs=dict(skip_num_points=0))
-    got, _, _ = ttsne._descend(y0, p * 12.0, 0, steps, 0.5, lr, 250)
-    want = want.reshape(n, 2)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+    for layout, y0 in _layouts(data).items():
+        objective, pc, kw = _sk_objective(layout, p, n, 12.0)
+        want, _, _ = _gradient_descent(
+            objective, y0.numpy().ravel().copy(), it=0, max_iter=steps, n_iter_check=50,
+            n_iter_without_progress=250, momentum=0.5, learning_rate=np.maximum(lr, 50),
+            min_gain=0.01, min_grad_norm=1e-7, verbose=0, args=[pc, 1, n, 2], kwargs=kw)
+        got, _, _ = ttsne._descend(y0, p.scaled(12.0), 0, steps, 0.5, lr, 250)
+        want = want.reshape(n, 2)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max(),
+                                   err_msg=layout)
 
 
 def test_trustworthiness_equals_sklearn(data):
@@ -210,18 +369,22 @@ def port_layout(data):
 
 
 def test_tsne_matches_sklearn_exact(data, port_layout):
+    """The final KL within 5 % of ``TSNE(angle=0.0)`` (the same objective)
+    and of ``TSNE()`` as the JAX package's ``perform_tsne`` calls it;
+    trustworthiness within 0.01 of both."""
     from sklearn.manifold import TSNE, trustworthiness
 
-    sk = TSNE(method="exact", init="pca", random_state=42, perplexity=PERPLEXITY)
-    want = sk.fit_transform(data)
     y, kl = port_layout
     assert y.shape == (len(data), 2) and y.dtype == torch.float32
-    assert abs(kl - sk.kl_divergence_) <= TSNE_KL_REL * sk.kl_divergence_
     trust = ttsne.trustworthiness(torch.from_numpy(data), y)
-    assert abs(trust - trustworthiness(data, want, n_neighbors=5)) <= TRUST_TOL
-    print(f"t-SNE port vs scikit-learn exact: KL {kl:.5f} vs {sk.kl_divergence_:.5f}, "
-          f"max coordinate distance {np.abs(y.numpy() - want).max():.3f} "
-          f"(layout extent {np.abs(want).max():.1f})")
+    for name, sk in (("angle 0", TSNE(angle=0.0, random_state=42, perplexity=PERPLEXITY)),
+                     ("JAX call", TSNE(n_components=2, random_state=42, perplexity=PERPLEXITY))):
+        want = sk.fit_transform(data)
+        sk_trust = trustworthiness(data, want, n_neighbors=5)
+        print(f"t-SNE port vs scikit-learn {name}: KL {kl:.5f} vs {sk.kl_divergence_:.5f}, "
+              f"trustworthiness {trust:.5f} vs {sk_trust:.5f}")
+        assert abs(kl - sk.kl_divergence_) <= TSNE_KL_REL * sk.kl_divergence_, name
+        assert abs(trust - sk_trust) <= TRUST_TOL, name
 
 
 def test_tsne_trustworthiness_near_jax_barnes_hut(data, port_layout, tmp_path):
@@ -232,6 +395,39 @@ def test_tsne_trustworthiness_near_jax_barnes_hut(data, port_layout, tmp_path):
     x = torch.from_numpy(data)
     jtrust = ttsne.trustworthiness(x, torch.from_numpy(np.asarray(jx2d, np.float64)))
     assert abs(ttsne.trustworthiness(x, port_layout[0]) - jtrust) <= BH_TRUST_TOL
+
+
+def test_tsne_allocates_no_n_by_n_tensor(monkeypatch):
+    """With the distance and repulsion blocks cut to 8 rows, no strided
+    tensor of N^2 elements or more is made anywhere on the t-SNE's path
+    (every op's outputs are watched), and P holds at most 2 N k entries."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    n, perplexity = 160, 10.0  # 4 N k < N^2: the [entries, 2] tensors stay under N^2
+    x = torch.from_numpy(np.random.RandomState(5).randn(n, 6))
+    monkeypatch.setattr(ttsne, "_CHUNK", 8 * n)
+    monkeypatch.setattr(ck, "_REPULSION_CHUNK", 8 * n)
+    monkeypatch.setattr(ttsne, "_MAX_ITER", 300)
+    largest = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+                    largest.append(t.numel())
+            return out
+
+    with Watch():
+        y, kl = ttsne.tsne(x, perplexity)
+    assert y.shape == (n, 2) and np.isfinite(kl)
+    assert max(largest) < n * n
+    p = ttsne.joint_p_nn(x, perplexity)
+    assert p.vals.numel() <= 2 * n * int(3 * perplexity + 1)
 
 
 def test_tsne_refuses_too_few_points():
