@@ -7,8 +7,8 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the seven CUDA
-   kernels from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
+1. print the card's name and power limit (nvidia-smi), build the eight CUDA
+   sources from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths
    (K2: float32 at 2e-4, two calls bit-identical, the bf16 mode to limits
@@ -228,7 +228,9 @@ Phases, each of which raises on failure:
     trustworthiness within 0.01; a second card run bit-identical),
     ``tsne_repulsion`` against its float64 plain version at both final
     layouts (phase 24's limits), and
-    ``hdbscan_clustering`` on one class; (e) ``cli.main`` in this process: ``--mode tsne``,
+    ``hdbscan_clustering`` on one class on the card (one core-distance and
+    one MST launch a distinct ``min_samples``) and one HDBSCAN whose labels
+    equal the CPU's; (e) ``cli.main`` in this process: ``--mode tsne``,
     ``tsne_interactive`` (thumbnails) and ``clustering`` on 64 seeded PNGs,
     writing the JAX CLI's file names (the PNGs into phase 18's recording
     stand-in where matplotlib is missing), with the wall time of each.
@@ -284,6 +286,24 @@ Phases, each of which raises on failure:
     points, host wall an iteration untraced, then device time by kernel and
     the device's idle share (``tsne_descent_trace``).
 
+25. HDBSCAN at dataset scale (``hdbscan_phase``): (a) each kernel of
+    ``csrc/hdbscan.cu`` against its float64 plain version, bit for bit and
+    two calls bit-identical: ``hdbscan_core`` at N 8,192 and a ragged
+    4,099 (7 points repeated) at k 1, 5, 10, 33 (past the insertion path)
+    and N, in float32 and float64, and at (b)'s N 65,536, D 48, k 5 and 10,
+    where its insertion path is also timed at k 4, 8, 16 and 32; ``hdbscan_mst``
+    at N 4,096 (D 48), 1,024 (D 192), and points rounded to one decimal
+    with 100 repeats (tied weights) at N 2,048 and at more points than the
+    largest grid has threads (each thread owning several nodes); each
+    kernel's time beside its bound (float64 operations at 34 TFLOP/s) and
+    its plain version's; (b) ``hdbscan_clustering`` over
+    its default grid of phase 24's 65,536 points (D 48), then of 65,536
+    seeded points at D 192: each stage's time (core distances, each MST,
+    the host's single linkage and condensing), wall s, launches (each
+    kernel twice: once per distinct ``min_samples``), the peak of
+    ``torch.cuda.max_memory_allocated`` over the call's baseline under 1 GB,
+    and 12 clusters found, each at least 99 % one seeded cluster.
+
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
 time with its work cut stage by stage, and in phase 13 K6's stage cut
@@ -299,7 +319,9 @@ their launches on each path of phases 18 and 19, and K1's and K5's
 ``explain_launches``, its launches in phase 21's Grad-CAM and IG calls, and
 every kernel's ``stream_bf16_launches`` and ``embed_launches``, its
 launches on each bf16 camera route and each embedding path of phase 22
-(the t-SNE runs included),
+(the t-SNE and HDBSCAN runs included), the HDBSCAN kernels' ``shape`` of
+their times, ``main_path_ms`` at N 65,536 and ``hdbscan_launches`` of
+phase 25,
 and K1's, K2's and K5's ``mesh_launches``, their launches on the mesh
 engine and on each rank of the sharded train step in phase 23;
 K6's bf16 mode has an entry of its own, ``dequant_matvec_bf16``), the
@@ -321,11 +343,14 @@ import sys
 import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32
-# FLOP/s outside the tensor cores, and dense bf16 FLOP/s of the tensor
-# cores.  A bound counts each operation at the peak of its operands' type.
+# FLOP/s outside the tensor cores, dense bf16 FLOP/s of the tensor cores,
+# and float64 FLOP/s outside them.  A bound counts each operation at the peak of its operands' type.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+# float64 FLOP/s outside the tensor cores; it counts an FMA as two, and the
+# HDBSCAN kernels fuse none
+PEAK_F64_FLOP_PER_S = 34e12
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"
@@ -388,10 +413,11 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
-    """Least time: bytes over HBM rate, or float32 and bf16 FLOPs over their peaks."""
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0, f64_flops: float = 0.0):
+    """Least time: bytes over HBM rate, or float32, bf16 and float64 FLOPs over their peaks."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S) * 1e3
+    t_ops = (flops / PEAK_F32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S
+             + f64_flops / PEAK_F64_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3549,20 +3575,30 @@ def stream_bf16_embed_phase(card: str, routes: list, device: str = "cuda", old: 
                          f"{c['z_rel']:.2e}, Z rel {c['z_sum_rel']:.2e} (limit {TSNE_Z_TOL})")
     cls = int(np.bincount(labs[t0_name][labs[t0_name] >= 0]).argmax())
     keep = labs[t0_name] == cls
+    emb_cls = embs[t0_name][keep]
     t0 = time.perf_counter()
-    clus = embed.hdbscan_clustering(embs[t0_name][keep], [p for p, k in zip(paths[t0_name], keep) if k])
+    clus, launches = counted(lambda: embed.hdbscan_clustering(
+        emb_cls, [p for p, k in zip(paths[t0_name], keep) if k], device=device))
     hdb_s = time.perf_counter() - t0
+    embed_launches["hdbscan_clustering"] = launches
+    distinct = len({min(ms, len(emb_cls)) for ms in (5, 10)})
+    want_launches("hdbscan_clustering", launches, {"hdbscan_core": distinct, "hdbscan_mst": distinct})
     t0 = time.perf_counter()
-    hdb.hdbscan(embs[t0_name][keep], 10, 5)
+    hdb_labels = hdb.hdbscan(emb_cls, 10, 5, device=device)
+    sync()
     hdb1_s = time.perf_counter() - t0
+    if not np.array_equal(hdb_labels, hdb.hdbscan(emb_cls, 10, 5, device="cpu")):
+        raise AssertionError(f"HDBSCAN (10, 5) of class {cls} on {device}: labels differ from the CPU's")
     print(f"[22] (d) t-SNE (Barnes-Hut objective, exact repulsion, perplexity {perp:g}) of task "
           f"{t0_name!r}'s logits on the card: N {EMBED_FRAMES} in {tsne_s * 1e3:.0f} ms, KL {kl:.5f}, "
           f"{embed_launches[f'tsne_n{EMBED_FRAMES}']}; its first {TSNE_SUB} points on the card "
           f"{sub_s * 1e3:.0f} ms and on the CPU {cpu_s * 1e3:.0f} ms: KL {kls:.5f} vs {klc:.5f} "
           f"(rel {abs(kls - klc) / klc:.2e}, bound {TSNE_KL_REL}), trustworthiness {tr_card:.4f} vs "
           f"{tr_cpu:.4f} (bound {TSNE_TRUST_TOL}); hdbscan_clustering on class {cls} ({int(keep.sum())} "
-          f"points, 6-point grid): {hdb_s * 1e3:.0f} ms, {clus['n_clusters']} clusters; one HDBSCAN "
-          f"(10, 5) {hdb1_s * 1e3:.0f} ms (host){rep_line} | {card}")
+          f"points, 6-point grid, one core-distance and one MST launch a distinct min_samples: "
+          f"{embed_launches['hdbscan_clustering']}): {hdb_s * 1e3:.0f} ms, {clus['n_clusters']} clusters; "
+          f"one HDBSCAN (10, 5) {hdb1_s * 1e3:.0f} ms ({dev.type}; its labels the CPU's, label for label)"
+          f"{rep_line} | {card}")
     del frames, dataset, eng32, eng16, results, x
 
     # -- (e) the CLI's embedding modes on seeded PNGs, in the process ----------
@@ -4464,6 +4500,210 @@ def tsne_phase(card: str, profile: bool) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: HDBSCAN at dataset scale
+# ---------------------------------------------------------------------------
+
+HDB_DIMS = (48, 192)  # phase 24's points, then PMG's task-embedding width
+HDB_GRID = ((10, 15, 20), (5, 10))  # hdbscan_clustering's default grid
+HDB_MEM_LIMIT = 1e9  # bytes above the call's baseline: x, its transposed copy, O(N) state
+HDB_PURITY = 0.99  # least share of a found cluster's points in its main seeded cluster
+
+
+def hdbscan_phase(card: str) -> list:
+    """Phase 25: HDBSCAN's two kernels on the card (see the module
+    docstring) -> their entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import (
+        hdbscan as hdb,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import (
+        embed,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+
+    def held(fn, plain, what):
+        """The kernel's output, bit for bit its plain version's and its own
+        on a second call -> (output, plain seconds, max abs difference)."""
+        got = fn()
+        sync()
+        t0 = time.perf_counter()
+        want = plain()
+        sync()
+        plain_s = time.perf_counter() - t0
+        err = float((got - want).abs().max()) if got.shape == want.shape else float("nan")
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{what}: the kernel differs from its plain version (max abs {err:.3e})")
+        if not torch.equal(fn(), got):
+            raise AssertionError(f"{what}: two calls on the same inputs differ")
+        return got, plain_s, err
+
+    # -- (a) each kernel against its float64 plain version, bit for bit ----------
+    fast_cap = ck.HDBSCAN_FAST_K
+    core_cases, core_err, mst_err = [], 0.0, 0.0
+    for n, d, dtype, ks in ((8192, 48, torch.float32, (1, 5, 10, fast_cap + 1)),
+                            (4099, 48, torch.float32, (1, 5, 10, fast_cap + 1, 4099)),
+                            (4099, 48, torch.float64, (10, fast_cap + 1)),
+                            (TSNE_N, HDB_DIMS[0], torch.float32, HDB_GRID[1])):  # (b)'s shape and k
+        pts, _ = cluster_points(n, d, TSNE_CLUSTERS, 24 if n == TSNE_N else 25)
+        pts[n - 7:] = pts[:7]  # distance-0 ties
+        x = torch.from_numpy(pts).to(dev).to(dtype)
+        for k in ks:
+            core_err = max(core_err, held(
+                lambda: ck.hdbscan_core_distances(x, k), lambda: ck.hdbscan_core_distances_plain(x, k),
+                f"hdbscan_core N {n} D {d} {str(dtype)[6:]} k {k}")[2])
+        core_cases.append(f"N {n} {str(dtype)[6:]} k {', '.join(map(str, ks))}")
+        if n == TSNE_N:  # the insertion path's time by k, on (b)'s points
+            k_ms = {k: device_ms(lambda: ck.hdbscan_core_distances(x, k), reps=2, rounds=3)
+                    for k in (4, 8, 16, fast_cap)}
+    print(f"[25] (a) hdbscan_core vs plain float64 on the card, bit for bit and two calls bit-identical: "
+          f"{'; '.join(core_cases)} (D 48, 7 points repeated; k above {fast_cap} takes the radix select, "
+          f"k = N included)")
+    print(f"[25] (a) hdbscan_core's insertion path at N {TSNE_N}, D {HDB_DIMS[0]}, by k (8 values kept up "
+          f"to k 8, then 32): " + ", ".join(f"k {k} {t:.2f} ms" for k, t in k_ms.items()) + f" | {card}")
+    # more points than the largest MST grid has threads: each thread owns several nodes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mst_grid = ck.HDBSCAN_MST_BLOCKS_PER_SM * sms * ck.HDBSCAN_MST_THREADS
+    mst_big = mst_grid + mst_grid // 32 + 1
+    mst_cases = []
+    for n, d, tied in ((4096, 48, False), (1024, 192, False), (2048, 3, True), (mst_big, 3, True)):
+        pts, _ = cluster_points(n, d, TSNE_CLUSTERS, 26)
+        if tied:  # rounded to one decimal, 100 points repeated: equal weights everywhere
+            pts = np.round(pts, 1)
+            pts[n - 100:] = pts[:100]
+        x = torch.from_numpy(pts).to(dev)
+        core = ck.hdbscan_core_distances(x, 5)
+        edges, plain_s, err = held(lambda: ck.hdbscan_prim_mst(x, core),
+                                   lambda: ck.hdbscan_prim_mst_plain(x, core),
+                                   f"hdbscan_mst N {n} D {d}{' tied' if tied else ''}")
+        mst_err = max(mst_err, err)
+        ties = n - 1 - int(torch.unique(edges[:, 2]).numel())
+        owners = f", {n - mst_grid} threads own 2 nodes" if n > mst_grid else ""
+        mst_cases.append(f"N {n} D {d}{', rounded with 100 repeats' if tied else ''} ({ties} tied weights"
+                         f"{owners}; plain {plain_s:.2f} s)")
+        if (n, d) == (4096, 48):
+            mst_x, mst_core, mst_plain_s = x, core, plain_s
+    print(f"[25] (a) hdbscan_mst vs plain float64 (one row of distances a step) on the card, edge for edge "
+          f"bit for bit and two calls bit-identical (largest grid {mst_grid} threads): {'; '.join(mst_cases)}")
+
+    # each kernel's time at a shape where its plain version also ran
+    n, d = 8192, 48
+    core_x = torch.from_numpy(cluster_points(n, d, TSNE_CLUSTERS, 25)[0]).to(dev)
+    core_ms = device_ms(lambda: ck.hdbscan_core_distances(core_x, 10), reps=5, rounds=3)
+    core_plain_ms = device_ms(lambda: ck.hdbscan_core_distances_plain(core_x, 10), reps=1, rounds=3)
+    core_bound, core_by = bound_ms(n * d * 4 + n * 8, 0.0, f64_flops=3.0 * n * n * d)
+    n, d = mst_x.shape
+    mst_ms = device_ms(lambda: ck.hdbscan_prim_mst(mst_x, mst_core), reps=3, rounds=3)
+    mst_bound, mst_by = bound_ms(n * d * 4 + n * 8 + (n - 1) * 24, 0.0,
+                                 f64_flops=3.0 * d * n * (n - 1) / 2)
+    print(f"[25] (a) hdbscan_core at N 8192, D 48, k 10: {core_ms * 1e3:.1f} us (bound {core_bound * 1e3:.1f} "
+          f"us by {core_by}: 3 N^2 D float64 operations), plain {core_plain_ms * 1e3:.1f} us; hdbscan_mst at N "
+          f"{n}, D {d}: {mst_ms * 1e3:.1f} us, {mst_ms * 1e3 / (n - 1):.2f} us a step (bound "
+          f"{mst_bound * 1e3:.1f} us by {mst_by}: 1.5 N^2 D), plain {mst_plain_s * 1e3:.1f} ms of wall | {card}")
+    del core_x, mst_x, mst_core
+
+    # -- (b) hdbscan_clustering at N TSNE_N, D 48 and 192 ----------------------------
+    main_ms: dict = {}
+    launches_b: dict = {}
+    for d in HDB_DIMS:
+        pts, truth = cluster_points(TSNE_N, d, TSNE_CLUSTERS, 24)
+        n = pts.shape[0]
+        # the stages one at a time, as hdbscan_clustering runs them
+        x = hdb.points(pts, dev)
+        stages = []
+        tree = None
+        for ms in HDB_GRID[1]:
+            sync()
+            t0 = time.perf_counter()
+            core = hdb.core_distances(x, ms)
+            sync()
+            t1 = time.perf_counter()
+            edges = hdb.mutual_reachability_mst(x, core)
+            sync()
+            t2 = time.perf_counter()
+            stages.append(f"core k {ms} {(t1 - t0) * 1e3:.1f} ms, MST {(t2 - t1) * 1e3:.1f} ms")
+            main_ms.setdefault(d, {"core": t1 - t0, "mst": t2 - t1})
+            if tree is None:
+                t0 = time.perf_counter()
+                tree = hdb.single_linkage(edges.cpu().numpy())
+                link_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for mcs in HDB_GRID[0]:
+                    hdb.tree_labels(tree, mcs)
+                labels_s = (time.perf_counter() - t0) / len(HDB_GRID[0])
+        del x, core, edges, tree
+        # the grid end to end, through the entry point
+        paths = [str(i) for i in range(n)]
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res = embed.hdbscan_clustering(pts, paths, *HDB_GRID)
+        sync()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() - base
+        launches_b[f"n{n}_d{d}"] = launches
+        if launches != {"hdbscan_core": 2, "hdbscan_mst": 2}:
+            raise AssertionError(f"hdbscan_clustering at N {n}, D {d} launched {launches}: want each "
+                                 "kernel once per distinct min_samples")
+        if peak >= HDB_MEM_LIMIT:
+            raise AssertionError(f"hdbscan_clustering at N {n}, D {d} peaked at {peak / 1e9:.3f} GB above "
+                                 f"its baseline (limit {HDB_MEM_LIMIT / 1e9:g} GB)")
+        found = np.full(n, -1)
+        for lbl, members in res["clusters"].items():
+            found[[int(p) for p in members]] = int(lbl)
+        majors, purity = set(), 1.0
+        for c in range(res["n_clusters"]):
+            counts = np.bincount(truth[found == c], minlength=TSNE_CLUSTERS)
+            majors.add(int(counts.argmax()))
+            purity = min(purity, counts.max() / counts.sum())
+        if res["n_clusters"] != TSNE_CLUSTERS or len(majors) != TSNE_CLUSTERS or purity < HDB_PURITY:
+            raise AssertionError(f"hdbscan_clustering at N {n}, D {d}: {res['n_clusters']} clusters over "
+                                 f"{len(majors)} seeded ones, least purity {purity:.4f} (want "
+                                 f"{TSNE_CLUSTERS} and {HDB_PURITY})")
+        core_b = bound_ms(n * d * 4 + n * 8, 0.0, f64_flops=3.0 * n * n * d)[0]
+        mst_b = bound_ms(n * d * 4 + n * 8 + (n - 1) * 24, 0.0, f64_flops=3.0 * d * n * (n - 1) / 2)[0]
+        print(f"[25] (b) hdbscan_clustering (grid {HDB_GRID[0]} x {HDB_GRID[1]}) of {n} seeded {d}-D points "
+              f"in {TSNE_CLUSTERS} clusters on the card: {wall_s:.2f} s wall, launches {launches}; stages "
+              f"alone: {'; '.join(stages)} (bounds: core {core_b:.1f} ms, MST {mst_b:.1f} ms, float64 "
+              f"operations); host: single linkage {link_s:.2f} s, condense, select and "
+              f"label {labels_s:.2f} s a min_cluster_size (each tree once, then 3 of those); best "
+              f"{res['best_params']}, {res['n_clusters']} clusters, one a seeded cluster each (least "
+              f"purity {purity:.4f}), noise {int((found == -1).sum())}; peak memory {peak / 1e6:.1f} MB "
+              f"above a {base / 1e9:.3f} GB baseline (limit {HDB_MEM_LIMIT / 1e9:g} GB; one dense N x N "
+              f"float64 matrix {8.0 * n * n / 1e9:.1f} GB) | {card}")
+        del pts, truth, res
+    print(f"[25] HDBSCAN phase took {time.perf_counter() - t_phase:.1f} s")
+    replaces = (f"none: no TPU kernel; the JAX package's hdbscan_clustering ({JAX_PKG}/workloads/embed.py:245) "
+                "runs scikit-learn's HDBSCAN on the host")
+    return [
+        {"name": "hdbscan_core", "route": "cuda", "source": f"{PORT}/csrc/hdbscan.cu", "replaces": replaces,
+         "launches": launches_b[f"n{TSNE_N}_d{HDB_DIMS[0]}"]["hdbscan_core"], "max_abs_err": core_err,
+         "ms": core_ms, "plain_ms": core_plain_ms, "bound_ms": core_bound, "bound_by": core_by,
+         # no one PyTorch call gives the k-th smallest distance without an N x N matrix
+         "library_ms": None, "shape": "N 8192, D 48, k 10",
+         "main_path_ms": {f"n{TSNE_N}_d{d}": v["core"] * 1e3 for d, v in main_ms.items()},
+         "hdbscan_launches": {k: v["hdbscan_core"] for k, v in launches_b.items()}},
+        {"name": "hdbscan_mst", "route": "cuda", "source": f"{PORT}/csrc/hdbscan.cu", "replaces": replaces,
+         "launches": launches_b[f"n{TSNE_N}_d{HDB_DIMS[0]}"]["hdbscan_mst"], "max_abs_err": mst_err,
+         "ms": mst_ms, "plain_ms": mst_plain_s * 1e3, "bound_ms": mst_bound, "bound_by": mst_by,
+         # no PyTorch call builds a minimum spanning tree
+         "library_ms": None, "shape": "N 4096, D 48",
+         "main_path_ms": {f"n{TSNE_N}_d{d}": v["mst"] * 1e3 for d, v in main_ms.items()},
+         "hdbscan_launches": {k: v["hdbscan_mst"] for k, v in launches_b.items()}},
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4781,6 +5021,7 @@ def main() -> int:
     mesh_counts = mesh_phase(card)
     select_phase(card, args.record)
     kernels.append(tsne_phase(card, args.profile))
+    kernels += hdbscan_phase(card)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

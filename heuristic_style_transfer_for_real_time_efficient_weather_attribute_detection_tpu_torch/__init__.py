@@ -20,9 +20,11 @@ bf16 mixed precision, augmentation, resume), explainability
 style transfer (``workloads.style_transfer``), the embedding workloads
 (``workloads.embed``: t-SNE and HDBSCAN clustering on the port's own
 ``utils.tsne`` and ``utils.hdbscan``), and the CLI (``cli.py``,
-``weather_torch.py``), with six hand-written CUDA kernels
-(``ops/cuda_kernels.py``; K1, K2 and K5 also as ``torch.ops.wadt_torch``
-operators, K1 and K5 with registered gradients).
+``weather_torch.py``), with hand-written CUDA kernels
+(``ops/cuda_kernels.py``): the six TPU kernels' ports (K1, K2 and K5 also
+as ``torch.ops.wadt_torch`` operators, K1 and K5 with registered
+gradients), the t-SNE's repulsion, and HDBSCAN's core distances and
+minimum spanning tree.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 

@@ -18,7 +18,12 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   PMG batch path read from the row-major Gram;
 - ``tsne_repulsion`` (``csrc/tsne_repulsion.cu``) replaces no TPU kernel: the
   JAX package runs scikit-learn's t-SNE on the host, and this kernel sums
-  the t-SNE's all-pairs repulsion on the card (``utils/tsne.py``).
+  the t-SNE's all-pairs repulsion on the card (``utils/tsne.py``);
+- ``hdbscan_core_distances`` and ``hdbscan_prim_mst`` (``csrc/hdbscan.cu``)
+  replace no TPU kernel either: the JAX package runs scikit-learn's HDBSCAN
+  on the host, and these compute its core distances and its Prim's minimum
+  spanning tree on the card, in float64, bit for bit scikit-learn's
+  (``utils/hdbscan.py``).
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -68,7 +73,7 @@ from .preprocess import s2d_pack
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 _SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
-            "gram_proj.cu", "tsne_repulsion.cu")
+            "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -77,7 +82,7 @@ _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first laun
 
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
-    "gram_proj": 0, "tsne_repulsion": 0,
+    "gram_proj": 0, "tsne_repulsion": 0, "hdbscan_core": 0, "hdbscan_mst": 0,
 }
 
 _lib = None
@@ -173,6 +178,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_gram_proj_bf16.restype = i32
         lib.wadt_tsne_repulsion.argtypes = [ptr] * 3 + [i32, ptr]
         lib.wadt_tsne_repulsion.restype = i32
+        lib.wadt_hdbscan_core.argtypes = [ptr] + [i32] * 4 + [ptr, ptr]
+        lib.wadt_hdbscan_core.restype = i32
+        lib.wadt_hdbscan_mst.argtypes = [ptr, i32, ptr, i32, i32] + [ptr] * 4 + [i32, ptr, ptr, ptr]
+        lib.wadt_hdbscan_mst.restype = i32
         _lib = lib
         return lib
 
@@ -1505,6 +1514,165 @@ def tsne_repulsion(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch("tsne_repulsion", build().wadt_tsne_repulsion, dev, y.data_ptr(), rep.data_ptr(),
             z.data_ptr(), n)
     return rep, z
+
+
+# ---------------------------------------------------------------------------
+# HDBSCAN's core distances and Prim's MST (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+_HDBSCAN_CHUNK = 1 << 25  # elements of one [rows, N] block of the plain core distances
+HDBSCAN_FAST_K = 32  # largest k of csrc/hdbscan.cu's insertion path; above it, its radix select
+HDBSCAN_MST_MAX_DIMS = 16384  # the MST kernel keeps x_cur in shared memory
+HDBSCAN_MST_THREADS = 256  # threads of a block of csrc/hdbscan.cu's MST kernel
+HDBSCAN_MST_BLOCKS_PER_SM = 2  # the MST kernel's grid, at most: ~2 x 132 partials to reduce a step
+
+
+def _add_squares(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """acc += (a - b) * (a - b): a subtraction, a product and a sum, each
+    rounded on its own (no ``addcmul`` or ``pow``), as scikit-learn sums a
+    squared distance."""
+    t = a - b
+    acc += t * t
+
+
+def _sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """float64 square root, correctly rounded as IEEE 754 asks and as the C
+    library's ``sqrt`` under scikit-learn gives it: ``torch.sqrt`` on the
+    card; numpy's on the CPU, where torch's vectorized float64 square root
+    is one ulp off on ~0.7 % of values."""
+    if t.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(t.numpy()))
+    return t.sqrt()
+
+
+def hdbscan_core_distances_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch core distances in float64 on x's device: each point's
+    k-th smallest euclidean distance to the N points of x [N, D], itself at
+    0 included.  Row chunks of [rows, N] squared distances, summed one
+    coordinate at a time: no [N, N] tensor."""
+    x = x.double()
+    n = x.shape[0]
+    out = torch.empty(n, dtype=torch.float64, device=x.device)
+    rows = max(1, _HDBSCAN_CHUNK // max(n, 1))
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        d2 = torch.zeros((hi - lo, n), dtype=torch.float64, device=x.device)
+        for c in range(x.shape[1]):
+            _add_squares(d2, x[lo:hi, c, None], x[None, :, c])
+        out[lo:hi] = torch.kthvalue(d2, k, dim=1).values
+    return _sqrt_rn(out)
+
+
+def hdbscan_prim_mst_plain(x: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Prim's MST of the mutual reachability graph in float64
+    on x's device, one row of distances a step (no [N, N] tensor) ->
+    [N - 1, 3] rows of (node in the tree, node added, weight), in the order
+    scikit-learn's ``mst_from_data_matrix`` adds them.  The node indices
+    stay tensors: no step waits for the device.  A step's squared
+    differences are taken for all D coordinates at once and then summed one
+    coordinate at a time, each operation rounded on its own."""
+    xt = x.double().t().contiguous()
+    core = core.double()
+    n, dev = x.shape[0], x.device
+    in_tree = torch.zeros(n, dtype=torch.bool, device=dev)
+    min_reach = torch.full((n,), float("inf"), dtype=torch.float64, device=dev)
+    source = torch.ones(n, dtype=torch.long, device=dev)
+    order = torch.empty(n - 1, dtype=torch.long, device=dev)
+    cur = torch.zeros(1, dtype=torch.long, device=dev)
+    for i in range(n - 1):
+        in_tree.index_fill_(0, cur, True)
+        sq = xt.index_select(1, cur) - xt
+        sq *= sq
+        d2 = sq[0]
+        for c in range(1, xt.shape[0]):
+            d2 += sq[c]
+        mrd = torch.maximum(torch.maximum(core.index_select(0, cur), core), _sqrt_rn(d2))
+        better = ~in_tree & (mrd < min_reach)
+        min_reach = torch.where(better, mrd, min_reach)
+        source = torch.where(better, cur, source)
+        cur = torch.argmin(torch.where(in_tree, float("inf"), min_reach)).view(1)  # the first of equals
+        order[i:i + 1] = cur
+    # a node's source and min_reach stay as they were when it joined the tree
+    return torch.stack((source[order].double(), order.double(), min_reach[order]), 1)
+
+
+def _hdbscan_points(x: torch.Tensor, what: str) -> Tuple[int, int]:
+    if x.ndim != 2 or x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: expected float32 or float64 points [N, D], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    n, d = x.shape
+    if n >= 2 ** 31 or n * d >= 2 ** 40:
+        raise ValueError(f"{what}: {n} points of {d} dimensions are beyond the kernel's indices")
+    return n, d
+
+
+def hdbscan_core_distances(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Each point's core distance -> [N] float64: its k-th smallest
+    euclidean distance to the N points of x [N, D] (float32 or float64),
+    itself at 0 included; ``NearestNeighbors(n_neighbors=k).kneighbors(x)``'s
+    last column, bit for bit.  1 <= k <= N.
+
+    Replaces no TPU kernel (the JAX package's HDBSCAN is scikit-learn's, on
+    the host).  On this card it is bound by operations: 3 N^2 D float64
+    operations, none of them fused.  The kernel (``csrc/hdbscan.cu``) gives
+    each row one thread over tiles staged in shared memory, keeps the K
+    smallest squared distances (K 8 for k <= 8, else 32) for k <=
+    ``HDBSCAN_FAST_K`` and radix-selects the k-th on their bits above.  CPU
+    tensor: the plain version.  CUDA tensor: the ``hdbscan_core`` kernel.
+    """
+    n = x.shape[0] if x.ndim else 0
+    if not 1 <= k <= n:
+        raise ValueError(f"hdbscan_core_distances: k must be in [1, N = {n}], got {k}")
+    if x.device.type == "cpu":
+        return hdbscan_core_distances_plain(x, k)
+    _require_cpu_or_cuda(x, "hdbscan_core")
+    n, d = _hdbscan_points(x, "hdbscan_core_distances")
+    dev = x.device
+    xt = x.t().contiguous()
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    _launch("hdbscan_core", build().wadt_hdbscan_core, dev, xt.data_ptr(),
+            int(x.dtype == torch.float64), n, d, k, out.data_ptr())
+    return out
+
+
+def hdbscan_prim_mst(x: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
+    """Prim's MST of the mutual reachability graph ``max(core_i, core_j,
+    d_ij)`` of x [N, D] (float32 or float64, N >= 2) and its core distances
+    (float64 [N]) -> [N - 1, 3] float64 rows of (node in the tree, node
+    added, weight), grown from node 0 in the order scikit-learn's
+    ``mst_from_data_matrix`` adds them, ties to the lowest index: its edges
+    bit for bit.
+
+    Replaces no TPU kernel.  On this card it is bound by its N - 1
+    dependent steps, each a global arg-min.  The kernel
+    (``csrc/hdbscan.cu``) is one cooperative launch for the whole tree with
+    one grid barrier a step; min_reach, source and in_tree stay on the
+    card.  CPU tensor: the plain version.  CUDA tensor: the ``hdbscan_mst``
+    kernel (D up to ``HDBSCAN_MST_MAX_DIMS``).
+    """
+    if x.device.type == "cpu":
+        return hdbscan_prim_mst_plain(x, core)
+    _require_cpu_or_cuda(x, "hdbscan_mst")
+    n, d = _hdbscan_points(x, "hdbscan_prim_mst")
+    if n < 2:
+        raise ValueError(f"hdbscan_prim_mst: needs at least 2 points, got {n}")
+    if d > HDBSCAN_MST_MAX_DIMS:
+        raise ValueError(f"hdbscan_prim_mst: D = {d} is beyond the kernel's {HDBSCAN_MST_MAX_DIMS}")
+    dev = x.device
+    _check_cuda("hdbscan_prim_mst core", core, torch.float64, dev, (n,))
+    xt = x.t().contiguous()
+    max_blocks = HDBSCAN_MST_BLOCKS_PER_SM * _sm_count(dev)
+    min_reach = torch.empty(n, dtype=torch.float64, device=dev)
+    source = torch.empty(n, dtype=torch.int32, device=dev)
+    in_tree = torch.empty(n, dtype=torch.uint8, device=dev)
+    partials = torch.empty(2 * max_blocks * 16, dtype=torch.uint8, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    edges = torch.empty((n - 1, 3), dtype=torch.float64, device=dev)
+    _launch("hdbscan_mst", build().wadt_hdbscan_mst, dev, xt.data_ptr(),
+            int(x.dtype == torch.float64), core.data_ptr(), n, d, min_reach.data_ptr(),
+            source.data_ptr(), in_tree.data_ptr(), partials.data_ptr(), max_blocks,
+            bar.data_ptr(), edges.data_ptr())
+    return edges
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,18 +1,22 @@
-"""HDBSCAN in numpy (float64, on the host).
+"""HDBSCAN: core distances and the minimum spanning tree on the points'
+device (float64), the tree's O(N) steps in numpy on the host.
 
 :func:`hdbscan` computes what ``sklearn.cluster.HDBSCAN(min_cluster_size,
 min_samples)`` computes with every other option at its default (euclidean
 metric, alpha 1, excess-of-mass selection, ``allow_single_cluster=False``,
 ``cluster_selection_epsilon=0``), step for step as scikit-learn 1.9 does
-it, so that on data without distance ties the labels are scikit-learn's,
-label for label:
+it, so that the labels are scikit-learn's, label for label:
 
 1. the core distance of each point: its distance to its ``min_samples``-th
-   nearest neighbour, counting the point itself;
+   nearest neighbour, counting the point itself
+   (``ops.cuda_kernels.hdbscan_core_distances``);
 2. Prim's minimum spanning tree of the mutual reachability graph
-   ``max(core_i, core_j, d_ij)``, grown from point 0 on the dense distance
-   matrix, with scikit-learn's choice among equal candidates (the lowest
-   index) and its edge order;
+   ``max(core_i, core_j, d_ij)``, grown from point 0 with one row of
+   distances recomputed a step, with scikit-learn's choice among equal
+   candidates (the lowest index) and its edge order
+   (``ops.cuda_kernels.hdbscan_prim_mst``); every distance is summed in
+   float64 in dimension order, as scikit-learn's ``mst_from_data_matrix``
+   sums it, so the edges are its edges bit for bit, ties included;
 3. the single-linkage tree of the edges sorted by weight (``np.argsort``,
    as scikit-learn sorts them), in scipy's format;
 4. the tree condensed at ``min_cluster_size`` (a split whose sides both
@@ -27,7 +31,10 @@ label for label:
    under, the selected clusters numbered in their sorted order; -1 (noise)
    elsewhere.
 
-Memory is O(N^2) (the dense distance matrix); time is O(N^2) numpy work.
+Steps 1 and 2 run where the points are: on the card the two kernels of
+``csrc/hdbscan.cu``, on the CPU their plain versions.  Memory is O(N D):
+no [N, N] distance matrix is built anywhere; time is O(N^2 D) on the
+device and O(N) numpy work on the host after the edges come back.
 """
 
 from __future__ import annotations
@@ -36,35 +43,43 @@ from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from scipy.spatial.distance import cdist
+import torch
+
+from ..ops import cuda_kernels as ck
 
 
-def core_distances(d: np.ndarray, min_samples: int) -> np.ndarray:
-    """Each row's ``min_samples``-th smallest distance, the point's own 0 first."""
-    return np.sort(d, axis=1)[:, min_samples - 1]
+def points(x, device="cuda") -> torch.Tensor:
+    """x [N, D] (an array or a tensor) as a contiguous float32 or float64
+    tensor on ``device`` (other types are widened to float64).  ``"cuda"``
+    raises when there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("hdbscan: no CUDA device is available; pass device='cpu'")
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if t.dtype not in (torch.float32, torch.float64):
+        t = t.double()
+    return t.to(dev).contiguous()
 
 
-def mutual_reachability_mst(d: np.ndarray, core: np.ndarray) -> np.ndarray:
-    """Prim's MST of the mutual reachability graph -> [N - 1, 3] rows of
-    (node in the tree, node added, weight), in the order scikit-learn's
-    ``mst_from_data_matrix`` adds them."""
-    n = d.shape[0]
-    in_tree = np.zeros(n, bool)
-    min_reach = np.full(n, np.inf)
-    source = np.ones(n, np.int64)
-    edges = np.empty((n - 1, 3))
-    cur = 0
-    for i in range(n - 1):
-        in_tree[cur] = True
-        mrd = np.maximum(np.maximum(core[cur], core), d[cur])
-        better = ~in_tree & (mrd < min_reach)
-        min_reach[better] = mrd[better]
-        source[better] = cur
-        cand = np.where(in_tree, np.inf, min_reach)
-        nxt = int(np.argmin(cand))  # the first of equal candidates
-        edges[i] = (source[nxt], nxt, cand[nxt])
-        cur = nxt
-    return edges
+def core_distances(x: torch.Tensor, min_samples: int) -> torch.Tensor:
+    """Each point's ``min_samples``-th smallest distance, its own 0 counted,
+    -> float64 [N] on x's device."""
+    return ck.hdbscan_core_distances(x, min_samples)
+
+
+def mutual_reachability_mst(x: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
+    """Prim's MST of the mutual reachability graph -> [N - 1, 3] float64 rows
+    of (node in the tree, node added, weight) on x's device, in the order
+    scikit-learn's ``mst_from_data_matrix`` adds them."""
+    return ck.hdbscan_prim_mst(x, core)
+
+
+def linkage_tree(x: torch.Tensor, min_samples: int) -> np.ndarray:
+    """The single-linkage tree of x's mutual reachability MST at
+    ``min_samples``: core distances and MST on x's device, then the
+    [N - 1, 3] edges on the host."""
+    edges = mutual_reachability_mst(x, core_distances(x, min_samples))
+    return single_linkage(edges.cpu().numpy())
 
 
 def single_linkage(edges: np.ndarray) -> np.ndarray:
@@ -197,18 +212,25 @@ def label_points(rows, selected: List[int], n: int) -> np.ndarray:
     return labels
 
 
-def hdbscan(x, min_cluster_size: int = 5, min_samples: Optional[int] = None) -> np.ndarray:
+def tree_labels(hierarchy: np.ndarray, min_cluster_size: int) -> np.ndarray:
+    """Labels from a single-linkage tree: condensed at ``min_cluster_size``,
+    clusters selected by excess of mass."""
+    rows = condense_tree(hierarchy, min_cluster_size)
+    return label_points(rows, select_eom(rows, stabilities(rows)), hierarchy.shape[0] + 1)
+
+
+def hdbscan(x, min_cluster_size: int = 5, min_samples: Optional[int] = None,
+            device="cuda") -> np.ndarray:
     """HDBSCAN labels of x [N, D] (N >= 2): cluster numbers from 0, -1 for
     noise.  ``min_samples`` defaults to ``min_cluster_size``, as in
-    scikit-learn.  See the module docstring."""
-    x = np.asarray(x, np.float64)
+    scikit-learn.  Steps 1 and 2 run on ``device`` (default the CUDA card,
+    which raises when there is none; ``"cpu"`` for the CPU).  See the
+    module docstring."""
+    x = points(x, device)
     n = x.shape[0]
     if n < 2:
         raise ValueError(f"HDBSCAN needs at least 2 samples, got {n}")
     ms = min_cluster_size if min_samples is None else min_samples
     if ms > n:
         raise ValueError(f"min_samples ({ms}) must be at most the number of samples ({n})")
-    d = cdist(x, x)
-    rows = condense_tree(single_linkage(mutual_reachability_mst(d, core_distances(d, ms))),
-                         min_cluster_size)
-    return label_points(rows, select_eom(rows, stabilities(rows)), n)
+    return tree_labels(linkage_tree(x, ms), min_cluster_size)

@@ -14,8 +14,9 @@ with the repulsion summed exactly) on the embeddings' device and draws the
 JAX package's scatter (seed 42, its colours, ``tsne_<task>.png``);
 matplotlib is imported when it draws.  ``export_interactive_html`` writes the JAX package's
 self-contained HTML viewer, byte for byte.  ``hdbscan_clustering`` runs the
-port's HDBSCAN (``utils/hdbscan.py``) over the JAX package's grid, and
-``clustering_mode`` writes ``<class>_clustering_results.json``.
+port's HDBSCAN (``utils/hdbscan.py``: core distances and MST on the
+embeddings' device, the tree's steps on the host) over the JAX package's
+grid, and ``clustering_mode`` writes ``<class>_clustering_results.json``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..engine.executor import Engine
-from ..utils.hdbscan import hdbscan
+from ..utils import hdbscan as hdb
 from ..utils.tsne import tsne
 
 _CAPTURE_FOR_KIND = {
@@ -247,10 +248,16 @@ def hdbscan_clustering(
     paths: List[str],
     min_cluster_sizes: Sequence[int] = (10, 15, 20),
     min_samples_list: Sequence[int] = (5, 10),
+    device="cuda",
 ) -> Dict:
     """HDBSCAN over the (min_cluster_size, min_samples) grid, keeping the
     first parameterization with the most clusters; both knobs clamped to the
-    point count.  A class of 0 or 1 points is noise, with no parameters."""
+    point count.  A class of 0 or 1 points is noise, with no parameters.
+
+    The core distances and the MST run on ``device`` (default the CUDA
+    card, which raises when there is none; ``"cpu"`` for the CPU), once per
+    distinct clamped ``min_samples``; each tree is condensed for every
+    ``min_cluster_size`` on the host."""
     n_pts = embeddings.shape[0]
     if n_pts < 2:
         return {
@@ -258,12 +265,16 @@ def hdbscan_clustering(
             "n_clusters": 0,
             "clusters": {"-1": list(paths)} if n_pts else {},
         }
+    x = hdb.points(embeddings, device)
+    trees: Dict[int, np.ndarray] = {}
     best: Dict = {"n_clusters": -1}
     for mcs in min_cluster_sizes:
         for ms in min_samples_list:
             mcs_eff = min(mcs, max(2, n_pts))
             ms_eff = min(ms, max(1, n_pts))
-            labels = hdbscan(embeddings, mcs_eff, ms_eff)
+            if ms_eff not in trees:
+                trees[ms_eff] = hdb.linkage_tree(x, ms_eff)
+            labels = hdb.tree_labels(trees[ms_eff], mcs_eff)
             n = len(set(labels.tolist()) - {-1})
             if n > best["n_clusters"]:
                 best = {"n_clusters": n, "min_cluster_size": mcs, "min_samples": ms,
@@ -292,7 +303,7 @@ def clustering_mode(
     kind: str = "logits",
 ) -> Dict:
     """One class of one task -> ``<class>_clustering_results.json`` with the
-    image paths of each cluster."""
+    image paths of each cluster; HDBSCAN runs on the engine's device."""
     embs, labs, paths = compute_embeddings(engine, loader, kind=kind, per_task=True)
     ti = engine.tasks.names.index(task)
     cls_idx = list(engine.tasks.class_names[ti]).index(class_name)
@@ -302,6 +313,7 @@ def clustering_mode(
         [p for p, m in zip(paths[task], mask) if m],
         min_cluster_sizes,
         min_samples_list,
+        device=engine.device,
     )
     os.makedirs(save_dir, exist_ok=True)
     out = os.path.join(save_dir, f"{class_name.replace(' ', '_')}_clustering_results.json")

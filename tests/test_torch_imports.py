@@ -285,6 +285,22 @@ def test_tsne_repulsion_source_is_built_and_noted():
     assert 'extern "C" int wadt_tsne_repulsion' in src
 
 
+def test_hdbscan_source_is_built_and_noted():
+    """HDBSCAN's CUDA source is one the build compiles, says that it replaces
+    no TPU kernel and why it was added, and what bounds each kernel."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels,
+    )
+
+    assert "hdbscan.cu" in cuda_kernels._SOURCES
+    assert {"hdbscan_core", "hdbscan_mst"} <= set(cuda_kernels.LAUNCHES)
+    with open(os.path.join(REPO, PORT, "csrc", "hdbscan.cu")) as f:
+        src = f.read()
+    assert "Replaces no TPU kernel" in src and "hdbscan_clustering" in src
+    assert src.count("What bounds it") == 2 and "sm_90a" in src
+    assert 'extern "C" int wadt_hdbscan_core' in src and 'extern "C" int wadt_hdbscan_mst' in src
+
+
 def _smoke(cuda_available, cwd):
     return _run("import runpy, sys, torch; "
                 f"torch.cuda.is_available = lambda: {cuda_available}; "

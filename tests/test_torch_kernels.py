@@ -296,10 +296,27 @@ def _tsne_repulsion_call():
     return ck.tsne_repulsion, (y,), ck.tsne_repulsion_plain
 
 
+def _hdbscan_points():
+    """Seeded float32 points in three clusters, the last 5 repeating the first 5."""
+    rng = np.random.RandomState(10)
+    x = rng.randn(300, 7) + rng.randn(3, 7)[rng.randint(0, 3, 300)] * 4.0
+    x[-5:] = x[:5]
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _hdbscan_core_call():
+    return ck.hdbscan_core_distances, (_hdbscan_points(), 5), ck.hdbscan_core_distances_plain
+
+
+def _hdbscan_mst_call():
+    x = _hdbscan_points()
+    return ck.hdbscan_prim_mst, (x, ck.hdbscan_core_distances_plain(x, 5)), ck.hdbscan_prim_mst_plain
+
+
 CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call,
-         _tsne_repulsion_call]
+         _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call]
 CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj",
-            "tsne_repulsion"]
+            "tsne_repulsion", "hdbscan_core", "hdbscan_mst"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

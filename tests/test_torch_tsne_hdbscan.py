@@ -2,9 +2,13 @@
 ``ops/cuda_kernels.tsne_repulsion``) and HDBSCAN (``utils/hdbscan.py``) on
 the CPU against scikit-learn, which only the tests import.
 
-HDBSCAN is held label for label to ``sklearn.cluster.HDBSCAN`` on seeded
-data whose pairwise distances have no ties (continuous random draws), and
-``hdbscan_clustering`` to the JAX package's test cases.
+HDBSCAN runs here on the CPU (``device="cpu"``: the plain versions of its
+two kernels).  It is held label for label to ``sklearn.cluster.HDBSCAN`` on
+seeded data whose pairwise distances have no ties (continuous random
+draws), and ``hdbscan_clustering`` to the JAX package's test cases.  Its
+two quadratic steps are held bit for bit to scikit-learn's: the core
+distances to ``NearestNeighbors(algorithm="kd_tree").kneighbors`` and the
+MST to ``mst_from_data_matrix``, edge for edge, also on data full of ties.
 
 The t-SNE computes the objective of scikit-learn's default Barnes-Hut
 method, which the JAX package's ``perform_tsne`` calls, with the repulsion
@@ -81,7 +85,7 @@ def test_hdbscan_labels_equal_sklearn(seed, noisy, mcs, ms):
     x = _blobs(seed, noisy)
     assert _no_distance_ties(x)
     want = HDBSCAN(min_cluster_size=mcs, min_samples=ms, copy=True).fit(x).labels_
-    got = thdb.hdbscan(x, mcs, ms)
+    got = thdb.hdbscan(x, mcs, ms, device="cpu")
     np.testing.assert_array_equal(got, want)
 
 
@@ -91,14 +95,14 @@ def test_hdbscan_float32_embeddings_equal_sklearn():
 
     x = _blobs(7).astype(np.float32)
     want = HDBSCAN(min_cluster_size=5, min_samples=3, copy=True).fit(x).labels_
-    np.testing.assert_array_equal(thdb.hdbscan(x, 5, 3), want)
+    np.testing.assert_array_equal(thdb.hdbscan(x, 5, 3, device="cpu"), want)
 
 
 def test_hdbscan_refuses_what_sklearn_refuses():
     with pytest.raises(ValueError, match="at least 2"):
-        thdb.hdbscan(np.zeros((1, 3)), 2, 1)
+        thdb.hdbscan(np.zeros((1, 3)), 2, 1, device="cpu")
     with pytest.raises(ValueError, match="min_samples"):
-        thdb.hdbscan(np.random.RandomState(0).randn(4, 3), 2, 5)
+        thdb.hdbscan(np.random.RandomState(0).randn(4, 3), 2, 5, device="cpu")
 
 
 def test_hdbscan_clustering_grid_and_tiny_classes():
@@ -108,16 +112,16 @@ def test_hdbscan_clustering_grid_and_tiny_classes():
     rng = np.random.RandomState(0)
     blobs = np.vstack([rng.randn(30, 8) + 10.0, rng.randn(30, 8) - 10.0]).astype(np.float32)
     paths = [f"img_{i}.jpg" for i in range(60)]
-    res = hdbscan_clustering(blobs, paths)
+    res = hdbscan_clustering(blobs, paths, device="cpu")
     assert res["n_clusters"] == 2
     assert sum(len(v) for v in res["clusters"].values()) == 60
     tiny = rng.randn(3, 8).astype(np.float32)
-    res2 = hdbscan_clustering(tiny, paths[:3])
+    res2 = hdbscan_clustering(tiny, paths[:3], device="cpu")
     assert sum(len(v) for v in res2["clusters"].values()) == 3
-    res1 = hdbscan_clustering(tiny[:1], paths[:1])
+    res1 = hdbscan_clustering(tiny[:1], paths[:1], device="cpu")
     assert res1 == {"best_params": {"min_cluster_size": None, "min_samples": None},
                     "n_clusters": 0, "clusters": {"-1": paths[:1]}}
-    res0 = hdbscan_clustering(tiny[:0], [])
+    res0 = hdbscan_clustering(tiny[:0], [], device="cpu")
     assert res0["n_clusters"] == 0 and res0["clusters"] == {}
 
 
@@ -131,7 +135,146 @@ def test_hdbscan_clustering_equals_jax(n):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         want = jclustering(x, paths)
-    assert hdbscan_clustering(x, paths) == want
+    assert hdbscan_clustering(x, paths, device="cpu") == want
+
+
+def _tied_blobs(seed):
+    """Three seeded 3-D blobs rounded to one decimal, with points repeated:
+    many pairwise distances are equal, some are 0."""
+    rng = np.random.RandomState(seed)
+    x = np.round(rng.randn(150, 3) + rng.randn(3, 3)[rng.randint(0, 3, 150)] * 4, 1)
+    dup = rng.randint(0, len(x), 12)
+    return np.concatenate([x, x[dup], x[dup[:3]]])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 5, 10, "N"])
+def test_core_distances_equal_sklearn_kneighbors(dtype, k):
+    """(a) The plain core distances are ``kneighbors``' k-th distance bit for
+    bit, the point itself counted (HDBSCAN queries the fitted points), on
+    float32 and float64 points with duplicates."""
+    from sklearn.neighbors import NearestNeighbors
+
+    x = np.concatenate([_blobs(8), _blobs(8)[:7]]).astype(dtype)
+    k = len(x) if k == "N" else k
+    want = NearestNeighbors(n_neighbors=k, algorithm="kd_tree").fit(x).kneighbors(x, k)[0][:, -1]
+    got = thdb.core_distances(torch.from_numpy(x), k)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["tie-free", "rounded-with-duplicates"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_mst_equals_sklearn_mst_from_data_matrix(tied, dtype):
+    """(b) The plain MST is scikit-learn's ``mst_from_data_matrix`` field for
+    field (source, node added, float64 weight), in its order: on tie-free
+    blobs, and on blobs rounded to one decimal with repeated points, where
+    the lowest index must win among equal candidates."""
+    from sklearn.cluster._hdbscan._linkage import mst_from_data_matrix
+    from sklearn.metrics import DistanceMetric
+    from sklearn.neighbors import NearestNeighbors
+
+    x = (_tied_blobs(9) if tied else _blobs(9)).astype(dtype)
+    x64 = x.astype(np.float64)  # HDBSCAN widens its input before both steps
+    core = np.ascontiguousarray(
+        NearestNeighbors(n_neighbors=5, algorithm="kd_tree").fit(x64).kneighbors(x64, 5)[0][:, -1])
+    want = mst_from_data_matrix(x64, core, DistanceMetric.get_metric("euclidean"), 1.0)
+    if tied:
+        assert np.unique(want["distance"]).size < 0.8 * want.size
+    got = thdb.mutual_reachability_mst(torch.from_numpy(x), torch.from_numpy(core)).numpy()
+    np.testing.assert_array_equal(got[:, 0], want["current_node"])
+    np.testing.assert_array_equal(got[:, 1], want["next_node"])
+    np.testing.assert_array_equal(got[:, 2], want["distance"])
+
+
+def test_tied_labels_equal_sklearn():
+    """On data full of distance ties the labels are still scikit-learn's."""
+    from sklearn.cluster import HDBSCAN
+
+    x = _tied_blobs(10)
+    want = HDBSCAN(min_cluster_size=5, min_samples=4, copy=True).fit(x).labels_
+    np.testing.assert_array_equal(thdb.hdbscan(x, 5, 4, device="cpu"), want)
+
+
+def test_hdbscan_allocates_no_n_by_n_array(monkeypatch):
+    """(c) With the plain core distances cut to blocks of 8 rows, no strided
+    tensor of N^2 elements or more is made on the HDBSCAN path (every op's
+    outputs are watched), and the numpy steps on the host allocate less
+    than one N x N float64 matrix at their peak."""
+    import tracemalloc
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    x = np.random.RandomState(11).randn(300, 3)
+    x[:150] += 6.0
+    n = x.shape[0]
+    monkeypatch.setattr(ck, "_HDBSCAN_CHUNK", 8 * n)
+    largest = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+                    largest.append(t.numel())
+            return out
+
+    with Watch():
+        hierarchy = thdb.linkage_tree(thdb.points(x, "cpu"), 5)
+    assert max(largest) < n * n
+    tracemalloc.start()
+    try:
+        labels = thdb.tree_labels(hierarchy, 10)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < 8 * n * n
+    from sklearn.cluster import HDBSCAN
+
+    np.testing.assert_array_equal(labels, HDBSCAN(min_cluster_size=10, min_samples=5).fit(x).labels_)
+
+
+def test_hdbscan_clustering_builds_one_tree_per_min_samples(monkeypatch):
+    """(d) The grid's six parameterizations build one MST per distinct
+    clamped ``min_samples`` (2 here; 1 for a class of 3 points), and the
+    result is still the JAX package's."""
+    from wadt.workloads.embed import hdbscan_clustering as jclustering
+
+    calls = []
+    mst = thdb.mutual_reachability_mst
+
+    def counted(x, core):
+        calls.append(x.shape[0])
+        return mst(x, core)
+
+    monkeypatch.setattr(thdb, "mutual_reachability_mst", counted)
+    rng = np.random.RandomState(2)
+    x = np.vstack([rng.randn(40, 6) + 5.0, rng.randn(40, 6) - 5.0, rng.randn(10, 6) * 8]).astype(np.float32)
+    paths = [f"img_{i}.jpg" for i in range(len(x))]
+    got = hdbscan_clustering(x, paths, device="cpu")
+    assert calls == [len(x)] * 2
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        assert got == jclustering(x, paths)
+    calls.clear()
+    hdbscan_clustering(x[:3], paths[:3], device="cpu")
+    assert calls == [3]
+
+
+def test_hdbscan_on_cuda_without_a_card_raises():
+    """(e) The default device is the card; without one it raises, as
+    ``perform_tsne`` does, and names the way to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device runs")
+    x = _blobs(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        thdb.hdbscan(x, 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hdbscan_clustering(x, [str(i) for i in range(len(x))])
 
 
 # -- t-SNE -------------------------------------------------------------------------
