@@ -22,6 +22,7 @@ from ..models import get_family
 from ..ops.nn import cast_tree
 from ..ops.preprocess import normalize_uint8
 from ..parallel.mesh import Mesh
+from ..utils import trace
 from .checkpoint import to_device
 from .wire import pad_batch, to_host_async, validate_and_pack, wait_host
 
@@ -165,20 +166,22 @@ class Engine:
 
     @torch.inference_mode()
     def _step(self, images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self._outputs(images, self._run_params, self._stem, self._mask)
-        loss_t, count_t = masked_cross_entropy(out["logits"], labels, self._mask)
-        out.update(loss_per_task=loss_t, count_per_task=count_t)
+        with trace.span("engine.forward", device=self.device):
+            out = self._outputs(images, self._run_params, self._stem, self._mask)
+            loss_t, count_t = masked_cross_entropy(out["logits"], labels, self._mask)
+            out.update(loss_per_task=loss_t, count_per_task=count_t)
         return out
 
     def _upload(self, images, labels: Optional[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """uint8 images [..., H, W, C] and their labels [..., T] (IGNORE
         when None) on the device."""
-        x = torch.as_tensor(images).to(self.device, non_blocking=True)
-        if labels is None:
-            y = torch.full(x.shape[:-3] + (len(self.tasks),), IGNORE_INDEX, dtype=torch.int32,
-                           device=self.device)
-        else:
-            y = torch.as_tensor(labels).to(self.device, non_blocking=True)
+        with trace.span("engine.upload"):
+            x = torch.as_tensor(images).to(self.device, non_blocking=True)
+            if labels is None:
+                y = torch.full(x.shape[:-3] + (len(self.tasks),), IGNORE_INDEX,
+                               dtype=torch.int32, device=self.device)
+            else:
+                y = torch.as_tensor(labels).to(self.device, non_blocking=True)
         return x, y
 
     def _local(self, images, labels, dim: int):
@@ -240,17 +243,39 @@ class Engine:
         n = images.shape[0]
         if n > self.batch_size:
             raise ValueError(f"micro-batch {n} > engine batch {self.batch_size}")
-        has_labels = labels is not None
-        images, labels = pad_batch(images, self.batch_size, labels)
-        res = self.step(images, labels)
-        keys = set(collect) | (set(_UNBATCHED) if has_labels else set())
-        return (n,) + to_host_async(res, keys)
+        keys = set(collect) | (set(_UNBATCHED) if labels is not None else set())
+        with trace.span("engine.batch") as batch:
+            images, labels = pad_batch(images, self.batch_size, labels)
+            host, event = self._to_host(self.step(images, labels), keys)
+        return n, host, event, batch
+
+    def dispatch_scan(
+        self,
+        stack: np.ndarray,
+        labels: Optional[np.ndarray] = None,
+        collect: Sequence[str] = ("probs", "preds"),
+    ):
+        """Enqueue k full micro-batches stacked ``[k, batch_size, ...]``
+        through :meth:`step_scan` and start copying their results to the
+        host; returns a handle for :meth:`fetch`, whose leaves come back
+        stacked ``[k, batch_size, ...]`` (per-task aggregates ``[k, T]``)."""
+        keys = set(collect) | (set(_UNBATCHED) if labels is not None else set())
+        with trace.span("engine.batch") as batch:
+            trace.count("engine.rows", stack.shape[0] * stack.shape[1])
+            host, event = self._to_host(self.step_scan(stack, labels), keys)
+        return stack.shape[0], host, event, batch
+
+    @staticmethod
+    def _to_host(res: Dict[str, torch.Tensor], keys):
+        with trace.span("engine.d2h"):
+            return to_host_async(res, keys)
 
     def fetch(self, handle) -> Dict[str, np.ndarray]:
-        """Wait for a :meth:`dispatch` handle -> host arrays [n, ...]
-        (per-task aggregates stay unsliced)."""
-        take, host, event = handle
-        out = wait_host(host, event)
+        """Wait for a :meth:`dispatch` or :meth:`dispatch_scan` handle ->
+        host arrays [n, ...] (per-task aggregates stay unsliced)."""
+        take, host, event, batch = handle
+        with trace.span("engine.wait", link=batch):
+            out = wait_host(host, event)
         return {k: (v if k in _UNBATCHED else v[:take]) for k, v in out.items()}
 
     # -- high-level ------------------------------------------------------
@@ -267,11 +292,14 @@ class Engine:
 
         Up to 4 dispatches stay in flight: each one's results start copying
         to the host as soon as its forward is enqueued, and the oldest is
-        drained only then.  ``measure_time`` returns per-batch wall times
-        under "times" (it synchronizes every batch).  ``scan_chunk=k`` runs
-        k full micro-batches per dispatch through :meth:`step_scan` (one
-        upload, one copy back); the tail goes batch by batch, and
-        ``measure_time`` turns it off.  Results are the same either way.
+        drained only then.  ``scan_chunk=k`` runs k full micro-batches per
+        dispatch through :meth:`step_scan` (one upload, one copy back); the
+        tail goes batch by batch.  Results are the same either way.
+
+        ``measure_time`` is the ``--measure_time`` latency report: it
+        returns per-batch wall times under "times", synchronizes on every
+        batch (so nothing overlaps) and turns ``scan_chunk`` off.  The
+        tracer (``utils.trace``) is separate and changes no result.
         """
         images = self._validate_and_pack(images)
         n = images.shape[0]
@@ -280,17 +308,14 @@ class Engine:
         loss_sums = np.zeros(len(self.tasks), np.float64)
         counts = np.zeros(len(self.tasks), np.int64)
         times: List[float] = []
-        keys = set(collect) | (set(_UNBATCHED) if labels is not None else set())
-        inflight: List[Tuple[int, Dict, object, bool]] = []
+        inflight: List[Tuple[Any, bool]] = []
 
         def _drain_one() -> None:
-            take, host, event, scanned = inflight.pop(0)
-            out = wait_host(host, event)
+            handle, scanned = inflight.pop(0)
+            out = self.fetch(handle)
             for k in collect:
                 v = out[k]
-                if scanned:  # [k, bs, ...] -> [k*bs, ...]
-                    v = v.reshape((-1,) + v.shape[2:])
-                outs[k].append(v[:take])
+                outs[k].append(v.reshape((-1,) + v.shape[2:]) if scanned else v)
             if labels is not None:
                 cnt = out["count_per_task"].astype(np.int64)
                 contrib = out["loss_per_task"] * cnt
@@ -299,8 +324,8 @@ class Engine:
                 np.add(loss_sums, contrib, out=loss_sums)
                 np.add(counts, cnt, out=counts)
 
-        def _submit(take: int, host, event, scanned: bool) -> None:
-            inflight.append((take, host, event, scanned))
+        def _submit(handle, scanned: bool) -> None:
+            inflight.append((handle, scanned))
             if len(inflight) >= 4:
                 _drain_one()
 
@@ -311,17 +336,17 @@ class Engine:
             for s in range(0, start, k * bs):
                 stack = images[s : s + k * bs].reshape((k, bs) + images.shape[1:])
                 lab = labels[s : s + k * bs].reshape(k, bs, -1) if labels is not None else None
-                _submit(k * bs, *to_host_async(self.step_scan(stack, lab), keys), True)
+                _submit(self.dispatch_scan(stack, lab, collect), True)
         for s in range(start, n, bs):
             e = min(s + bs, n)
-            chunk, lab = pad_batch(images[s:e], bs, labels[s:e] if labels is not None else None)
             t0 = time.perf_counter()
-            host, event = to_host_async(self.step(chunk, lab), keys)
+            handle = self.dispatch(images[s:e], labels[s:e] if labels is not None else None,
+                                   collect)
             if measure_time:
-                if event is not None:
-                    event.synchronize()
+                if handle[2] is not None:
+                    handle[2].synchronize()
                 times.append(time.perf_counter() - t0)
-            _submit(e - s, host, event, False)
+            _submit(handle, False)
         while inflight:
             _drain_one()
         result = {k: np.concatenate(v, axis=0) for k, v in outs.items() if v}
@@ -397,9 +422,9 @@ class Engine:
             if k > 1 and imgs.shape[0] == self.batch_size:
                 buf.append(imgs)
                 if len(buf) == k:
-                    res = self.step_scan(np.stack(buf))
+                    stack = np.stack(buf)
                     buf.clear()
-                    _submit((k,) + to_host_async(res, collect), True)
+                    _submit(self.dispatch_scan(stack, collect=collect), True)
             else:
                 _flush_buf()
                 _submit(self.dispatch(imgs, collect=collect), False)

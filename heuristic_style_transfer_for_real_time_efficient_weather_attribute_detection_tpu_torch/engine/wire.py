@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..config import IGNORE_INDEX
+from ..utils import trace
 
 
 def validate_and_pack(images: np.ndarray, pack_k: Optional[int]) -> np.ndarray:
@@ -41,9 +42,13 @@ def validate_and_pack(images: np.ndarray, pack_k: Optional[int]) -> np.ndarray:
 def pad_batch(
     images: np.ndarray, batch_size: int, labels: Optional[np.ndarray] = None
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Zero-pad a tail micro-batch (IGNORE-pad its labels) to ``batch_size`` rows."""
+    """Zero-pad a tail micro-batch (IGNORE-pad its labels) to ``batch_size``
+    rows; counts the rows sent (``engine.rows``) and the padding
+    (``engine.pad_rows``) for the tracer."""
     n = images.shape[0]
+    trace.count("engine.rows", n)
     if n < batch_size:
+        trace.count("engine.pad_rows", batch_size - n)
         pad = batch_size - n
         images = np.concatenate([images, np.zeros((pad,) + images.shape[1:], images.dtype)])
         if labels is not None:

@@ -45,6 +45,7 @@ import torch
 from ..config import IGNORE_INDEX
 from ..engine.executor import class_mask
 from ..models import get_family
+from ..utils import trace
 from .mesh import Mesh, RowShard, batch_rows
 
 _STATS_KEYS = {"mean", "var"}
@@ -566,6 +567,10 @@ def make_train_step(
         return (per_task * present).sum() / n_present.clamp(min=1.0), stat_updates
 
     def step(state: TrainState, images, labels) -> Tuple[TrainState, torch.Tensor]:
+        with trace.span("train.step", device=dev):
+            return _step(state, images, labels)
+
+    def _step(state: TrainState, images, labels) -> Tuple[TrainState, torch.Tensor]:
         shard = None
         if mesh is not None:
             images, lo, total = batch_rows(mesh, images)
@@ -581,17 +586,22 @@ def make_train_step(
         for t in ost.leaves:
             t.grad = None
         with torch.enable_grad():
-            loss, stat_updates = loss_fn(state.params, x, y, state.step, shard)
-            loss.backward()
+            with trace.span("train.forward", device=dev):
+                loss, stat_updates = loss_fn(state.params, x, y, state.step, shard)
+            with trace.span("train.backward", device=dev):
+                loss.backward()
         if mesh is not None:
-            _sum_grads(ost, mesh)
-            loss = mesh.all_reduce(loss.detach())  # the ranks' parts sum to the global loss
-        ost.update(freeze_encoder)
+            with trace.span("train.allreduce"):
+                _sum_grads(ost, mesh)
+                loss = mesh.all_reduce(loss.detach())  # the ranks' parts sum to the global loss
+        with trace.span("train.optimizer", device=dev):
+            ost.update(freeze_encoder)
         if stat_updates is not None:
             # running statistics take no gradient: adopt the train-mode
             # forward's, keeping the optimizer-updated weights
-            for root, upd in stat_updates.items():
-                _merge_stats(state.params[root], upd)
+            with trace.span("train.stats"):
+                for root, upd in stat_updates.items():
+                    _merge_stats(state.params[root], upd)
         return TrainState(state.params, ost, state.step + 1), loss.detach()
 
     def init_fn(seed=0) -> TrainState:

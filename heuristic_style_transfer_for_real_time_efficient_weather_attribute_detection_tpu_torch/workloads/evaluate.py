@@ -20,7 +20,7 @@ import numpy as np
 
 from ..config import IGNORE_INDEX
 from ..engine.executor import Engine
-from ..engine.wire import to_host_async
+from ..utils import trace
 from ..utils.metrics import family_confusion, task_metrics_and_roc, write_metrics_summary_csv
 
 _PROFILED_BATCHES = 3  # batches a profile=True trace covers
@@ -38,10 +38,16 @@ def _start_profiler(engine: Engine):
 
 
 def _stop_profiler(prof, prof_dir: str) -> None:
+    """Write the device trace and, beside it, the summary of the program's
+    spans in the session (``utils.trace``), which is also printed."""
     prof.stop()
     os.makedirs(prof_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
-    print(f"profiler trace written under {prof_dir}")
+    summ = trace.summary()
+    with open(os.path.join(prof_dir, "spans.json"), "w") as f:
+        json.dump(summ, f, indent=1)
+    print(trace.format_summary(summ))
+    print(f"profiler trace and span summary written under {prof_dir}")
 
 
 def evaluate(
@@ -62,7 +68,9 @@ def evaluate(
     ``save_test_images`` writes annotated copies grouped into subfolders
     named by the ground-truth class of ``group_task`` (default: the first
     task).  ``profile`` records a ``torch.profiler`` trace of the first
-    three batches to <save_dir>/profile/trace.json.  ``show_gt_labels=False``
+    three batches to <save_dir>/profile/trace.json and the program's spans
+    in it (per span: count, mean host and device ms; the counters) to
+    spans.json beside it, also printed as a table.  ``show_gt_labels=False``
     drops the "True:" parts from the RTM overlay lines.
 
     ``scan_chunk`` ("off" default, "auto" or an int k) sends k consecutive
@@ -149,9 +157,7 @@ def evaluate(
             buf.clear()
             stack = np.stack([engine._validate_and_pack(ci) for ci, _ in pairs])
             lstack = np.stack([cl for _, cl in pairs]).astype(np.int32)
-            res = engine.step_scan(stack, lstack)
-            handle = (len(pairs),) + to_host_async(res, keys)
-            inflight.append(("scan", (pairs, bidx + 1, handle)))
+            inflight.append(("scan", (pairs, bidx + 1, engine.dispatch_scan(stack, lstack, keys))))
             bidx += len(pairs)
 
         for imgs, labs, _paths in loader:

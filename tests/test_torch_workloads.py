@@ -228,6 +228,10 @@ def test_evaluate_profile_writes_a_trace(synth, engine, tmp_path):
                    str(tmp_path), profile=True)
     trace = tmp_path / "profile" / "trace.json"
     assert trace.exists() and json.load(open(trace))["traceEvents"]
+    spans = json.load(open(tmp_path / "profile" / "spans.json"))  # the program's spans
+    assert spans["spans"]["engine.batch"]["count"] >= 3
+    assert spans["spans"]["engine.forward"]["device_ms"] > 0
+    assert spans["counters"]["engine.rows"] >= 3 * engine.batch_size
 
 
 @pytest.mark.parametrize("family", ["pmg", "rtm"])
