@@ -7,7 +7,7 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the eight CUDA
+1. print the card's name and power limit (nvidia-smi), build the nine CUDA
    sources from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths
@@ -303,6 +303,18 @@ Phases, each of which raises on failure:
     kernel twice: once per distinct ``min_samples``), the peak of
     ``torch.cuda.max_memory_allocated`` over the call's baseline under 1 GB,
     and 12 clusters found, each at least 99 % one seeded cluster.
+26. the RTM trunk's inference epilogue (``bn_epilogue_phase``): (a) every
+    distinct site of ResNet-50's bf16 trunk at batch 128 (the norm, with
+    its ReLU, the identity or the downsample branch's norm), the kernel
+    against its plain version bit for bit, each one's time a launch beside
+    the byte bound, and the sums over the 49 sites of one forward, also
+    at batch 1 in float32 (the camera); (b) the bf16 RTM engine step at
+    batch 128 on the kernel and on the plain version in turns (device and
+    host enqueue time), with 49 launches and 49 fused sites a batch and
+    ``Engine.run``'s probabilities equal bit for bit on both; (c) a bf16
+    RTM ``torch.export`` artifact holding 49 ``wadt_torch.bn_epilogue``
+    nodes, reloaded by ``ExportedPredictor``: the same predictions as
+    ``Engine.run``, probabilities compared, 49 launches a batch.
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
@@ -4704,6 +4716,211 @@ def hdbscan_phase(card: str) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the RTM trunk's inference epilogue
+# ---------------------------------------------------------------------------
+
+EPI_BATCH = 128  # the benchmark's RTM inference batch
+EPI_FRAMES = 16  # (c)'s frames, two batches of EPI_EXPORT_BATCH
+EPI_EXPORT_BATCH = 8
+EPI_SITES = 49  # norms a full-depth ResNet-50 forward runs as epilogues
+
+
+def trunk_site_counts() -> dict:
+    """{(kind, C, H): sites of that kind and shape in one ResNet-50 forward
+    at 224 px}: "relu" (a norm and its ReLU), "identity" (a block's last
+    norm, the identity and the ReLU), "downsample" (the last norm, the
+    downsample branch's norm, the sum and the ReLU)."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import resnet
+
+    counts = {("relu", 64, 112): 1}
+    h = 56
+    for si, (nblocks, planes) in enumerate(resnet.STAGES):
+        h_in, h = h, h if si == 0 else h // 2
+        for bi in range(nblocks):
+            for key in (("relu", planes, h_in if bi == 0 else h), ("relu", planes, h),
+                        ("downsample" if bi == 0 else "identity", planes * resnet.EXPANSION, h)):
+                counts[key] = counts.get(key, 0) + 1
+    if sum(counts.values()) != EPI_SITES:
+        raise AssertionError(f"trunk sites: {sum(counts.values())}, want {EPI_SITES}")
+    return counts
+
+
+def epilogue_site(kind: str, shape, dtype, rng, dev):
+    """(x, norm, other, other's norm) of one site: seeded conv-output-like
+    values and norm statistics; ReLU outputs as the identity."""
+    import torch
+
+    def act():
+        return torch.from_numpy(rng.standard_normal(shape, dtype="float32")).to(dev, dtype)
+
+    def norm():
+        c = shape[1]
+        return {k: torch.from_numpy(v.astype("float32")).to(dev, dtype) for k, v in {
+            "scale": rng.standard_normal(c) * 0.2 + 1.0, "bias": rng.standard_normal(c) * 0.3,
+            "mean": rng.standard_normal(c) * 0.3, "var": rng.random(c) + 0.2}.items()}
+
+    x, p = act(), norm()
+    if kind == "identity":
+        return x, p, torch.relu(act()), None
+    if kind == "downsample":
+        return x, p, act(), norm()
+    return x, p, None, None
+
+
+@contextlib.contextmanager
+def plain_epilogue():
+    """Every trunk site takes the plain version while the block runs."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    fused = ck.bn_epilogue
+    ck.bn_epilogue = ck.bn_epilogue_plain
+    try:
+        yield
+    finally:
+        ck.bn_epilogue = fused
+
+
+def bn_epilogue_phase(card: str) -> dict:
+    """Phase 26: the ``bn_epilogue`` kernel on the RTM trunk (see the module
+    docstring) -> its entry of the kernels line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine.export import (
+        ExportedPredictor, export_engine,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import rtm
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(26)
+    counts = trunk_site_counts()
+
+    # -- (a) each site: bit for bit, kernel and plain times, byte bound ----
+    def sites(batch, dtype):
+        rows, sums, launches, err = [], {"kernel": 0.0, "plain": 0.0, "bound": 0.0}, 0, 0.0
+        for (kind, c, h), n in counts.items():
+            x, p, other, p_other = epilogue_site(kind, (batch, c, h, h), dtype, rng, dev)
+            ck.reset_launches()
+            got = ck.bn_epilogue(x, p, True, other, p_other)
+            torch.cuda.synchronize()
+            launches += ck.LAUNCHES["bn_epilogue"]
+            plain = ck.bn_epilogue_plain(x, p, True, other, p_other)
+            err = max(err, float((got.float() - plain.float()).abs().max()))
+            if not torch.equal(got, plain):
+                raise AssertionError(f"bn_epilogue {kind} [{batch},{c},{h},{h}] {dtype}: "
+                                     "not the plain version's bits")
+            k_ms = device_ms(lambda: ck.bn_epilogue(x, p, True, other, p_other))
+            p_ms = device_ms(lambda: ck.bn_epilogue_plain(x, p, True, other, p_other))
+            nbytes = x.numel() * x.element_size() * (2 if other is None else 3)
+            b_ms, _ = bound_ms(nbytes, 0.0)
+            rows.append(f"{kind} C {c} {h}x{h} (x{n}): {k_ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, "
+                        f"{b_ms / k_ms * 100:.0f} %), plain {p_ms * 1e3:.1f}")
+            for key, v in (("kernel", k_ms), ("plain", p_ms), ("bound", b_ms)):
+                sums[key] += n * v
+            del x, other, got, plain
+        if launches != len(counts):
+            raise AssertionError(f"bn_epilogue: {launches} launches for {len(counts)} sites")
+        return rows, sums, err
+
+    rows128, sums128, err128 = sites(EPI_BATCH, torch.bfloat16)
+    print(f"[26] (a) bn_epilogue vs plain, bf16 batch {EPI_BATCH}, every trunk site bit for bit; a "
+          "launch (median of 5 rounds of 20, CUDA events): " + "; ".join(rows128) + f" | {card}")
+    print(f"[26] (a) one bf16 batch-{EPI_BATCH} forward's 49 sites: kernel {sums128['kernel']:.3f} ms, "
+          f"plain {sums128['plain']:.3f} ms, bound {sums128['bound']:.3f} ms "
+          f"({sums128['bound'] / sums128['kernel'] * 100:.0f} % of 3.35 TB/s) | {card}")
+    _, sums1, err1 = sites(1, torch.float32)
+    print(f"[26] (a) one float32 batch-1 forward's 49 sites (the camera), bit for bit: kernel "
+          f"{sums1['kernel'] * 1e3:.1f} us, plain {sums1['plain'] * 1e3:.1f} us, bound "
+          f"{sums1['bound'] * 1e3:.1f} us | {card}")
+
+    # -- (b) the bf16 engine step on the kernel and on the plain version ---
+    spec = rtm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    params = random_rtm_params(spec, 26)
+    eng = executor.Engine("rtm", spec, params, batch_size=EPI_BATCH, dtype=torch.bfloat16, device=dev)
+    frames = np.random.default_rng(27).integers(0, 256, (2 * EPI_BATCH, 224, 224, 3), dtype=np.uint8)
+    xb = torch.from_numpy(frames[:EPI_BATCH]).to(dev)
+    ck.reset_launches()
+    with trace.recording():
+        fused = eng.run(frames)
+    fused_sites, launches = trace.counters(), ck.LAUNCHES["bn_epilogue"]
+    if (launches != 2 * EPI_SITES
+            or fused_sites.get("resnet.epilogue_fused") != 2 * EPI_SITES
+            or "resnet.epilogue_plain" in fused_sites):
+        raise AssertionError(f"bf16 RTM engine, 2 batches: launches {launches}, "
+                             f"counters {fused_sites}; want {2 * EPI_SITES} fused")
+    with plain_epilogue():
+        plain = eng.run(frames)
+    if not (np.array_equal(fused["probs"], plain["probs"]) and np.array_equal(fused["preds"], plain["preds"])):
+        raise AssertionError("bf16 RTM engine: the kernel's probabilities are not the plain version's")
+
+    def step_plain():
+        with plain_epilogue():
+            return eng.step(xb)
+
+    step_k, step_p = in_turns(lambda: eng.step(xb), step_plain, reps=3, rounds=3)
+    enq_k, enq_p = enqueue_ms(lambda: eng.step(xb)), enqueue_ms(step_plain)
+    print(f"[26] (b) bf16 RTM engine (12 tasks, C = d = 2048) at batch {EPI_BATCH}: "
+          f"{launches // 2} launches and fused sites a batch, none plain; "
+          f"Engine.run's probabilities bit for bit the plain epilogue's on {len(frames)} frames; "
+          f"step in turns: kernel {step_k:.3f} ms, plain {step_p:.3f} ms (device); host enqueue of a "
+          f"step: kernel {enq_k:.3f} ms, plain {enq_p:.3f} ms | {card}")
+    del eng, xb
+
+    # -- (c) torch.export round trip of a bf16 RTM engine -------------------
+    eng = executor.Engine("rtm", spec, params, batch_size=EPI_EXPORT_BATCH, dtype=torch.bfloat16,
+                          device=dev)
+    frames = frames[:EPI_FRAMES]
+    want = eng.run(frames)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_26_")
+    try:
+        export_engine(eng, tmp)
+        program = torch.export.load(os.path.join(tmp, "forward.pt2"))
+        nodes = sum("wadt_torch.bn_epilogue" in str(n.target) for n in program.graph.nodes)
+        if nodes != EPI_SITES:
+            raise AssertionError(f"bf16 RTM artifact: {nodes} wadt_torch.bn_epilogue nodes, want {EPI_SITES}")
+        pred = ExportedPredictor(tmp, device=dev)
+        ck.reset_launches()
+        got = pred.run(frames)
+        torch.cuda.synchronize()
+        art_launches = ck.LAUNCHES["bn_epilogue"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_batches = EPI_FRAMES // EPI_EXPORT_BATCH
+    if art_launches != n_batches * EPI_SITES or not np.array_equal(got["preds"], want["preds"]):
+        raise AssertionError(f"bf16 RTM artifact: {art_launches} launches (want {n_batches * EPI_SITES}), "
+                             f"preds equal {np.array_equal(got['preds'], want['preds'])}")
+    prob_gap = float(np.abs(got["probs"] - want["probs"]).max())
+    print(f"[26] (c) bf16 RTM torch.export artifact: {nodes} wadt_torch.bn_epilogue nodes; "
+          f"ExportedPredictor.run on {EPI_FRAMES} frames: {art_launches} launches, predictions equal "
+          f"Engine.run's, probabilities {'bit for bit' if prob_gap == 0 else f'within {prob_gap:.3e}'}")
+    print(f"[26] epilogue phase took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "bn_epilogue", "route": "cuda", "source": f"{PORT}/csrc/bn_epilogue.cu",
+        "replaces": "none: no TPU kernel; XLA fuses the JAX trunk's norm, residual sum and ReLU "
+                    "into each convolution's output",
+        "launches": launches // 2, "max_abs_err": max(err128, err1),
+        "ms": sums128["kernel"], "plain_ms": sums128["plain"], "bound_ms": sums128["bound"],
+        "bound_by": "bytes", "shape": f"the 49 sites of a bf16 batch-{EPI_BATCH} forward, summed",
+        # no one PyTorch call computes a norm's affine, the residual and the ReLU in one pass
+        "library_ms": None,
+        "step_ms": {"kernel": step_k, "plain": step_p},
+        "enqueue_ms": {"kernel": enq_k, "plain": enq_p},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5022,6 +5239,7 @@ def main() -> int:
     select_phase(card, args.record)
     kernels.append(tsne_phase(card, args.profile))
     kernels += hdbscan_phase(card)
+    kernels.append(bn_epilogue_phase(card))
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

@@ -23,7 +23,11 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
   replace no TPU kernel either: the JAX package runs scikit-learn's HDBSCAN
   on the host, and these compute its core distances and its Prim's minimum
   spanning tree on the card, in float64, bit for bit scikit-learn's
-  (``utils/hdbscan.py``).
+  (``utils/hdbscan.py``);
+- ``bn_epilogue`` (``csrc/bn_epilogue.cu``) replaces no TPU kernel either:
+  XLA fuses the ResNet trunk's inference batch norm, residual sum and ReLU
+  into each convolution's output, and this kernel is those eager passes as
+  one, bit for bit (``models/resnet.py``).
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -37,16 +41,18 @@ fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
 
 K1, K2 and K5, the kernels of the batch path, are also operators
 (``torch.library.custom_op`` in the ``wadt_torch`` namespace:
-``torch.ops.wadt_torch.patch_gram``, ``.stem``, ``.gram_proj``), and their
-wrappers call them: the dispatcher picks the implementation by the tensors'
+``torch.ops.wadt_torch.patch_gram``, ``.stem``, ``.gram_proj``), and so
+is the RTM trunk's ``.bn_epilogue``.  Their wrappers call them (eager,
+``bn_epilogue``'s skips it: :func:`_eager`): the dispatcher picks the implementation by the tensors'
 device (CUDA: the kernel; CPU: the plain version), and a fake
 implementation gives the output's shape and type to ``torch.export``, so an
 exported program carries the operators by name and launches the kernels
-when it runs.  Importing this module registers them.  K1 and K5 also
-carry registered gradients (``patch_gram_backward``, ``gram_proj_backward``:
-plain products, as the JAX package differentiates them by XLA autodiff
-outside its kernels), so the training path runs their forwards through
-the kernels and autograd through them.
+when it runs.  Importing this module registers them.  K1, K5 and
+``bn_epilogue`` also carry registered gradients (``patch_gram_backward``,
+``gram_proj_backward``, ``bn_epilogue_backward``: plain PyTorch, as the JAX
+package differentiates them by XLA autodiff outside its kernels), so the
+training path and Grad-CAM run their forwards through the kernels and
+autograd through them.
 """
 
 from __future__ import annotations
@@ -68,12 +74,13 @@ from ..config import IMAGENET_MEAN, IMAGENET_STD
 from .attention import stacked_task_heads, task_query_pool, transformer_encoder
 from .gram import split_patches
 from .nn import cast_tree, leaky_relu
+from .norms import batch_norm_affine
 from .preprocess import s2d_pack
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 _SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
-            "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu")
+            "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu", "bn_epilogue.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,7 +89,7 @@ _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first laun
 
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
-    "gram_proj": 0, "tsne_repulsion": 0, "hdbscan_core": 0, "hdbscan_mst": 0,
+    "gram_proj": 0, "tsne_repulsion": 0, "hdbscan_core": 0, "hdbscan_mst": 0, "bn_epilogue": 0,
 }
 
 _lib = None
@@ -182,6 +189,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_hdbscan_core.restype = i32
         lib.wadt_hdbscan_mst.argtypes = [ptr, i32, ptr, i32, i32] + [ptr] * 4 + [i32, ptr, ptr, ptr]
         lib.wadt_hdbscan_mst.restype = i32
+        lib.wadt_bn_epilogue.argtypes = [ptr] * 11 + [ctypes.c_longlong] + [i32] * 6 + [ptr]
+        lib.wadt_bn_epilogue.restype = i32
         _lib = lib
         return lib
 
@@ -1448,6 +1457,204 @@ def _gram_proj_grad(ctx, dy):
 
 
 _gram_proj_op.register_autograd(_gram_proj_grad, setup_context=_gram_proj_setup)
+
+
+# ---------------------------------------------------------------------------
+# The ResNet trunk's inference batch-norm epilogue (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+_NORM_KEYS = ("scale", "bias", "mean", "var")
+
+
+def _bn_plain(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    scale, shift = batch_norm_affine(p)
+    return x * scale[:, None, None] + shift[:, None, None]
+
+
+def bn_epilogue_plain(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
+                      other: Optional[torch.Tensor] = None,
+                      p_other: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Plain PyTorch inference batch norm on NCHW x (the norm ``p``'s
+    running statistics, ``norms.batch_norm_affine``), plus ``other`` (the
+    residual identity) or, with ``p_other``, plus ``other`` under its own
+    norm (the downsample branch), then the ReLU if ``relu``: each step one
+    eager PyTorch operation, rounded to x's type."""
+    if p_other is not None and other is None:
+        raise ValueError("bn_epilogue: a second norm needs the tensor it normalizes")
+    y = _bn_plain(x, p)
+    if other is not None:
+        y = y + (other if p_other is None else _bn_plain(other, p_other))
+    return torch.relu(y) if relu else y
+
+
+def _epilogue_fits(x: torch.Tensor, other: Optional[torch.Tensor], vecs) -> bool:
+    """x contiguous NCHW float32 or bf16; ``other`` and every vector of
+    ``vecs`` ([C], contiguous), where not None, of x's type and device."""
+    dt, dev = x.dtype, x.device
+    if dt not in (torch.float32, torch.bfloat16) or x.ndim != 4 or not x.is_contiguous():
+        return False
+    if other is not None and (other.dtype != dt or other.device != dev or other.shape != x.shape
+                              or not other.is_contiguous()):
+        return False
+    c = x.shape[1]
+    return all(v.dtype == dt and v.device == dev and v.ndim == 1 and v.shape[0] == c
+               and v.is_contiguous() for v in vecs if v is not None)
+
+
+def _eager(x: torch.Tensor) -> bool:
+    """No trace records the call, so a wrapper may skip its operator: x a
+    plain tensor (no fake or functional subclass, as a trace makes), no
+    dispatch mode active (``make_fx``) and no compiler tracing."""
+    return (type(x) is torch.Tensor and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling())
+
+
+def _records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records a gradient through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def bn_epilogue(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
+                other: Optional[torch.Tensor] = None,
+                p_other: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """:func:`bn_epilogue_plain` in one pass: ``relu?(bn(x) [+ other |
+    + bn_other(other)])``, bit for bit, with the plain chain's gradients.
+
+    Replaces no TPU kernel: the JAX package leaves these passes after each
+    convolution of the ResNet trunk to XLA's fusion.  CPU tensor: the plain
+    version, through the operator ``wadt_torch::bn_epilogue``.  CUDA
+    tensor: the ``bn_epilogue`` kernel (``csrc/bn_epilogue.cu``), which
+    computes the norm's affine per channel itself, on contiguous NCHW
+    float32 or bf16 tensors with ``other`` and every norm vector of x's
+    type (others raise); autograd differentiates it by
+    :func:`bn_epilogue_backward`.  Eager (:func:`_eager`) the wrapper skips
+    the operator, whose dispatch costs a ResNet-50 forward ~1 ms of host
+    time over its 49 calls (10–15 ms more where autograd records them) and whose first call
+    imports ``torch._dynamo``, seconds of set-up: it calls the launcher, or
+    where a gradient is recorded ``_BnEpilogueFn``.  Traced
+    (``torch.export``), it calls the operator, so the program carries it.
+    """
+    _require_cpu_or_cuda(x, "bn_epilogue")
+    second = (None,) * 4 if p_other is None else tuple(p_other[k] for k in _NORM_KEYS)
+    args = (x, *(p[k] for k in _NORM_KEYS), other, *second)
+    if x.is_cuda and _eager(x):
+        if _records_grad(*args):
+            return _BnEpilogueFn.apply(*args, relu)
+        return _bn_epilogue_launch(*args, relu)
+    return torch.ops.wadt_torch.bn_epilogue(*args, relu)
+
+
+def _bn_epilogue_launch(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+    var: torch.Tensor, other: Optional[torch.Tensor], scale2: Optional[torch.Tensor],
+    bias2: Optional[torch.Tensor], mean2: Optional[torch.Tensor], var2: Optional[torch.Tensor],
+    relu: bool,
+) -> torch.Tensor:
+    """The kernel on CUDA tensors, the CUDA implementation of
+    ``wadt_torch::bn_epilogue``."""
+    second = (scale2, bias2, mean2, var2)
+    given = sum(t is not None for t in second)
+    if given not in (0, 4) or (given and other is None):
+        raise ValueError("bn_epilogue: a second norm takes all four vectors and the tensor it "
+                         "normalizes")
+    mode = 0 if other is None else 2 if given else 1
+    if not (x.is_cuda and _epilogue_fits(x, other, (scale, bias, mean, var, *second))):
+        raise ValueError(
+            "bn_epilogue: the kernel takes contiguous NCHW float32 or bf16 CUDA tensors, with "
+            "other and the norm vectors [C] of x's type and device"
+        )
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    b, c, h, w = x.shape
+    ptrs = [None if t is None else t.data_ptr() for t in (x, other, scale, bias, mean, var, *second)]
+    _launch("bn_epilogue", build().wadt_bn_epilogue, x.device, *ptrs, out.data_ptr(),
+            out.numel(), c, h * w, mode, int(relu), int(x.dtype == torch.bfloat16),
+            _sm_count(x.device))
+    return out
+
+
+_bn_epilogue_op = torch.library.custom_op(
+    "wadt_torch::bn_epilogue", _bn_epilogue_launch, mutates_args=(), device_types="cuda")
+
+
+@_bn_epilogue_op.register_kernel("cpu")
+def _(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
+    p_other = None if scale2 is None else dict(zip(_NORM_KEYS, (scale2, bias2, mean2, var2)))
+    return bn_epilogue_plain(x, dict(zip(_NORM_KEYS, (scale, bias, mean, var))), relu, other,
+                             p_other)
+
+
+@_bn_epilogue_op.register_fake
+def _(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
+    return x.new_empty(x.shape)
+
+
+def _bn_backward(g: torch.Tensor, t: torch.Tensor, vecs: Sequence[torch.Tensor],
+                 needs: Sequence[bool]) -> list:
+    """The gradients of ``_bn_plain(t, vecs)`` for its output's gradient g:
+    t's, then each norm vector's (None where ``needs`` says none is
+    needed), as autograd gives them through the eager chain: g times the
+    rounded affine, and the affine's own steps differentiated by autograd."""
+    if not any(needs[1:]):  # the activation's alone (Grad-CAM): no graph to record
+        inv = batch_norm_affine(dict(zip(_NORM_KEYS, vecs)))[0]
+        return [g * inv[:, None, None] if needs[0] else None, None, None, None, None]
+    with torch.enable_grad():
+        leaves = [v.detach().requires_grad_(n) for v, n in zip(vecs, needs[1:])]
+        inv, shift = batch_norm_affine(dict(zip(_NORM_KEYS, leaves)))
+    grads = [g * inv.detach()[:, None, None] if needs[0] else None, None, None, None, None]
+    wanted = [i for i, n in enumerate(needs[1:]) if n]
+    if wanted:
+        dvecs = torch.autograd.grad((inv, shift), [leaves[i] for i in wanted],
+                                    ((g * t).sum((0, 2, 3)), g.sum((0, 2, 3))))
+        for i, d in zip(wanted, dvecs):
+            grads[1 + i] = d
+    return grads
+
+
+def bn_epilogue_backward(dy: torch.Tensor, x: torch.Tensor, other: Optional[torch.Tensor],
+                         out: torch.Tensor, vecs: Sequence[Optional[torch.Tensor]], relu: bool,
+                         needs: Sequence[bool]) -> tuple:
+    """The gradients of ``bn_epilogue`` for the output gradient dy, in the
+    operator's argument order (x, p's four vectors, other, p_other's four,
+    relu), bit for bit autograd's through :func:`bn_epilogue_plain`: the
+    ReLU's mask from the output, then each normed input's gradient, the
+    identity's the masked gradient itself.  Plain PyTorch; the forward
+    stays the kernel on the card."""
+    g = torch.ops.aten.threshold_backward(dy, out, 0) if relu else dy
+    grads = _bn_backward(g, x, vecs[:4], needs[:5])
+    if vecs[4] is None:
+        return (*grads, g if needs[5] else None, None, None, None, None, None)
+    return (*grads, *_bn_backward(g, other, vecs[4:], needs[5:10]), None)
+
+
+def _bn_epilogue_setup(ctx, inputs, output) -> None:
+    x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu = inputs
+    ctx.save_for_backward(x, other, output, scale, bias, mean, var, scale2, bias2, mean2, var2)
+    ctx.relu = relu
+
+
+def _bn_epilogue_grad(ctx, dy):
+    x, other, out, *vecs = ctx.saved_tensors
+    return bn_epilogue_backward(dy, x, other, out, vecs, ctx.relu, ctx.needs_input_grad)
+
+
+_bn_epilogue_op.register_autograd(_bn_epilogue_grad, setup_context=_bn_epilogue_setup)
+
+
+class _BnEpilogueFn(torch.autograd.Function):
+    """The operator's CUDA implementation and gradient without its
+    dispatch, for eager calls that record a gradient (Grad-CAM)."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        out = _bn_epilogue_launch(*inputs)
+        _bn_epilogue_setup(ctx, inputs, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _bn_epilogue_grad(ctx, dy)
 
 
 # ---------------------------------------------------------------------------

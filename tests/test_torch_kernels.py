@@ -313,10 +313,23 @@ def _hdbscan_mst_call():
     return ck.hdbscan_prim_mst, (x, ck.hdbscan_core_distances_plain(x, 5)), ck.hdbscan_prim_mst_plain
 
 
+def _bn_epilogue_call():
+    """The downsample site: two norms, the sum and the ReLU."""
+    rng = np.random.RandomState(12)
+    x, d = (torch.from_numpy(rng.randn(2, 8, 5, 7).astype(np.float32)) for _ in range(2))
+
+    def norm():
+        return {k: torch.from_numpy(v.astype(np.float32)) for k, v in {
+            "scale": rng.rand(8) + 0.5, "bias": rng.randn(8), "mean": rng.randn(8),
+            "var": rng.rand(8) + 0.5}.items()}
+
+    return ck.bn_epilogue, (x, norm(), True, d, norm()), ck.bn_epilogue_plain
+
+
 CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call,
-         _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call]
+         _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call, _bn_epilogue_call]
 CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj",
-            "tsne_repulsion", "hdbscan_core", "hdbscan_mst"]
+            "tsne_repulsion", "hdbscan_core", "hdbscan_mst", "bn_epilogue"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
@@ -344,17 +357,29 @@ def _stem_bf16_call():
             lambda *a: ck.stem_plain(*a[:5], out_dtype=torch.bfloat16, bias=a[5]))
 
 
+def _bn_epilogue_flat_call():
+    """``_bn_epilogue_call`` with the norms' vectors as arguments of their own."""
+    _, (x, p, relu, d, pd), _ = _bn_epilogue_call()
+    keys = tuple(p)
+
+    def unflat(fn):
+        return lambda x, d, *v: fn(x, dict(zip(keys, v[:4])), relu, d, dict(zip(keys, v[4:])))
+
+    return unflat(ck.bn_epilogue), (x, d, *p.values(), *pd.values()), unflat(ck.bn_epilogue_plain)
+
+
 OPERATOR_CASES = {
     "patch_gram": (_gram_call, "patch_gram"), "patch_gram_bf16": (_gram_bf16_call, "patch_gram"),
     "stem": (_stem_call, "stem"), "stem_bf16": (_stem_bf16_call, "stem"),
     "gram_proj": (_gram_proj_call, "gram_proj"),
     "gram_proj_bf16_out": (_gram_proj_two_bands_call, "gram_proj"),
+    "bn_epilogue": (_bn_epilogue_flat_call, "bn_epilogue"),
 }
 
 
 @pytest.mark.parametrize("name", list(OPERATOR_CASES))
 def test_wrapper_calls_its_registered_operator(name):
-    """K1, K2 and K5's wrappers go through ``torch.ops.wadt_torch``: a trace
+    """K1, K2, K5 and ``bn_epilogue``'s wrappers go through ``torch.ops.wadt_torch``: a trace
     of the wrapper holds the operator (what ``torch.export`` saves), its CPU
     kernel is the plain version, and its fake kernel gives the output's
     shape and type."""
