@@ -20,7 +20,9 @@ reassociated into three einsums stacked over the task axis and no
 The params share the JAX package's tree leaf for leaf.  A bf16 tree runs
 the trunk in bf16; the heads' products sum in float32 and their outputs
 (logits, attention, embeddings) are float32, as JAX's types make them.
-PM runs no hand-written kernel.
+PM runs no hand-written kernel.  ``apply`` times the trunk and the heads as
+the ``pm.trunk`` and ``pm.heads`` spans of the port's tracer (off unless
+it records).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..config import TaskSpec
 from ..ops.nn import init_conv, init_linear
+from ..utils import trace
 from .trunk import apply_trunk, apply_trunk_train, init_trunk, trunk_plan
 
 DEFAULTS = dict(
@@ -174,12 +177,14 @@ def apply(
     features [B,C]).
     """
     aux: Dict[str, torch.Tensor] = {}
-    feats = apply_trunk(params["trunk"], x, spec.plan, spec.norm)
+    with trace.span("pm.trunk", device=x.device):
+        feats = apply_trunk(params["trunk"], x, spec.plan, spec.norm)
     if "features" in capture:
         aux["features"] = feats
     if "shared_embedding" in capture:
         aux["shared_embedding"] = feats.mean(dim=(1, 2))
-    logits, attn = _head_outputs(params, feats, spec)
+    with trace.span("pm.heads", device=x.device):
+        logits, attn = _head_outputs(params, feats, spec)
     if "attn" in capture:
         aux["attn"] = attn
     if "task_embeddings" in capture:

@@ -4,6 +4,10 @@ Starting at ``ndf`` filters, add Conv(k, s, p) -> Norm -> LeakyReLU(0.2)
 blocks, doubling the filters, while the receptive-field counter (starting
 at ``patch_size``, divided by the stride each block) stays > 4 and the
 current filter count is <= 512; then one final stride-1 block.
+
+``apply_trunk`` times each block's norm and LeakyReLU as a ``trunk.norm``
+span of the port's tracer and counts each such site, run as the plain
+chain, under ``trunk.norm_plain``; both are off unless the tracer records.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from ..ops.nn import conv2d, init_conv, init_norm, leaky_relu
 from ..ops.norms import apply_norm, train_batch_norm
+from ..utils import trace
 
 
 class ConvBlock(NamedTuple):
@@ -61,8 +66,10 @@ def apply_trunk(
     """NHWC conv trunk: (Conv -> Norm -> LeakyReLU(0.2)) per planned block."""
     for p, b in zip(params, plan):
         x = conv2d(x, p["conv"], stride=b.stride, padding=b.pad)
-        x = apply_norm(x, p["norm"], norm)
-        x = leaky_relu(x, 0.2)
+        with trace.span("trunk.norm", device=x.device):
+            trace.count("trunk.norm_plain")
+            x = apply_norm(x, p["norm"], norm)  # each output replaces its input, freeing it
+            x = leaky_relu(x, 0.2)
     return x
 
 

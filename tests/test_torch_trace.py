@@ -2,8 +2,11 @@
 and opens nothing; under ``torch.profiler`` or ``recording()`` the Engine's
 batches and the train step's phases record once each, tied by ids, and
 stand in the profiler's events; readers see only the last session; a
-session's cap holds; and recording changes no result."""
+session's cap holds; recording changes no result; and PM's forward records
+its trunk, its heads and each trunk block's norm, which the benchmark's
+``trunk_ms`` and ``norm_ms`` readers read."""
 
+import os
 import time
 
 import numpy as np
@@ -15,6 +18,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     Engine,
 )
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import (
+    pm,
     pmg,
     rtm,
 )
@@ -35,6 +39,9 @@ MODULES = {"pmg": pmg, "rtm": rtm}
 BS = 4
 ENGINE_SPANS = ("engine.upload", "engine.forward", "engine.d2h")
 TRAIN_SPANS = ("train.forward", "train.backward", "train.optimizer", "train.stats")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# 64 px through four strided blocks and the final one: five norm sites
+PM_HPARAMS = dict(ndf=8, patch_size=40)
 
 
 def _spec_params(family):
@@ -199,6 +206,68 @@ def test_recording_changes_no_result(engines):
     ta, tb = a.opt_state.tree(), b.opt_state.tree()
     for key in ("exp_avg", "exp_avg_sq"):
         assert all(torch.equal(ta[key][p], tb[key][p]) for p in ta[key])
+
+
+def _pm_spec_params():
+    spec = pm.build_spec(TASKS, PM_HPARAMS)
+    return spec, pm.init(torch.Generator().manual_seed(0), spec)
+
+
+def _pm_forward():
+    spec, params = _pm_spec_params()
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        return pm.apply(params, x, spec)[0]
+
+
+def test_pm_forward_records_trunk_heads_and_each_norm():
+    assert len(pm.build_spec(TASKS, PM_HPARAMS).plan) == 5
+    with trace.recording():
+        _pm_forward()
+    recs = trace.records()
+    (tr,) = [r for r in recs if r.name == "pm.trunk"]
+    (hd,) = [r for r in recs if r.name == "pm.heads"]
+    norms = [r for r in recs if r.name == "trunk.norm"]
+    assert len(norms) == 5 and all(r.parent == tr.id for r in norms)
+    assert tr.parent is None and hd.parent is None and tr.end_ns <= hd.start_ns
+    assert all(tr.start_ns <= r.start_ns <= r.end_ns <= tr.end_ns for r in norms)
+    assert all(r.device_ms == r.host_ms > 0 for r in (tr, hd, *norms))  # CPU: host time
+    assert trace.counters() == {"trunk.norm_plain": 5}
+
+
+def test_pm_forward_records_nothing_with_the_tracer_off(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("touched while the tracer is off")
+
+    want = _pm_forward()
+    sessions = len(trace.TRACER.sessions)
+    monkeypatch.setattr(time, "perf_counter_ns", boom)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
+    assert torch.equal(_pm_forward(), want)
+    assert len(trace.TRACER.sessions) == sessions
+
+
+@pytest.mark.parametrize("metric", ["trunk_ms.infer", "norm_ms.infer"])
+def test_pm_span_readers(engines, metric):
+    """The benchmark's readers: None on a session without PM's spans (a
+    PMG engine run), the spans' device time a batch on one with them."""
+    from port_bench import cells
+
+    read = cells.reader(REPO, metric)
+    with trace.recording():
+        engines["pmg"].run(_frames(8))
+    assert read(None) is None
+    eng = Engine("pm", *_pm_spec_params(), batch_size=BS, device="cpu")
+    frames = np.random.RandomState(4).randint(0, 256, (8, 64, 64, 3), np.uint8)
+    with trace.recording():
+        eng.run(frames)
+    recs = trace.records()
+    steps = [r for r in recs if r.name == "engine.forward"]
+    if metric == "trunk_ms.infer":
+        want = np.mean([r.device_ms for r in recs if r.name == "pm.trunk"])
+    else:
+        want = sum(r.device_ms for r in recs if r.name == "trunk.norm") / len(steps)
+    assert len(steps) == 2 and read(None) == pytest.approx(want)
 
 
 @pytest.fixture
