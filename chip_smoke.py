@@ -7,7 +7,7 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
 
-1. print the card's name and power limit (nvidia-smi), build the nine CUDA
+1. print the card's name and power limit (nvidia-smi), build the ten CUDA
    sources from ``<port>/csrc`` (nvcc, sm_90a, one process per source);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and on ragged shapes that take their other code paths
@@ -315,6 +315,16 @@ Phases, each of which raises on failure:
     RTM ``torch.export`` artifact holding 49 ``wadt_torch.bn_epilogue``
     nodes, reloaded by ``ExportedPredictor``: the same predictions as
     ``Engine.run``, probabilities compared, 49 launches a batch.
+27. the PM trunk's instance norm and LeakyReLU (``instance_norm_phase``):
+    (a) each of the five sites of the float32 PM headline trunk at batch
+    256, the kernel against the plain chain (within 1e-6 of each plane's
+    largest value, two calls the same bits), the kernel's time a launch in
+    place (as the trunk calls it) beside the byte bound (one read and one
+    write) and the plain chain's time, and their sums; (b) the float32 PM
+    engine step at batch 256 on the kernel and on the plain chain in turns
+    (device time, and each one's peak memory over the resident state),
+    with 5 launches and 5 fused sites a batch and ``Engine.run``'s
+    probabilities within 1e-5 of the plain chain's.
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
@@ -4921,6 +4931,142 @@ def bn_epilogue_phase(card: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the PM trunk's instance norm and LeakyReLU
+# ---------------------------------------------------------------------------
+
+PM_SITES = ((64, 112), (128, 56), (256, 28), (512, 14), (1024, 13))  # (C, H) at 224 px
+
+
+@contextlib.contextmanager
+def plain_instance_norm():
+    """Every PM trunk site takes the plain chain while the block runs."""
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+
+    fused = ck.instance_norm_leaky
+    ck.instance_norm_leaky = lambda x, p, slope=0.2, inplace=False: ck.instance_norm_leaky_plain(x, p, slope)
+    try:
+        yield
+    finally:
+        ck.instance_norm_leaky = fused
+
+
+def instance_norm_phase(card: str) -> dict:
+    """Phase 27: the ``instance_norm_leaky`` kernel on the PM headline trunk
+    (see the module docstring) -> its entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pm
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    config.enable_parity_precision()
+    gen = torch.Generator(dev).manual_seed(27)
+
+    # -- (a) each float32 batch-256 site: kernel, byte bound, plain chain ---
+    rows, sums, err, exact_gaps = [], {"kernel": 0.0, "plain": 0.0, "bound": 0.0}, 0.0, []
+    for c, h in PM_SITES:
+        x = (torch.randn((BATCH, h, h, c), generator=gen, device=dev)
+             * (torch.rand(c, generator=gen, device=dev) + 0.5) + torch.randn(c, generator=gen, device=dev))
+        p = {"scale": torch.rand(c, generator=gen, device=dev) + 0.5,
+             "bias": torch.randn(c, generator=gen, device=dev) * 0.3}
+        ck.reset_launches()
+        got = ck.instance_norm_leaky(x, p)
+        torch.cuda.synchronize()
+        if ck.LAUNCHES["instance_norm_leaky"] != 1 or not torch.equal(ck.instance_norm_leaky(x, p), got):
+            raise AssertionError(f"instance_norm_leaky [{BATCH},{h},{h},{c}]: one launch, the same bits twice")
+        plain = ck.instance_norm_leaky_plain(x, p)
+
+        def gap_to(want, got=got):  # the largest gap over each plane's largest |want|
+            return float(((got.double() - want).abs().amax(dim=(1, 2))
+                          / want.abs().amax(dim=(1, 2))).max())
+
+        gap = gap_to(plain.double())
+        if gap > 1e-6:
+            raise AssertionError(f"instance_norm_leaky [{BATCH},{h},{h},{c}]: {gap:.3e} of a plane's scale")
+        exact = ck.instance_norm_leaky_plain(x.double(), {k: v.double() for k, v in p.items()})
+        err = max(err, gap)
+        exact_gaps.append(f"C {c}: kernel {gap_to(exact):.2e}, plain {gap_to(exact, plain):.2e}")
+        del got, plain, exact
+        y = x.clone()  # the main path writes over the conv output
+        k_ms = device_ms(lambda: ck.instance_norm_leaky(y, p, inplace=True))
+        p_ms = device_ms(lambda: ck.instance_norm_leaky_plain(x, p))
+        b_ms, _ = bound_ms(2 * x.numel() * x.element_size(), 0.0)
+        rows.append(f"C {c} {h}x{h}: {k_ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, "
+                    f"{b_ms / k_ms * 100:.0f} %), plain {p_ms * 1e3:.1f}")
+        for key, v in (("kernel", k_ms), ("plain", p_ms), ("bound", b_ms)):
+            sums[key] += v
+        del x, y
+    print(f"[27] (a) instance_norm_leaky vs plain, float32 batch {BATCH}, every PM headline site within "
+          f"1e-6 of its planes' scale (largest {err:.3e}), one launch, twice the same bits; in place, "
+          "a launch (median of 5 rounds of 20, CUDA events): " + "; ".join(rows) + f" | {card}")
+    print("[27] (a) largest gap to the float64 chain over each plane's largest value: "
+          + "; ".join(exact_gaps))
+    print(f"[27] (a) one float32 batch-{BATCH} PM forward's 5 sites: kernel {sums['kernel']:.3f} ms, "
+          f"plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms (one read and one write, "
+          f"{sums['bound'] / sums['kernel'] * 100:.0f} % of 3.35 TB/s) | {card}")
+
+    # -- (b) the float32 PM engine step on the kernel and on the plain chain
+    spec = pm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    params = pm.init(torch.Generator().manual_seed(27), spec)
+    eng = executor.Engine("pm", spec, params, batch_size=BATCH, device=dev)
+    frames = np.random.default_rng(28).integers(0, 256, (2 * BATCH, 224, 224, 3), dtype=np.uint8)
+    xb = torch.from_numpy(frames[:BATCH]).to(dev)
+    ck.reset_launches()
+    with trace.recording():
+        fused = eng.run(frames)
+    counts, launches = trace.counters(), ck.LAUNCHES["instance_norm_leaky"]
+    if launches != 10 or counts.get("trunk.norm_fused") != 10 or "trunk.norm_plain" in counts:
+        raise AssertionError(f"float32 PM engine, 2 batches: launches {launches}, counters {counts}; "
+                             "want 10 fused")
+    with plain_instance_norm():
+        plain = eng.run(frames)
+    gap = float(np.abs(fused["probs"] - plain["probs"]).max())
+    if gap > 1e-5:
+        raise AssertionError(f"float32 PM engine: probabilities {gap:.3e} from the plain chain's")
+
+    def step_plain():
+        with plain_instance_norm():
+            return eng.step(xb)
+
+    step_k, step_p = in_turns(lambda: eng.step(xb), step_plain, reps=3, rounds=3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    eng.step(xb)
+    torch.cuda.synchronize()
+    peak_k = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_plain()
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated(dev) - base
+    print(f"[27] (b) float32 PM engine (ndf 64, 12 tasks) at batch {BATCH}: {launches // 2} launches and "
+          f"fused sites a batch, none plain; Engine.run's probabilities within {gap:.3e} of the plain "
+          f"chain's on {len(frames)} frames; step in turns: kernel {step_k:.3f} ms, plain {step_p:.3f} ms "
+          f"(device); a step's peak over the resident state: kernel {peak_k / 1e9:.3f} GB, plain "
+          f"{peak_p / 1e9:.3f} GB | {card}")
+    print(f"[27] instance norm phase took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "instance_norm_leaky", "route": "cuda", "source": f"{PORT}/csrc/instance_norm_leaky.cu",
+        "replaces": "none: no TPU kernel; XLA fuses the JAX trunk's instance norm and LeakyReLU "
+                    "into each convolution's output",
+        "launches": launches // 2, "max_rel_err": err,
+        "ms": sums["kernel"], "plain_ms": sums["plain"], "bound_ms": sums["bound"],
+        "bound_by": "bytes", "shape": f"the 5 sites of a float32 batch-{BATCH} PM forward, summed",
+        # no one PyTorch call computes an instance norm, its affine and a LeakyReLU in one pass
+        "library_ms": None,
+        "step_ms": {"kernel": step_k, "plain": step_p},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5240,6 +5386,7 @@ def main() -> int:
     kernels.append(tsne_phase(card, args.profile))
     kernels += hdbscan_phase(card)
     kernels.append(bn_epilogue_phase(card))
+    kernels.append(instance_norm_phase(card))
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

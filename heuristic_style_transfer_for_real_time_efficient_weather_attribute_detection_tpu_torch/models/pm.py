@@ -20,7 +20,9 @@ reassociated into three einsums stacked over the task axis and no
 The params share the JAX package's tree leaf for leaf.  A bf16 tree runs
 the trunk in bf16; the heads' products sum in float32 and their outputs
 (logits, attention, embeddings) are float32, as JAX's types make them.
-PM runs no hand-written kernel.  ``apply`` times the trunk and the heads as
+On the card each trunk block's instance norm and LeakyReLU is one
+``instance_norm_leaky`` kernel launch (``trunk.norm_leaky``); the rest is
+plain PyTorch.  ``apply`` times the trunk and the heads as
 the ``pm.trunk`` and ``pm.heads`` spans of the port's tracer (off unless
 it records).
 """

@@ -5,9 +5,13 @@ blocks, doubling the filters, while the receptive-field counter (starting
 at ``patch_size``, divided by the stride each block) stays > 4 and the
 current filter count is <= 512; then one final stride-1 block.
 
-``apply_trunk`` times each block's norm and LeakyReLU as a ``trunk.norm``
-span of the port's tracer and counts each such site, run as the plain
-chain, under ``trunk.norm_plain``; both are off unless the tracer records.
+Each block's norm and LeakyReLU is one call of :func:`norm_leaky`: an
+instance norm on a CUDA tensor is one ``instance_norm_leaky`` kernel
+launch (``csrc/instance_norm_leaky.cu``), counted under
+``trunk.norm_fused``; every other site (a CPU tensor, batch or group norm)
+is the plain chain, counted under ``trunk.norm_plain``.  Each call is a
+``trunk.norm`` span of the port's tracer; spans and counters are off
+unless the tracer records.  The train-mode trunk keeps the plain chain.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
+from ..ops import cuda_kernels
 from ..ops.nn import conv2d, init_conv, init_norm, leaky_relu
 from ..ops.norms import apply_norm, train_batch_norm
 from ..utils import trace
@@ -60,16 +65,26 @@ def init_trunk(
     ]
 
 
+def norm_leaky(x: torch.Tensor, p: Dict[str, torch.Tensor], norm: str,
+               inplace: bool = False) -> torch.Tensor:
+    """One block's norm of kind ``norm`` and LeakyReLU(0.2) on its conv
+    output x.  ``inplace`` lets the kernel write over x where no gradient
+    is recorded: pass it only for a conv output that nothing else reads."""
+    with trace.span("trunk.norm", device=x.device):
+        if norm == "instance" and x.is_cuda:
+            trace.count("trunk.norm_fused")
+            return cuda_kernels.instance_norm_leaky(x, p, 0.2, inplace=inplace)
+        trace.count("trunk.norm_plain")
+        return leaky_relu(apply_norm(x, p, norm), 0.2)
+
+
 def apply_trunk(
     params: List[Dict], x: torch.Tensor, plan: Tuple[ConvBlock, ...], norm: str
 ) -> torch.Tensor:
     """NHWC conv trunk: (Conv -> Norm -> LeakyReLU(0.2)) per planned block."""
     for p, b in zip(params, plan):
-        x = conv2d(x, p["conv"], stride=b.stride, padding=b.pad)
-        with trace.span("trunk.norm", device=x.device):
-            trace.count("trunk.norm_plain")
-            x = apply_norm(x, p["norm"], norm)  # each output replaces its input, freeing it
-            x = leaky_relu(x, 0.2)
+        x = norm_leaky(conv2d(x, p["conv"], stride=b.stride, padding=b.pad), p["norm"], norm,
+                       inplace=True)
     return x
 
 
@@ -77,9 +92,10 @@ def apply_trunk_from_last_conv(
     params: List[Dict], last_conv_out: torch.Tensor, plan: Tuple[ConvBlock, ...], norm: str
 ) -> torch.Tensor:
     """Finish the trunk from the last block's raw conv output (before its
-    norm and LeakyReLU), the activation the reference's Grad-CAM hooks."""
+    norm and LeakyReLU), the activation the reference's Grad-CAM hooks; the
+    caller's tensor is left as it is."""
     del plan
-    return leaky_relu(apply_norm(last_conv_out, params[-1]["norm"], norm), 0.2)
+    return norm_leaky(last_conv_out, params[-1]["norm"], norm)
 
 
 def trunk_last_conv(
@@ -88,8 +104,8 @@ def trunk_last_conv(
     """The trunk up to and including the last block's convolution: its
     pre-norm output, the Grad-CAM target."""
     for p, b in zip(params[:-1], plan[:-1]):
-        x = leaky_relu(apply_norm(conv2d(x, p["conv"], stride=b.stride, padding=b.pad), p["norm"],
-                                  norm), 0.2)
+        x = norm_leaky(conv2d(x, p["conv"], stride=b.stride, padding=b.pad), p["norm"], norm,
+                       inplace=True)
     return conv2d(x, params[-1]["conv"], stride=plan[-1].stride, padding=plan[-1].pad)
 
 

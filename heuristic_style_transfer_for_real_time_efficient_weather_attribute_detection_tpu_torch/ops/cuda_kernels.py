@@ -27,7 +27,11 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 - ``bn_epilogue`` (``csrc/bn_epilogue.cu``) replaces no TPU kernel either:
   XLA fuses the ResNet trunk's inference batch norm, residual sum and ReLU
   into each convolution's output, and this kernel is those eager passes as
-  one, bit for bit (``models/resnet.py``).
+  one, bit for bit (``models/resnet.py``);
+- ``instance_norm_leaky`` (``csrc/instance_norm_leaky.cu``) replaces no TPU
+  kernel either: XLA fuses the PM trunk's instance norm and LeakyReLU into
+  each convolution's output, and this kernel is the eager chain's passes as
+  one (``models/trunk.py``).
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -42,14 +46,16 @@ fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
 K1, K2 and K5, the kernels of the batch path, are also operators
 (``torch.library.custom_op`` in the ``wadt_torch`` namespace:
 ``torch.ops.wadt_torch.patch_gram``, ``.stem``, ``.gram_proj``), and so
-is the RTM trunk's ``.bn_epilogue``.  Their wrappers call them (eager,
-``bn_epilogue``'s skips it: :func:`_eager`): the dispatcher picks the implementation by the tensors'
+are the RTM trunk's ``.bn_epilogue`` and the PM trunk's
+``.instance_norm_leaky``.  Their wrappers call them (eager, the last two
+skip it: :func:`_eager`): the dispatcher picks the implementation by the tensors'
 device (CUDA: the kernel; CPU: the plain version), and a fake
 implementation gives the output's shape and type to ``torch.export``, so an
 exported program carries the operators by name and launches the kernels
-when it runs.  Importing this module registers them.  K1, K5 and
-``bn_epilogue`` also carry registered gradients (``patch_gram_backward``,
-``gram_proj_backward``, ``bn_epilogue_backward``: plain PyTorch, as the JAX
+when it runs.  Importing this module registers them.  K1, K5,
+``bn_epilogue`` and ``instance_norm_leaky`` also carry registered gradients
+(``patch_gram_backward``, ``gram_proj_backward``, ``bn_epilogue_backward``,
+``instance_norm_leaky_backward``: plain PyTorch, as the JAX
 package differentiates them by XLA autodiff outside its kernels), so the
 training path and Grad-CAM run their forwards through the kernels and
 autograd through them.
@@ -74,13 +80,14 @@ from ..config import IMAGENET_MEAN, IMAGENET_STD
 from .attention import stacked_task_heads, task_query_pool, transformer_encoder
 from .gram import split_patches
 from .nn import cast_tree, leaky_relu
-from .norms import batch_norm_affine
+from .norms import EPS, batch_norm_affine, instance_norm
 from .preprocess import s2d_pack
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 _SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
-            "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu", "bn_epilogue.cu")
+            "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu", "bn_epilogue.cu",
+            "instance_norm_leaky.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -90,6 +97,7 @@ _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first laun
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
     "gram_proj": 0, "tsne_repulsion": 0, "hdbscan_core": 0, "hdbscan_mst": 0, "bn_epilogue": 0,
+    "instance_norm_leaky": 0,
 }
 
 _lib = None
@@ -191,6 +199,8 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_hdbscan_mst.restype = i32
         lib.wadt_bn_epilogue.argtypes = [ptr] * 11 + [ctypes.c_longlong] + [i32] * 6 + [ptr]
         lib.wadt_bn_epilogue.restype = i32
+        lib.wadt_instance_norm_leaky.argtypes = [ptr] * 6 + [i32] * 3 + [ctypes.c_float, i32, ptr]
+        lib.wadt_instance_norm_leaky.restype = i32
         _lib = lib
         return lib
 
@@ -1655,6 +1665,172 @@ class _BnEpilogueFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _bn_epilogue_grad(ctx, dy)
+
+
+# ---------------------------------------------------------------------------
+# The PM trunk's instance norm and LeakyReLU (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+
+def instance_norm_leaky_plain(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                              slope: float = 0.2) -> torch.Tensor:
+    """Plain PyTorch ``leaky_relu(instance_norm(x, p), slope)`` on NHWC x,
+    each step one eager operation rounded to x's type."""
+    return leaky_relu(instance_norm(x, p), slope)
+
+
+def _inl_fits(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> bool:
+    """x a contiguous NHWC float32 or bf16 tensor (the channels-last memory
+    the trunk's convolutions return), scale and bias contiguous [C] of x's
+    type and device."""
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 4 or not x.is_contiguous():
+        return False
+    c = x.shape[3]
+    return all(v.dtype == x.dtype and v.device == x.device and v.ndim == 1 and v.shape[0] == c
+               and v.is_contiguous() for v in (scale, bias))
+
+
+def instance_norm_leaky(x: torch.Tensor, p: Dict[str, torch.Tensor], slope: float = 0.2,
+                        inplace: bool = False) -> torch.Tensor:
+    """:func:`instance_norm_leaky_plain` in one pass, with the plain
+    chain's gradients (the instance norm's closed form).
+
+    Replaces no TPU kernel: the JAX package leaves each PM trunk block's
+    norm and LeakyReLU to XLA's fusion.  CPU tensor: the plain version,
+    through the operator ``wadt_torch::instance_norm_leaky``.  CUDA tensor:
+    the ``instance_norm_leaky`` kernel (``csrc/instance_norm_leaky.cu``) on a
+    contiguous NHWC float32 or bf16 x (channels-last memory, as the trunk's
+    convolutions return it) with ``p``'s scale and bias [C] of its type
+    (others raise); float32 statistics and arithmetic, one rounding.
+    ``inplace`` writes the result over x where no gradient is recorded (the
+    trunk's conv outputs, which nothing else reads).  Eager
+    (:func:`_eager`), the wrapper skips the operator, whose first call
+    imports ``torch._dynamo``: it calls the launcher or, where a gradient is
+    recorded, ``_InstanceNormLeakyFn`` (out of place).  Traced
+    (``torch.export``), it calls the operator, so the program carries it.
+    """
+    _require_cpu_or_cuda(x, "instance_norm_leaky")
+    args = (x, p["scale"], p["bias"])
+    if x.is_cuda and _eager(x):
+        if _records_grad(*args):
+            return _InstanceNormLeakyFn.apply(*args, slope)
+        return _inl_launch(*args, slope, out=x if inplace else None)[0]
+    return torch.ops.wadt_torch.instance_norm_leaky(*args, slope)
+
+
+def _inl_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, slope: float,
+                out: Optional[torch.Tensor] = None, stats: bool = False):
+    """The kernel on CUDA tensors -> (y, mean, rstd): y into ``out`` (x
+    itself, or a new tensor where None); the per-(image, channel) float32
+    mean and 1/sqrt(var + eps), [N, C], where ``stats``, else None."""
+    if not (x.is_cuda and _inl_fits(x, scale, bias)):
+        raise ValueError(
+            "instance_norm_leaky: the kernel takes a contiguous NHWC float32 or bf16 CUDA tensor, "
+            "with scale and bias [C] of its type and device"
+        )
+    y = torch.empty_like(x) if out is None else out
+    n, h, w, c = x.shape
+    mean = rstd = None
+    if stats:
+        mean, rstd = (torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(2))
+    if x.numel() == 0:
+        return y, mean, rstd
+    _launch("instance_norm_leaky", build().wadt_instance_norm_leaky, x.device, x.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), y.data_ptr(), None if mean is None else mean.data_ptr(),
+            None if rstd is None else rstd.data_ptr(), n, h * w, c, float(slope),
+            int(x.dtype == torch.bfloat16))
+    return y, mean, rstd
+
+
+def _instance_norm_leaky_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                              slope: float) -> torch.Tensor:
+    """The CUDA implementation of ``wadt_torch::instance_norm_leaky``: the
+    kernel, out of place."""
+    return _inl_launch(x, scale, bias, slope)[0]
+
+
+_instance_norm_leaky_op = torch.library.custom_op(
+    "wadt_torch::instance_norm_leaky", _instance_norm_leaky_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@_instance_norm_leaky_op.register_kernel("cpu")
+def _(x, scale, bias, slope):
+    return instance_norm_leaky_plain(x, {"scale": scale, "bias": bias}, slope)
+
+
+@_instance_norm_leaky_op.register_fake
+def _(x, scale, bias, slope):
+    return x.new_empty(x.shape)
+
+
+def instance_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain float32 (mean, 1/sqrt(var + eps)) of NHWC x over H, W, each
+    [N, C]: the statistics the kernel returns."""
+    x32 = x.float()
+    var = x32.var(dim=(1, 2), correction=0)
+    return x32.mean(dim=(1, 2)), torch.reciprocal(torch.sqrt(var + EPS))
+
+
+def instance_norm_leaky_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                                 rstd: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                 slope: float, needs: Sequence[bool]) -> tuple:
+    """The gradients of ``instance_norm_leaky`` for the output gradient dy,
+    as (x's, scale's, bias's, None for the slope), each None where
+    ``needs`` says none is needed: the LeakyReLU's mask from the sign of the
+    normalised value (the output's, for a positive slope), then the
+    instance norm's closed form over each (image, channel)'s H x W values.
+    Plain PyTorch in float32 with x's statistics ``mean`` and ``rstd``
+    [N, C]; the forward stays the kernel on the card."""
+    mu, rs = mean[:, None, None, :], rstd[:, None, None, :]
+    sc, bi = scale.float(), bias.float()
+    xhat = (x.float() - mu) * rs
+    g = dy.float()
+    g = torch.where(xhat * sc + bi >= 0, g, g * slope)
+    dx = dscale = dbias = None
+    if needs[0]:
+        gx = g * sc
+        dx = (rs * (gx - gx.mean(dim=(1, 2), keepdim=True)
+                    - xhat * (gx * xhat).mean(dim=(1, 2), keepdim=True))).to(x.dtype)
+    if needs[1]:
+        dscale = (g * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
+    if needs[2]:
+        dbias = g.sum(dim=(0, 1, 2)).to(bias.dtype)
+    return dx, dscale, dbias, None
+
+
+def _inl_setup(ctx, inputs, output) -> None:
+    x, scale, bias, slope = inputs
+    ctx.save_for_backward(x, scale, bias)
+    ctx.slope = slope
+
+
+def _inl_grad(ctx, dy):
+    x, scale, bias = ctx.saved_tensors
+    return instance_norm_leaky_backward(dy, x, *instance_norm_stats(x), scale, bias, ctx.slope,
+                                        ctx.needs_input_grad)
+
+
+_instance_norm_leaky_op.register_autograd(_inl_grad, setup_context=_inl_setup)
+
+
+class _InstanceNormLeakyFn(torch.autograd.Function):
+    """The kernel out of place, keeping its own statistics for the
+    backward, for eager calls that record a gradient (Grad-CAM, Integrated
+    Gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, slope):
+        y, mean, rstd = _inl_launch(x, scale, bias, slope, stats=True)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.slope = slope
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        return instance_norm_leaky_backward(dy, x, mean, rstd, scale, bias, ctx.slope,
+                                            ctx.needs_input_grad)
 
 
 # ---------------------------------------------------------------------------

@@ -326,10 +326,20 @@ def _bn_epilogue_call():
     return ck.bn_epilogue, (x, norm(), True, d, norm()), ck.bn_epilogue_plain
 
 
+def _instance_norm_leaky_call():
+    """A PM trunk site: the instance norm and LeakyReLU of an NHWC conv output."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy(rng.randn(2, 5, 7, 8).astype(np.float32))
+    p = {"scale": torch.from_numpy(rng.rand(8).astype(np.float32) + 0.5),
+         "bias": torch.from_numpy(rng.randn(8).astype(np.float32))}
+    return ck.instance_norm_leaky, (x, p, 0.2), ck.instance_norm_leaky_plain
+
+
 CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call,
-         _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call, _bn_epilogue_call]
+         _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call, _bn_epilogue_call,
+         _instance_norm_leaky_call]
 CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj",
-            "tsne_repulsion", "hdbscan_core", "hdbscan_mst", "bn_epilogue"]
+            "tsne_repulsion", "hdbscan_core", "hdbscan_mst", "bn_epilogue", "instance_norm_leaky"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
@@ -368,18 +378,31 @@ def _bn_epilogue_flat_call():
     return unflat(ck.bn_epilogue), (x, d, *p.values(), *pd.values()), unflat(ck.bn_epilogue_plain)
 
 
+def _instance_norm_leaky_flat_call():
+    """``_instance_norm_leaky_call`` with scale and bias as arguments of their own."""
+    _, (x, p, slope), _ = _instance_norm_leaky_call()
+
+    def unflat(fn):
+        return lambda x, s, b: fn(x, {"scale": s, "bias": b}, slope)
+
+    return (unflat(ck.instance_norm_leaky), (x, p["scale"], p["bias"]),
+            unflat(ck.instance_norm_leaky_plain))
+
+
 OPERATOR_CASES = {
     "patch_gram": (_gram_call, "patch_gram"), "patch_gram_bf16": (_gram_bf16_call, "patch_gram"),
     "stem": (_stem_call, "stem"), "stem_bf16": (_stem_bf16_call, "stem"),
     "gram_proj": (_gram_proj_call, "gram_proj"),
     "gram_proj_bf16_out": (_gram_proj_two_bands_call, "gram_proj"),
     "bn_epilogue": (_bn_epilogue_flat_call, "bn_epilogue"),
+    "instance_norm_leaky": (_instance_norm_leaky_flat_call, "instance_norm_leaky"),
 }
 
 
 @pytest.mark.parametrize("name", list(OPERATOR_CASES))
 def test_wrapper_calls_its_registered_operator(name):
-    """K1, K2, K5 and ``bn_epilogue``'s wrappers go through ``torch.ops.wadt_torch``: a trace
+    """K1, K2, K5, ``bn_epilogue`` and ``instance_norm_leaky``'s wrappers go through
+    ``torch.ops.wadt_torch``: a trace
     of the wrapper holds the operator (what ``torch.export`` saves), its CPU
     kernel is the plain version, and its fake kernel gives the output's
     shape and type."""
