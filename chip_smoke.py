@@ -108,12 +108,12 @@ Phases, each of which raises on failure:
     bf16 (argmax on decisive samples, drift <= 0.05), device step time (in
     turns with float32), the host's enqueue time of one step, and
     end-to-end images per second beside the float32 engine's; the host
-    time of one call of K1, K2 and K5 through its ``wadt_torch`` operator
-    and through its launcher alone, in turns (what the operator's dispatch
-    adds to a step); where the gitignored ``_archive/parent/`` holds a
-    parent commit's port, that port's PMG step and this tree's in turns,
-    each in its own process (device time and the host's enqueue of one
-    step);
+    time of one eager call of each registered kernel's wrapper (K1, K2,
+    K5, ``bn_epilogue``, ``instance_norm_leaky``) and of its launcher
+    alone, in turns (what the wrapper's call rule adds to a step); where
+    the gitignored ``_archive/parent/`` holds a parent commit's port,
+    that port's PMG step and this tree's in turns, each in its own process
+    (device time and the host's enqueue of one step);
 16. PM: the five PM golden fixtures on the card at 2e-4, ``pm_small``'s
     attention (2e-4) and task embeddings (2e-3); the PM headline spec
     (``pm.build_spec`` on the 12-task registry: ndf 64, patch 70, instance
@@ -310,10 +310,10 @@ Phases, each of which raises on failure:
     the byte bound, and the sums over the 49 sites of one forward, also
     at batch 1 in float32 (the camera); (b) the bf16 RTM engine step at
     batch 128 on the kernel and on the plain version in turns (device and
-    host enqueue time), with 49 launches and 49 fused sites a batch and
-    ``Engine.run``'s probabilities equal bit for bit on both; (c) a bf16
-    RTM ``torch.export`` artifact holding 49 ``wadt_torch.bn_epilogue``
-    nodes, reloaded by ``ExportedPredictor``: the same predictions as
+    host enqueue time), with 49 launches a batch and ``Engine.run``'s
+    probabilities equal bit for bit on both; (c) a bf16 RTM
+    ``torch.export`` artifact holding 49 ``wadt_torch.bn_epilogue`` nodes,
+    reloaded by ``ExportedPredictor``: the same predictions as
     ``Engine.run``, probabilities compared, 49 launches a batch.
 27. the PM trunk's instance norm and LeakyReLU (``instance_norm_phase``):
     (a) each of the five sites of the float32 PM headline trunk at batch
@@ -323,8 +323,8 @@ Phases, each of which raises on failure:
     write) and the plain chain's time, and their sums; (b) the float32 PM
     engine step at batch 256 on the kernel and on the plain chain in turns
     (device time, and each one's peak memory over the resident state),
-    with 5 launches and 5 fused sites a batch and ``Engine.run``'s
-    probabilities within 1e-5 of the plain chain's.
+    with 5 launches a batch and ``Engine.run``'s probabilities within 1e-5
+    of the plain chain's.
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
@@ -2352,10 +2352,11 @@ def enqueue_ms(fn, reps: int = 20) -> float:
 
 
 def dispatch_cost(card: str) -> dict:
-    """Phase 15: host time of one call of K1, K2 and K5 at the main shapes
-    through its wrapper (the ``wadt_torch`` operator's dispatch, then the
-    launcher) and through the launcher alone, in turns (operator, launcher,
-    launcher, operator; each the mean of 100 calls, median of 5 rounds)."""
+    """Phase 15: host time of one eager call of each registered kernel at a
+    main-path shape through its wrapper (the call rule of
+    ``cuda_kernels._register``, then the launcher) and through the launcher
+    alone, in turns (wrapper, launcher, launcher, wrapper; each the mean of
+    100 calls, median of 5 rounds)."""
     import numpy as np
     import torch
 
@@ -2372,11 +2373,21 @@ def dispatch_cost(card: str) -> dict:
     g16 = torch.from_numpy(rng.randn(BATCH, 9, 9216).astype(np.float32)).to(dev).to(torch.bfloat16)
     w16 = torch.from_numpy(rng.randn(9216, 192).astype(np.float32) * 0.01).to(dev).to(torch.bfloat16)
     b = torch.from_numpy(rng.randn(192).astype(np.float32)).to(dev)
+    # the RTM bf16 trunk's layer1 downsample site and a PM headline site
+    xe, pe, oe, po = epilogue_site("downsample", (EPI_BATCH, 256, 56, 56), torch.bfloat16,
+                                   np.random.default_rng(15), dev)
+    flat = [pe[k] for k in ck._NORM_KEYS] + [oe] + [po[k] for k in ck._NORM_KEYS]
+    xi = torch.randn((BATCH, 28, 28, 256), device=dev)
+    pi = {"scale": torch.rand(256, device=dev) + 0.5, "bias": torch.randn(256, device=dev)}
     cases = {
         "patch_gram": (lambda: ck.patch_gram(z, 3), lambda: ck._patch_gram_launch(z, 3)),
         "stem": (lambda: ck.stem(x8, w, s, t, 4), lambda: ck._stem_launch(x8, w, s, t, 4, True, False, None)),
         "gram_proj": (lambda: ck.gram_proj(g16, w16, b, torch.bfloat16),
                       lambda: ck._gram_proj_launch(g16, w16, b, True)),
+        "bn_epilogue": (lambda: ck.bn_epilogue(xe, pe, True, oe, po),
+                        lambda: ck._bn_epilogue_launch(xe, *flat, True)),
+        "instance_norm_leaky": (lambda: ck.instance_norm_leaky(xi, pi, inplace=True),
+                                lambda: ck._inl_over(xi, pi["scale"], pi["bias"], 0.2)),
     }
 
     def host_us(fn, n=100):
@@ -2389,16 +2400,19 @@ def dispatch_cost(card: str) -> dict:
         return per
 
     out = {}
-    for name, (op, raw) in cases.items():
-        op(), raw()
-        rounds = [(host_us(op), host_us(raw), host_us(raw), host_us(op)) for _ in range(5)]
+    for name, (call, raw) in cases.items():
+        call(), raw()
+        rounds = [(host_us(call), host_us(raw), host_us(raw), host_us(call)) for _ in range(5)]
         out[name] = (statistics.median((a + d) / 2 for a, _, _, d in rounds),
                      statistics.median((b_ + c) / 2 for _, b_, c, _ in rounds))
-    print("[15] host time of one call, through the wadt_torch operator -> the launcher alone, in turns: "
+    add = {k: o - r for k, (o, r) in out.items()}
+    print("[15] host time of one eager call, through the wrapper -> the launcher alone, in turns: "
           + ", ".join(f"{k} {o:.1f} -> {r:.1f} us" for k, (o, r) in out.items())
-          + f"; the operator's dispatch adds {sum(o - r for o, r in list(out.values())[:2]) / 1e3:.3f} ms "
-          f"to a float32 step (K1, K2) and {sum(o - r for o, r in out.values()) / 1e3:.3f} ms to a "
-          f"bf16 one (K1, K2, K5) | {card}")
+          + f"; the wrappers add {(add['patch_gram'] + add['stem']) / 1e3:.4f} ms to a PMG float32 step "
+          f"(K1, K2), {(add['patch_gram'] + add['stem'] + add['gram_proj']) / 1e3:.4f} ms to a bf16 one "
+          f"(K1, K2, K5), {EPI_SITES * add['bn_epilogue'] / 1e3:.4f} ms to an RTM forward "
+          f"({EPI_SITES} bn_epilogue) and {5 * add['instance_norm_leaky'] / 1e3:.4f} ms to a PM one "
+          f"(5 instance_norm_leaky) | {card}")
     return out
 
 
@@ -4811,7 +4825,6 @@ def bn_epilogue_phase(card: str) -> dict:
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
         cuda_kernels as ck,
     )
-    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4863,14 +4876,10 @@ def bn_epilogue_phase(card: str) -> dict:
     frames = np.random.default_rng(27).integers(0, 256, (2 * EPI_BATCH, 224, 224, 3), dtype=np.uint8)
     xb = torch.from_numpy(frames[:EPI_BATCH]).to(dev)
     ck.reset_launches()
-    with trace.recording():
-        fused = eng.run(frames)
-    fused_sites, launches = trace.counters(), ck.LAUNCHES["bn_epilogue"]
-    if (launches != 2 * EPI_SITES
-            or fused_sites.get("resnet.epilogue_fused") != 2 * EPI_SITES
-            or "resnet.epilogue_plain" in fused_sites):
-        raise AssertionError(f"bf16 RTM engine, 2 batches: launches {launches}, "
-                             f"counters {fused_sites}; want {2 * EPI_SITES} fused")
+    fused = eng.run(frames)
+    launches = ck.LAUNCHES["bn_epilogue"]
+    if launches != 2 * EPI_SITES:
+        raise AssertionError(f"bf16 RTM engine, 2 batches: {launches} launches; want {2 * EPI_SITES}")
     with plain_epilogue():
         plain = eng.run(frames)
     if not (np.array_equal(fused["probs"], plain["probs"]) and np.array_equal(fused["preds"], plain["preds"])):
@@ -4883,7 +4892,7 @@ def bn_epilogue_phase(card: str) -> dict:
     step_k, step_p = in_turns(lambda: eng.step(xb), step_plain, reps=3, rounds=3)
     enq_k, enq_p = enqueue_ms(lambda: eng.step(xb)), enqueue_ms(step_plain)
     print(f"[26] (b) bf16 RTM engine (12 tasks, C = d = 2048) at batch {EPI_BATCH}: "
-          f"{launches // 2} launches and fused sites a batch, none plain; "
+          f"{launches // 2} launches a batch; "
           f"Engine.run's probabilities bit for bit the plain epilogue's on {len(frames)} frames; "
           f"step in turns: kernel {step_k:.3f} ms, plain {step_p:.3f} ms (device); host enqueue of a "
           f"step: kernel {enq_k:.3f} ms, plain {enq_p:.3f} ms | {card}")
@@ -4965,7 +4974,6 @@ def instance_norm_phase(card: str) -> dict:
     from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
         cuda_kernels as ck,
     )
-    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -5022,12 +5030,10 @@ def instance_norm_phase(card: str) -> dict:
     frames = np.random.default_rng(28).integers(0, 256, (2 * BATCH, 224, 224, 3), dtype=np.uint8)
     xb = torch.from_numpy(frames[:BATCH]).to(dev)
     ck.reset_launches()
-    with trace.recording():
-        fused = eng.run(frames)
-    counts, launches = trace.counters(), ck.LAUNCHES["instance_norm_leaky"]
-    if launches != 10 or counts.get("trunk.norm_fused") != 10 or "trunk.norm_plain" in counts:
-        raise AssertionError(f"float32 PM engine, 2 batches: launches {launches}, counters {counts}; "
-                             "want 10 fused")
+    fused = eng.run(frames)
+    launches = ck.LAUNCHES["instance_norm_leaky"]
+    if launches != 10:
+        raise AssertionError(f"float32 PM engine, 2 batches: {launches} launches; want 10")
     with plain_instance_norm():
         plain = eng.run(frames)
     gap = float(np.abs(fused["probs"] - plain["probs"]).max())
@@ -5048,9 +5054,9 @@ def instance_norm_phase(card: str) -> dict:
     step_plain()
     torch.cuda.synchronize()
     peak_p = torch.cuda.max_memory_allocated(dev) - base
-    print(f"[27] (b) float32 PM engine (ndf 64, 12 tasks) at batch {BATCH}: {launches // 2} launches and "
-          f"fused sites a batch, none plain; Engine.run's probabilities within {gap:.3e} of the plain "
-          f"chain's on {len(frames)} frames; step in turns: kernel {step_k:.3f} ms, plain {step_p:.3f} ms "
+    print(f"[27] (b) float32 PM engine (ndf 64, 12 tasks) at batch {BATCH}: {launches // 2} launches "
+          f"a batch; Engine.run's probabilities within {gap:.3e} of the plain chain's on {len(frames)} "
+          f"frames; step in turns: kernel {step_k:.3f} ms, plain {step_p:.3f} ms "
           f"(device); a step's peak over the resident state: kernel {peak_k / 1e9:.3f} GB, plain "
           f"{peak_p / 1e9:.3f} GB | {card}")
     print(f"[27] instance norm phase took {time.perf_counter() - t_phase:.1f} s")

@@ -21,10 +21,11 @@ style transfer (``workloads.style_transfer``), the embedding workloads
 (``workloads.embed``: t-SNE and HDBSCAN clustering on the port's own
 ``utils.tsne`` and ``utils.hdbscan``), and the CLI (``cli.py``,
 ``weather_torch.py``), with hand-written CUDA kernels
-(``ops/cuda_kernels.py``): the six TPU kernels' ports (K1, K2 and K5 also
-as ``torch.ops.wadt_torch`` operators, K1 and K5 with registered
-gradients), the t-SNE's repulsion, and HDBSCAN's core distances and
-minimum spanning tree.
+(``ops/cuda_kernels.py``): the six TPU kernels' ports, the t-SNE's
+repulsion, HDBSCAN's core distances and minimum spanning tree, and the
+ResNet and PatchGAN trunks' norm epilogues; K1, K2, K5 and the two
+epilogues are also ``torch.ops.wadt_torch`` operators, all but K2 with
+gradients.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``::
 

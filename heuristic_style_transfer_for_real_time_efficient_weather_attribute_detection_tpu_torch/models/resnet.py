@@ -12,9 +12,9 @@ batch statistics.  Param tree, as in the JAX package:
 The public functions take and return NHWC, with HWIO conv weights.  Inside,
 the trunk runs NCHW through ``F.conv2d``: the activation is permuted once at
 the trunk's entry and once at its exit.  In inference mode each norm, with
-the residual sum and the ReLU that follow it, is one pass
-(``_epilogue``: the ``bn_epilogue`` kernel on the card), 49 a full-depth
-forward.  The private ``_apply_block`` and
+the residual sum and the ReLU that follow it, is one call of
+``cuda_kernels.bn_epilogue`` (its kernel on the card, its plain version on
+the CPU), 49 a full-depth forward.  The private ``_apply_block`` and
 ``_apply_children`` work on NCHW.  Compare with the float32 reference only
 with TF32 off (``config.enable_parity_precision``): cuDNN's float32
 convolutions default to TF32.  A bf16 tree runs in bf16 under the JAX
@@ -23,7 +23,7 @@ package's rule (``ops.nn.conv2d_nchw``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,6 @@ import torch.nn.functional as F
 from ..ops import cuda_kernels
 from ..ops.nn import conv2d_nchw, init_batch_norm, init_conv
 from ..ops.norms import train_batch_norm
-from ..utils import trace
 
 # (num_blocks, planes) per stage; expansion 4 (ResNet-50).
 STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -92,31 +91,16 @@ def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1, padding:
     return conv2d_nchw(x, p["w"].permute(3, 2, 0, 1), p.get("b"), stride, padding)
 
 
-def _epilogue(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
-              other: Optional[torch.Tensor] = None,
-              p_other: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """Inference batch norm on a convolution's NCHW output, then the
-    residual ``other`` (under its own norm ``p_other``: the downsample
-    branch) and the ReLU: one ``bn_epilogue`` launch for CUDA tensors
-    (differentiable, so Grad-CAM and Integrated Gradients run it too), the
-    plain version for CPU ones; both give the same bits.  Counts each site
-    under ``resnet.epilogue_fused`` or ``resnet.epilogue_plain``."""
-    if x.is_cuda:
-        trace.count("resnet.epilogue_fused")
-        return cuda_kernels.bn_epilogue(x, p, relu, other, p_other)
-    trace.count("resnet.epilogue_plain")
-    return cuda_kernels.bn_epilogue_plain(x, p, relu, other, p_other)
-
-
 def _apply_block(p: Dict[str, Any], x: torch.Tensor, stride: int) -> torch.Tensor:
     """One bottleneck block, NCHW."""
-    h = _epilogue(_conv(x, p["conv1"]), p["bn1"])
-    h = _epilogue(_conv(h, p["conv2"], stride=stride, padding=1), p["bn2"])
+    h = cuda_kernels.bn_epilogue(_conv(x, p["conv1"]), p["bn1"])
+    h = cuda_kernels.bn_epilogue(_conv(h, p["conv2"], stride=stride, padding=1), p["bn2"])
     h = _conv(h, p["conv3"])
     if "downsample" in p:
         ds = p["downsample"]
-        return _epilogue(h, p["bn3"], other=_conv(x, ds["conv"], stride=stride), p_other=ds["bn"])
-    return _epilogue(h, p["bn3"], other=x)
+        return cuda_kernels.bn_epilogue(h, p["bn3"], other=_conv(x, ds["conv"], stride=stride),
+                                        p_other=ds["bn"])
+    return cuda_kernels.bn_epilogue(h, p["bn3"], other=x)
 
 
 def _apply_children(params: Dict[str, Any], x: torch.Tensor, children: Tuple[str, ...]) -> torch.Tensor:
@@ -125,7 +109,7 @@ def _apply_children(params: Dict[str, Any], x: torch.Tensor, children: Tuple[str
         if child == "conv1":
             x = _conv(x, params["conv1"], stride=2, padding=3)
         elif child == "bn1":
-            x = _epilogue(x, params["bn1"], relu=children[i + 1:i + 2] == ("relu",))
+            x = cuda_kernels.bn_epilogue(x, params["bn1"], relu=children[i + 1:i + 2] == ("relu",))
         elif child == "relu":
             if children[i - 1:i] != ("bn1",):  # else bn1's pass applied it
                 x = torch.relu(x)

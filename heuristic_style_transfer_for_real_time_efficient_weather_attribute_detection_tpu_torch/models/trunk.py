@@ -6,12 +6,11 @@ at ``patch_size``, divided by the stride each block) stays > 4 and the
 current filter count is <= 512; then one final stride-1 block.
 
 Each block's norm and LeakyReLU is one call of :func:`norm_leaky`: an
-instance norm on a CUDA tensor is one ``instance_norm_leaky`` kernel
-launch (``csrc/instance_norm_leaky.cu``), counted under
-``trunk.norm_fused``; every other site (a CPU tensor, batch or group norm)
-is the plain chain, counted under ``trunk.norm_plain``.  Each call is a
-``trunk.norm`` span of the port's tracer; spans and counters are off
-unless the tracer records.  The train-mode trunk keeps the plain chain.
+instance norm is one call of ``cuda_kernels.instance_norm_leaky`` (its
+kernel, ``csrc/instance_norm_leaky.cu``, on the card; its plain version on
+the CPU); batch and group norms are the plain chain.  Each call is a
+``trunk.norm`` span of the port's tracer, off unless the tracer records.
+The train-mode trunk keeps the plain chain.
 """
 
 from __future__ import annotations
@@ -71,10 +70,8 @@ def norm_leaky(x: torch.Tensor, p: Dict[str, torch.Tensor], norm: str,
     output x.  ``inplace`` lets the kernel write over x where no gradient
     is recorded: pass it only for a conv output that nothing else reads."""
     with trace.span("trunk.norm", device=x.device):
-        if norm == "instance" and x.is_cuda:
-            trace.count("trunk.norm_fused")
+        if norm == "instance":
             return cuda_kernels.instance_norm_leaky(x, p, 0.2, inplace=inplace)
-        trace.count("trunk.norm_plain")
         return leaky_relu(apply_norm(x, p, norm), 0.2)
 
 

@@ -43,22 +43,22 @@ CUDA tensor it launches the kernel on the current stream or raises: a
 missing ``nvcc``, a failed build or a refused launch is an error, never a
 fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-K1, K2 and K5, the kernels of the batch path, are also operators
-(``torch.library.custom_op`` in the ``wadt_torch`` namespace:
-``torch.ops.wadt_torch.patch_gram``, ``.stem``, ``.gram_proj``), and so
-are the RTM trunk's ``.bn_epilogue`` and the PM trunk's
-``.instance_norm_leaky``.  Their wrappers call them (eager, the last two
-skip it: :func:`_eager`): the dispatcher picks the implementation by the tensors'
-device (CUDA: the kernel; CPU: the plain version), and a fake
-implementation gives the output's shape and type to ``torch.export``, so an
-exported program carries the operators by name and launches the kernels
-when it runs.  Importing this module registers them.  K1, K5,
-``bn_epilogue`` and ``instance_norm_leaky`` also carry registered gradients
-(``patch_gram_backward``, ``gram_proj_backward``, ``bn_epilogue_backward``,
-``instance_norm_leaky_backward``: plain PyTorch, as the JAX
-package differentiates them by XLA autodiff outside its kernels), so the
-training path and Grad-CAM run their forwards through the kernels and
-autograd through them.
+K1, K2 and K5, the kernels of the batch path, the RTM trunk's
+``bn_epilogue`` and the PM trunk's ``instance_norm_leaky`` are registered
+kernels: :func:`_register` makes each an operator
+(``torch.library.custom_op`` in the ``wadt_torch`` namespace, e.g.
+``torch.ops.wadt_torch.patch_gram``) and gives its wrapper one call rule.
+Eager on the card the wrapper launches the kernel itself; a CPU tensor or a
+traced call goes through the operator, whose CPU implementation is the
+plain version and whose fake implementation gives the output's shape and
+type to ``torch.export``, so an exported program carries the operators by
+name and launches the kernels when it runs.  Importing this module
+registers them.  All but K2 also carry gradients (``patch_gram_backward``,
+``gram_proj_backward``, ``bn_epilogue_backward``,
+``instance_norm_leaky_backward``: plain PyTorch, as the JAX package
+differentiates them by XLA autodiff outside its kernels), so the training
+path and Grad-CAM run their forwards through the kernels and autograd
+through them.
 """
 
 from __future__ import annotations
@@ -235,6 +235,60 @@ def _require_cpu_or_cuda(x: torch.Tensor, kernel: str) -> None:
         )
 
 
+def _eager(x: torch.Tensor) -> bool:
+    """No trace records the call, so a registered kernel's call may skip
+    its operator: x a plain tensor (no fake or functional subclass, as a
+    trace makes), no dispatch mode active (``make_fx``) and no compiler
+    tracing."""
+    return (type(x) is torch.Tensor and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling())
+
+
+def _records_grad(args: tuple) -> bool:
+    """Whether autograd records a gradient through any tensor of ``args``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in args)
+
+
+def _register(name: str, launch, plain, fake, setup=None, backward=None):
+    """Register the operator ``wadt_torch::<name>`` and return the one call
+    its wrapper makes, ``call(*args)`` with the operator's arguments.
+
+    The operator runs ``launch`` on CUDA tensors and ``plain`` on CPU ones;
+    ``fake`` gives its output's shape and type to a trace, and ``setup``
+    and ``backward`` (both or neither) its gradient.  The call rule, the
+    same for every registered kernel: an eager call (:func:`_eager`) on a
+    CUDA tensor runs ``launch`` itself or, where autograd records a
+    gradient (:func:`_records_grad`) and the kernel has a backward, an
+    autograd function of ``launch`` with the same ``setup`` and
+    ``backward``; a CPU tensor, a traced call (``torch.export``,
+    ``make_fx``, the compiler) and a gradient through a kernel without a
+    backward go through the operator, so an exported program carries it by
+    name.  Skipping the operator saves its dispatch, 30–55 µs of host time
+    a call on the card, and the import of ``torch._dynamo`` that its first
+    call makes, seconds of set-up.  ``call(..., launcher=f)`` runs ``f`` in
+    place of ``launch`` on the eager path that records no gradient (the
+    instance norm's write over its input)."""
+    op = torch.library.custom_op(f"wadt_torch::{name}", launch, mutates_args=(),
+                                 device_types="cuda")
+    op.register_kernel("cpu", plain)
+    op.register_fake(fake)
+    overload = getattr(torch.ops.wadt_torch, name).default
+    with_grad = overload
+    if backward is not None:
+        op.register_autograd(backward, setup_context=setup)
+        with_grad = type(f"_{name}_grad", (torch.autograd.Function,), {
+            "forward": staticmethod(launch), "setup_context": staticmethod(setup),
+            "backward": staticmethod(backward)}).apply
+
+    def call(*args, launcher=launch):
+        x = args[0]
+        _require_cpu_or_cuda(x, name)
+        if x.is_cuda and _eager(x):
+            return with_grad(*args) if _records_grad(args) else launcher(*args)
+        return overload(*args)
+
+    return call
 
 
 # ---------------------------------------------------------------------------
@@ -359,13 +413,12 @@ def patch_gram(x: torch.Tensor, div: int) -> torch.Tensor:
     ``P^T P / area`` summed in float32 -> [B, div*div, C*C] of x's dtype
     (bf16: rounded once, to nearest even).
 
-    Calls the operator ``wadt_torch::patch_gram``.  CPU tensor: the plain
-    version.  CUDA tensor: the ``patch_gram`` kernel on
-    :func:`patch_gram_plan`'s persistent grid, float32 or bf16 NHWC
-    contiguous only.
+    The registered kernel ``wadt_torch::patch_gram`` (:func:`_register`'s
+    rule).  CPU tensor: the plain version.  CUDA tensor: the ``patch_gram``
+    kernel on :func:`patch_gram_plan`'s persistent grid, float32 or bf16
+    NHWC contiguous only.
     """
-    _require_cpu_or_cuda(x, "patch_gram")
-    return torch.ops.wadt_torch.patch_gram(x, div)
+    return _patch_gram(x, div)
 
 
 def _patch_gram_launch(x: torch.Tensor, div: int) -> torch.Tensor:
@@ -386,13 +439,7 @@ def _patch_gram_launch(x: torch.Tensor, div: int) -> torch.Tensor:
     return out
 
 
-_patch_gram_op = torch.library.custom_op(
-    "wadt_torch::patch_gram", _patch_gram_launch, mutates_args=(), device_types="cuda")
-_patch_gram_op.register_kernel("cpu", patch_gram_plain)
-
-
-@_patch_gram_op.register_fake
-def _(x: torch.Tensor, div: int) -> torch.Tensor:
+def _patch_gram_fake(x: torch.Tensor, div: int) -> torch.Tensor:
     b, _, _, c = x.shape
     return x.new_empty((b, div * div, c * c))
 
@@ -432,7 +479,8 @@ def _patch_gram_grad(ctx, dg):
     return patch_gram_backward(x, ctx.div, dg), None
 
 
-_patch_gram_op.register_autograd(_patch_gram_grad, setup_context=_patch_gram_setup)
+_patch_gram = _register("patch_gram", _patch_gram_launch, patch_gram_plain, _patch_gram_fake,
+                        _patch_gram_setup, _patch_gram_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -616,8 +664,9 @@ def stem(
     PyTorch bf16 operations does.  ``w2d`` is the kernel == stride == k
     conv weight as float32 [k*k*cin, cout] in (dy, dx, ci) row order, with
     the normalize folded in (bf16-valued in bf16: the kernel takes it as
-    bf16).  Calls the operator ``wadt_torch::stem``.  CPU tensor: the plain
-    version.  CUDA tensor: the ``stem`` kernel on :func:`stem_plan`'s plan.
+    bf16).  The registered kernel ``wadt_torch::stem`` (:func:`_register`'s
+    rule), with no gradient.  CPU tensor: the plain version.  CUDA tensor:
+    the ``stem`` kernel on :func:`stem_plan`'s plan.
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stem: out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -626,8 +675,7 @@ def stem(
         raise ValueError("stem: bf16 takes a bias, and scale and shift both or neither")
     if not bf16 and (bias is not None or scale is None or shift is None):
         raise ValueError("stem: float32 takes scale and shift and no bias")
-    _require_cpu_or_cuda(x8, "stem")
-    return torch.ops.wadt_torch.stem(x8, w2d, scale, shift, k, leaky, bf16, bias)
+    return _stem(x8, w2d, scale, shift, k, leaky, bf16, bias)
 
 
 def _stem_launch(
@@ -666,21 +714,18 @@ def _stem_launch(
     return out
 
 
-_stem_op = torch.library.custom_op(
-    "wadt_torch::stem", _stem_launch, mutates_args=(), device_types="cuda")
-
-
-@_stem_op.register_kernel("cpu")
-def _(x8, w2d, scale, shift, k, leaky, bf16, bias):
+def _stem_cpu(x8, w2d, scale, shift, k, leaky, bf16, bias):
     return stem_plain(x8, w2d, scale, shift, k, leaky,
                       torch.bfloat16 if bf16 else torch.float32, bias)
 
 
-@_stem_op.register_fake
-def _(x8, w2d, scale, shift, k, leaky, bf16, bias):
+def _stem_fake(x8, w2d, scale, shift, k, leaky, bf16, bias):
     b, h, w, _ = x8.shape
     return x8.new_empty((b, h // k, w // k, w2d.shape[-1]),
                         dtype=torch.bfloat16 if bf16 else torch.float32)
+
+
+_stem = _register("stem", _stem_launch, _stem_cpu, _stem_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -1386,16 +1431,15 @@ def gram_proj(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     Replaces ``make_proj_kernel.proj`` (``tools/exp_pmg_projkernel.py:65``),
     which took w transposed to d-major; the Gram is symmetric, so the two
-    are the same product.  Calls the operator ``wadt_torch::gram_proj``.
-    CPU tensor: the plain version.  CUDA tensor: the
-    ``gram_proj`` kernel on :func:`gram_proj_plan`'s launch plan, contiguous
-    tensors with K and N multiples of 8 and g, w and b 16-byte aligned only
-    (every spec's C*C and d_model are).
+    are the same product.  The registered kernel ``wadt_torch::gram_proj``
+    (:func:`_register`'s rule).  CPU tensor: the plain version.  CUDA
+    tensor: the ``gram_proj`` kernel on :func:`gram_proj_plan`'s launch
+    plan, contiguous tensors with K and N multiples of 8 and g, w and b
+    16-byte aligned only (every spec's C*C and d_model are).
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram_proj: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    _require_cpu_or_cuda(g, "gram_proj")
-    return torch.ops.wadt_torch.gram_proj(g, w, b, out_dtype == torch.bfloat16)
+    return _gram_proj(g, w, b, out_dtype == torch.bfloat16)
 
 
 def _gram_proj_launch(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -1427,17 +1471,11 @@ def _gram_proj_launch(g: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: b
     return out
 
 
-_gram_proj_op = torch.library.custom_op(
-    "wadt_torch::gram_proj", _gram_proj_launch, mutates_args=(), device_types="cuda")
-
-
-@_gram_proj_op.register_kernel("cpu")
-def _(g, w, b, bf16):
+def _gram_proj_cpu(g, w, b, bf16):
     return gram_proj_plain(g, w, b, torch.bfloat16 if bf16 else torch.float32)
 
 
-@_gram_proj_op.register_fake
-def _(g, w, b, bf16):
+def _gram_proj_fake(g, w, b, bf16):
     return g.new_empty((*g.shape[:-1], w.shape[-1]),
                        dtype=torch.bfloat16 if bf16 else torch.float32)
 
@@ -1466,7 +1504,8 @@ def _gram_proj_grad(ctx, dy):
     return (*gram_proj_backward(g, w, ctx.b_dtype, dy), None)
 
 
-_gram_proj_op.register_autograd(_gram_proj_grad, setup_context=_gram_proj_setup)
+_gram_proj = _register("gram_proj", _gram_proj_launch, _gram_proj_cpu, _gram_proj_fake,
+                       _gram_proj_setup, _gram_proj_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -1511,19 +1550,6 @@ def _epilogue_fits(x: torch.Tensor, other: Optional[torch.Tensor], vecs) -> bool
                and v.is_contiguous() for v in vecs if v is not None)
 
 
-def _eager(x: torch.Tensor) -> bool:
-    """No trace records the call, so a wrapper may skip its operator: x a
-    plain tensor (no fake or functional subclass, as a trace makes), no
-    dispatch mode active (``make_fx``) and no compiler tracing."""
-    return (type(x) is torch.Tensor and not torch._C._len_torch_dispatch_stack()
-            and not torch.compiler.is_compiling())
-
-
-def _records_grad(*tensors: Optional[torch.Tensor]) -> bool:
-    """Whether autograd records a gradient through any of ``tensors``."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
 def bn_epilogue(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
                 other: Optional[torch.Tensor] = None,
                 p_other: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -1531,27 +1557,18 @@ def bn_epilogue(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
     + bn_other(other)])``, bit for bit, with the plain chain's gradients.
 
     Replaces no TPU kernel: the JAX package leaves these passes after each
-    convolution of the ResNet trunk to XLA's fusion.  CPU tensor: the plain
-    version, through the operator ``wadt_torch::bn_epilogue``.  CUDA
-    tensor: the ``bn_epilogue`` kernel (``csrc/bn_epilogue.cu``), which
-    computes the norm's affine per channel itself, on contiguous NCHW
-    float32 or bf16 tensors with ``other`` and every norm vector of x's
-    type (others raise); autograd differentiates it by
-    :func:`bn_epilogue_backward`.  Eager (:func:`_eager`) the wrapper skips
-    the operator, whose dispatch costs a ResNet-50 forward ~1 ms of host
-    time over its 49 calls (10–15 ms more where autograd records them) and whose first call
-    imports ``torch._dynamo``, seconds of set-up: it calls the launcher, or
-    where a gradient is recorded ``_BnEpilogueFn``.  Traced
-    (``torch.export``), it calls the operator, so the program carries it.
+    convolution of the ResNet trunk to XLA's fusion.  The registered kernel
+    ``wadt_torch::bn_epilogue`` (:func:`_register`'s rule).  CPU tensor: the
+    plain version.  CUDA tensor: the ``bn_epilogue`` kernel
+    (``csrc/bn_epilogue.cu``), which computes the norm's affine per channel
+    itself, on contiguous NCHW float32 or bf16 tensors with ``other`` and
+    every norm vector of x's type (others raise); autograd differentiates
+    it by :func:`bn_epilogue_backward`.  Eager on the card the operator's
+    dispatch would cost a ResNet-50 forward ~1 ms of host time over its 49
+    calls (10–15 ms more where autograd records them).
     """
-    _require_cpu_or_cuda(x, "bn_epilogue")
     second = (None,) * 4 if p_other is None else tuple(p_other[k] for k in _NORM_KEYS)
-    args = (x, *(p[k] for k in _NORM_KEYS), other, *second)
-    if x.is_cuda and _eager(x):
-        if _records_grad(*args):
-            return _BnEpilogueFn.apply(*args, relu)
-        return _bn_epilogue_launch(*args, relu)
-    return torch.ops.wadt_torch.bn_epilogue(*args, relu)
+    return _bn_epilogue(x, p["scale"], p["bias"], p["mean"], p["var"], other, *second, relu)
 
 
 def _bn_epilogue_launch(
@@ -1584,19 +1601,13 @@ def _bn_epilogue_launch(
     return out
 
 
-_bn_epilogue_op = torch.library.custom_op(
-    "wadt_torch::bn_epilogue", _bn_epilogue_launch, mutates_args=(), device_types="cuda")
-
-
-@_bn_epilogue_op.register_kernel("cpu")
-def _(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
+def _bn_epilogue_cpu(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
     p_other = None if scale2 is None else dict(zip(_NORM_KEYS, (scale2, bias2, mean2, var2)))
     return bn_epilogue_plain(x, dict(zip(_NORM_KEYS, (scale, bias, mean, var))), relu, other,
                              p_other)
 
 
-@_bn_epilogue_op.register_fake
-def _(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
+def _bn_epilogue_fake(x, scale, bias, mean, var, other, scale2, bias2, mean2, var2, relu):
     return x.new_empty(x.shape)
 
 
@@ -1649,22 +1660,8 @@ def _bn_epilogue_grad(ctx, dy):
     return bn_epilogue_backward(dy, x, other, out, vecs, ctx.relu, ctx.needs_input_grad)
 
 
-_bn_epilogue_op.register_autograd(_bn_epilogue_grad, setup_context=_bn_epilogue_setup)
-
-
-class _BnEpilogueFn(torch.autograd.Function):
-    """The operator's CUDA implementation and gradient without its
-    dispatch, for eager calls that record a gradient (Grad-CAM)."""
-
-    @staticmethod
-    def forward(ctx, *inputs):
-        out = _bn_epilogue_launch(*inputs)
-        _bn_epilogue_setup(ctx, inputs, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, dy):
-        return _bn_epilogue_grad(ctx, dy)
+_bn_epilogue = _register("bn_epilogue", _bn_epilogue_launch, _bn_epilogue_cpu, _bn_epilogue_fake,
+                         _bn_epilogue_setup, _bn_epilogue_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -1696,80 +1693,67 @@ def instance_norm_leaky(x: torch.Tensor, p: Dict[str, torch.Tensor], slope: floa
     chain's gradients (the instance norm's closed form).
 
     Replaces no TPU kernel: the JAX package leaves each PM trunk block's
-    norm and LeakyReLU to XLA's fusion.  CPU tensor: the plain version,
-    through the operator ``wadt_torch::instance_norm_leaky``.  CUDA tensor:
-    the ``instance_norm_leaky`` kernel (``csrc/instance_norm_leaky.cu``) on a
-    contiguous NHWC float32 or bf16 x (channels-last memory, as the trunk's
-    convolutions return it) with ``p``'s scale and bias [C] of its type
-    (others raise); float32 statistics and arithmetic, one rounding.
-    ``inplace`` writes the result over x where no gradient is recorded (the
-    trunk's conv outputs, which nothing else reads).  Eager
-    (:func:`_eager`), the wrapper skips the operator, whose first call
-    imports ``torch._dynamo``: it calls the launcher or, where a gradient is
-    recorded, ``_InstanceNormLeakyFn`` (out of place).  Traced
-    (``torch.export``), it calls the operator, so the program carries it.
+    norm and LeakyReLU to XLA's fusion.  The registered kernel
+    ``wadt_torch::instance_norm_leaky`` (:func:`_register`'s rule).  CPU
+    tensor: the plain version.  CUDA tensor: the ``instance_norm_leaky``
+    kernel (``csrc/instance_norm_leaky.cu``) on a contiguous NHWC float32 or
+    bf16 x (channels-last memory, as the trunk's convolutions return it)
+    with ``p``'s scale and bias [C] of its type (others raise); float32
+    statistics and arithmetic, one rounding.  ``inplace`` writes the result
+    over x on the eager card path that records no gradient (the trunk's
+    conv outputs, which nothing else reads); elsewhere it is out of place.
     """
-    _require_cpu_or_cuda(x, "instance_norm_leaky")
-    args = (x, p["scale"], p["bias"])
-    if x.is_cuda and _eager(x):
-        if _records_grad(*args):
-            return _InstanceNormLeakyFn.apply(*args, slope)
-        return _inl_launch(*args, slope, out=x if inplace else None)[0]
-    return torch.ops.wadt_torch.instance_norm_leaky(*args, slope)
+    return _instance_norm_leaky(x, p["scale"], p["bias"], slope,
+                                launcher=_inl_over if inplace else _inl_launch)
 
 
-def _inl_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, slope: float,
-                out: Optional[torch.Tensor] = None, stats: bool = False):
-    """The kernel on CUDA tensors -> (y, mean, rstd): y into ``out`` (x
-    itself, or a new tensor where None); the per-(image, channel) float32
-    mean and 1/sqrt(var + eps), [N, C], where ``stats``, else None."""
+def _inl_into(y: torch.Tensor, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              slope: float) -> torch.Tensor:
+    """The kernel on CUDA tensors, its result into y (x itself or a new
+    tensor of x's layout) -> y.  It leaves the kernel's statistics outputs
+    unset: the backward recomputes them (:func:`instance_norm_stats`)."""
     if not (x.is_cuda and _inl_fits(x, scale, bias)):
         raise ValueError(
             "instance_norm_leaky: the kernel takes a contiguous NHWC float32 or bf16 CUDA tensor, "
             "with scale and bias [C] of its type and device"
         )
-    y = torch.empty_like(x) if out is None else out
-    n, h, w, c = x.shape
-    mean = rstd = None
-    if stats:
-        mean, rstd = (torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(2))
     if x.numel() == 0:
-        return y, mean, rstd
+        return y
+    n, h, w, c = x.shape
     _launch("instance_norm_leaky", build().wadt_instance_norm_leaky, x.device, x.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), y.data_ptr(), None if mean is None else mean.data_ptr(),
-            None if rstd is None else rstd.data_ptr(), n, h * w, c, float(slope),
+            scale.data_ptr(), bias.data_ptr(), y.data_ptr(), None, None, n, h * w, c, float(slope),
             int(x.dtype == torch.bfloat16))
-    return y, mean, rstd
+    return y
 
 
-def _instance_norm_leaky_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                              slope: float) -> torch.Tensor:
-    """The CUDA implementation of ``wadt_torch::instance_norm_leaky``: the
-    kernel, out of place."""
-    return _inl_launch(x, scale, bias, slope)[0]
+def _inl_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                slope: float) -> torch.Tensor:
+    """The kernel out of place, the CUDA implementation of
+    ``wadt_torch::instance_norm_leaky``."""
+    return _inl_into(torch.empty_like(x), x, scale, bias, slope)
 
 
-_instance_norm_leaky_op = torch.library.custom_op(
-    "wadt_torch::instance_norm_leaky", _instance_norm_leaky_cuda, mutates_args=(),
-    device_types="cuda")
+def _inl_over(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              slope: float) -> torch.Tensor:
+    """The kernel written over x (``instance_norm_leaky(..., inplace=True)``)."""
+    return _inl_into(x, x, scale, bias, slope)
 
 
-@_instance_norm_leaky_op.register_kernel("cpu")
-def _(x, scale, bias, slope):
+def _inl_cpu(x, scale, bias, slope):
     return instance_norm_leaky_plain(x, {"scale": scale, "bias": bias}, slope)
 
 
-@_instance_norm_leaky_op.register_fake
-def _(x, scale, bias, slope):
+def _inl_fake(x, scale, bias, slope):
     return x.new_empty(x.shape)
 
 
 def instance_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain float32 (mean, 1/sqrt(var + eps)) of NHWC x over H, W, each
-    [N, C]: the statistics the kernel returns."""
-    x32 = x.float()
-    var = x32.var(dim=(1, 2), correction=0)
-    return x32.mean(dim=(1, 2)), torch.reciprocal(torch.sqrt(var + EPS))
+    """Plain (mean, 1/sqrt(var + eps)) of NHWC x over H, W, each [N, C]:
+    the statistics the kernel normalises by, in float32 (float64 for
+    float64 x)."""
+    xa = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+    var = xa.var(dim=(1, 2), correction=0)
+    return xa.mean(dim=(1, 2)), torch.reciprocal(torch.sqrt(var + EPS))
 
 
 def instance_norm_leaky_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
@@ -1780,12 +1764,14 @@ def instance_norm_leaky_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.
     ``needs`` says none is needed: the LeakyReLU's mask from the sign of the
     normalised value (the output's, for a positive slope), then the
     instance norm's closed form over each (image, channel)'s H x W values.
-    Plain PyTorch in float32 with x's statistics ``mean`` and ``rstd``
-    [N, C]; the forward stays the kernel on the card."""
+    Plain PyTorch in the type of x's statistics ``mean`` and ``rstd``
+    [N, C] (:func:`instance_norm_stats`); the forward stays the kernel on
+    the card."""
+    acc = mean.dtype
     mu, rs = mean[:, None, None, :], rstd[:, None, None, :]
-    sc, bi = scale.float(), bias.float()
-    xhat = (x.float() - mu) * rs
-    g = dy.float()
+    sc, bi = scale.to(acc), bias.to(acc)
+    xhat = (x.to(acc) - mu) * rs
+    g = dy.to(acc)
     g = torch.where(xhat * sc + bi >= 0, g, g * slope)
     dx = dscale = dbias = None
     if needs[0]:
@@ -1811,26 +1797,8 @@ def _inl_grad(ctx, dy):
                                         ctx.needs_input_grad)
 
 
-_instance_norm_leaky_op.register_autograd(_inl_grad, setup_context=_inl_setup)
-
-
-class _InstanceNormLeakyFn(torch.autograd.Function):
-    """The kernel out of place, keeping its own statistics for the
-    backward, for eager calls that record a gradient (Grad-CAM, Integrated
-    Gradients)."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, slope):
-        y, mean, rstd = _inl_launch(x, scale, bias, slope, stats=True)
-        ctx.save_for_backward(x, scale, bias, mean, rstd)
-        ctx.slope = slope
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, scale, bias, mean, rstd = ctx.saved_tensors
-        return instance_norm_leaky_backward(dy, x, mean, rstd, scale, bias, ctx.slope,
-                                            ctx.needs_input_grad)
+_instance_norm_leaky = _register("instance_norm_leaky", _inl_launch, _inl_cpu, _inl_fake,
+                                 _inl_setup, _inl_grad)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,8 @@ whole model per step, with the gradient taken with respect to the
 interpolated input, summed in step order with Gauss-Legendre (the
 default, as captum's) or right-Riemann weights.
 
-On PMG both go through the Gram operator ``wadt_torch::patch_gram`` and its
-registered backward: the K1 kernel on the card, its plain version on the
-CPU.  The overlays are rendered on the host with matplotlib's colormaps and
+On PMG both go through the registered Gram kernel ``patch_gram`` and its
+backward: the K1 kernel on the card, its plain version on the CPU.  The overlays are rendered on the host with matplotlib's colormaps and
 OpenCV, as in the JAX package, so their bytes are the same.
 """
 

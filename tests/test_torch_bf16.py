@@ -37,6 +37,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.gram import (
     patch_gram_tokens,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 enable_parity_precision()
 

@@ -29,6 +29,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     pmg,
     rtm,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CASES = sorted(os.path.splitext(f)[0] for f in os.listdir(FIXTURES) if f.endswith(".json"))
 SKIP_SUBSTR = ("num_batches_tracked",)  # training bookkeeping, re-emitted as int64 0

@@ -33,6 +33,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import get_family
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import embed
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from tools.make_synth_dataset import make as make_synth
 
 EMB_TOL = 1e-5

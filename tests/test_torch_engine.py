@@ -20,6 +20,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine.executor import Engine
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pmg as tpmg
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import s2d_pack
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHIPPED = os.path.join(FIXTURES, "pmg_shipped")
 N = 5  # not a multiple of the batch size: the pad path runs

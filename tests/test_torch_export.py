@@ -35,6 +35,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import (
     s2d_pack_uint8,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 TINY = dict(

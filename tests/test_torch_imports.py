@@ -10,6 +10,7 @@ import sys
 import pytest
 
 from tests.conftest import REPO
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 JAX_PKG = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu"

@@ -19,6 +19,7 @@ import heuristic_style_transfer_for_real_time_efficient_weather_attribute_detect
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import models
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pm, pmg, rtm
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import reporting
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TASKS = {"A": ["x", "y", "z"], "B": ["p", "q"]}
 PMG = dict(ndf=8, patch_size=16, patch_div=2, gram_channels=16, d_model=32,

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 # [B, T, C, D]: chip_smoke.py phase 10's four (the camera's full width, the

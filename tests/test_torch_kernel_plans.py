@@ -47,6 +47,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.gram import split_patches
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import leaky_relu
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.preprocess import s2d_pack
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 PMG_FIXTURES = ["pmg_shipped", "pmg_deep_plan", "pmg_no_transformer", "pmg_tiny_instance_se"]

@@ -28,6 +28,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.stream import (
     StreamPredictor,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PORT = "heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch"
 SMALL = dict(ndf=8, patch_size=64, patch_div=3, gram_channels=16, d_model=32,

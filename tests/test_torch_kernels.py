@@ -17,6 +17,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import gram as tgram
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import norms as tnorms
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import leaky_relu as tleaky_relu
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GRAM_SHAPES = [(14, 14, 96, 3), (8, 8, 32, 4), (7, 5, 16, 2)]
 
@@ -419,6 +420,45 @@ def test_wrapper_calls_its_registered_operator(name):
     with FakeTensorMode() as mode:
         fake = wrapper(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
     assert fake.shape == got.shape and fake.dtype == got.dtype
+
+
+def _dispatched_operators(fn) -> list:
+    """The ``wadt_torch`` operators that the dispatcher runs during ``fn()``,
+    as the profiler's CPU activity records them (a dispatch mode cannot
+    watch: its presence alone sends a registered kernel's call through the
+    operator, as a trace must)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e.name for e in prof.events() if e.name.startswith("wadt_torch::")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["patch_gram", "stem", "gram_proj", "bn_epilogue",
+                                  "instance_norm_leaky"])
+def test_eager_card_call_skips_its_operator(name, cuda_device):
+    """The five registered kernels' one call rule on the card: an eager call
+    launches the kernel and dispatches no ``wadt_torch`` operator, also
+    where a gradient is recorded (all but K2 have one), while ``make_fx`` of
+    the same call still holds the operator."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    case, op = OPERATOR_CASES[name]
+    wrapper, args, _ = case()
+    args = _to_device(args, cuda_device)
+    ck.reset_launches()
+    assert _dispatched_operators(lambda: wrapper(*args)) == []
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[op] == 1
+    if name != "stem":
+        leaf = args[0].detach().requires_grad_()
+        out = []
+        assert _dispatched_operators(lambda: out.append(wrapper(leaf, *args[1:]))) == []
+        assert ck.LAUNCHES[op] == 2 and out[0].requires_grad
+    graph = make_fx(lambda *a: wrapper(*a))(*args).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    assert targets == [f"wadt_torch.{op}.default"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

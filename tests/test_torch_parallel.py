@@ -36,6 +36,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     host_local_batch,
     spawn_world,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LR = 3e-4
 WORLD_TIMEOUT_S = 240.0

@@ -29,6 +29,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     normalize_uint8,
 )
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream as tstream
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # f32 CPU torch vs the frozen f32 reference (tests/test_parity.py:27, :58-70)
 ATOL = RTOL = 2e-4

@@ -32,6 +32,7 @@ from port_bench.drivers import engine_run
 from port_bench.families import pm as fam_pm
 from port_bench.reference import pm as ref_pm
 from port_bench.reference.common import normalize
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")

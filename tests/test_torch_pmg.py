@@ -22,6 +22,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
     normalize_uint8,
     s2d_pack,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # f32 CPU torch vs the frozen f32 reference logits (tests/test_parity.py:27)
 ATOL = RTOL = 2e-4

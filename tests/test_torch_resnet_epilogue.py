@@ -1,12 +1,12 @@
 """The ResNet trunk's inference epilogue: the norm after each convolution,
 the residual sum and the ReLU as one pass (``ops/cuda_kernels.bn_epilogue``,
-``csrc/bn_epilogue.cu`` on the card; ``models/resnet._epilogue``).
+``csrc/bn_epilogue.cu`` on the card; ``models/resnet``).
 
 On the CPU: the plain version equals the eager chain it replaces (the norm's
 affine as two broadcast passes, ``torch.relu``, ``h + identity``) bit for
 bit at every kind of site, the operator's registered gradient equals
 autograd's through that chain, the trunk equals that chain block for block,
-and the counters see 49 sites a full-depth forward.  On the card (``cuda``):
+and a full-depth forward has 49 sites.  On the card (``cuda``):
 the kernel equals its plain version bit for bit at every shape of
 ResNet-50's batch-128 and batch-1 trunk, forward and gradient, it refuses
 tensors it does not take, Grad-CAM's route runs it with the plain chain's
@@ -26,7 +26,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import norms
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops.nn import cast_tree
-from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
+from _torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = [torch.float32, torch.bfloat16]
 KINDS = ["norm", "norm_relu", "identity", "downsample"]
@@ -229,11 +229,12 @@ def test_epilogue_is_in_the_kernel_library():
 
 
 def test_eager_only_outside_traces():
-    """The wrapper skips the operator only on a plain tensor with no
-    dispatch mode active: a fake tensor or a ``make_fx`` trace takes the
-    operator, which is what an exported program holds.  Where a gradient is
-    recorded through any argument, the eager route is the autograd
-    function that carries the operator's gradient."""
+    """The registered kernels' call rule (``ck._register``) skips the
+    operator only on a plain tensor with no dispatch mode active: a fake
+    tensor or a ``make_fx`` trace takes the operator, which is what an
+    exported program holds.  Where a gradient is recorded through any
+    tensor argument, the eager route is the autograd function that carries
+    the operator's gradient."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -245,9 +246,9 @@ def test_eager_only_outside_traces():
     make_fx(lambda t: seen.append(ck._eager(t)) or t + 1)(x)
     assert seen == [False]
     w = torch.ones(2, requires_grad=True)
-    assert not ck._records_grad(x, None) and ck._records_grad(x, None, w)
+    assert not ck._records_grad((x, None, True)) and ck._records_grad((x, None, w, 0.2))
     with torch.no_grad():
-        assert not ck._records_grad(x, w)
+        assert not ck._records_grad((x, w))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -264,35 +265,46 @@ def test_trunk_equals_eager_chain(trunk, truncate, dtype):
     assert torch.equal(got, want)
 
 
-def test_full_depth_counts_49_sites(trunk):
+def test_full_depth_counts_49_sites(trunk, monkeypatch):
+    """49 ``bn_epilogue`` calls a full-depth forward, which on the CPU
+    launch nothing and give the plain version's features."""
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 64, 64, 3), dtype=np.float32))
-    with trace.recording():
-        resnet.apply_truncated(trunk, x, 8)
-    assert trace.counters() == {"resnet.epilogue_plain": FULL_DEPTH_SITES}
-    assert FULL_DEPTH_SITES == 49
+    ck.reset_launches()
+    got = resnet.apply_truncated(trunk, x, 8)
+    assert ck.LAUNCHES["bn_epilogue"] == 0
+    calls = []
+
+    def plain(*a, **k):
+        calls.append(1)
+        return ck.bn_epilogue_plain(*a, **k)
+
+    monkeypatch.setattr(ck, "bn_epilogue", plain)
+    assert torch.equal(resnet.apply_truncated(trunk, x, 8), got)
+    assert len(calls) == FULL_DEPTH_SITES == 49
 
 
 def test_gradient_route_takes_the_plain_version(trunk):
     """Grad-CAM's route (``stem_conv`` then ``apply_truncated_from_stem``
     under ``enable_grad`` on an activation that requires grad) on the CPU:
-    every site is plain, and the activation's gradient equals the eager
-    chain's.  (On the card it is the kernel:
-    ``test_gradient_route_runs_the_kernel_on_card``.)"""
+    every site is the plain version (no launch), and the features and the
+    activation's gradient equal the eager chain's.  (On the card it is the
+    kernel: ``test_gradient_route_runs_the_kernel_on_card``.)"""
     x = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 64, 64, 3), dtype=np.float32))
     with torch.no_grad():
         a0 = resnet.stem_conv(trunk, x)
     grads = []
+    ck.reset_launches()
     for run in (
         lambda a: resnet.apply_truncated_from_stem(trunk, a, 8),
         lambda a: resnet._nhwc(eager_children(trunk, resnet._nchw(a), resnet.CHILDREN[1:8])),
     ):
         a = a0.clone().requires_grad_()
-        with trace.recording(), torch.enable_grad():
+        with torch.enable_grad():
             feats = run(a)
             feats.square().mean().backward()
-        grads.append((feats.detach(), a.grad, trace.counters()))
-    (f_got, g_got, counts), (f_want, g_want, _) = grads
-    assert counts == {"resnet.epilogue_plain": FULL_DEPTH_SITES}
+        grads.append((feats.detach(), a.grad))
+    (f_got, g_got), (f_want, g_want) = grads
+    assert ck.LAUNCHES["bn_epilogue"] == 0
     assert torch.equal(f_got, f_want)
     assert torch.equal(g_got, g_want)
 
@@ -366,11 +378,8 @@ def test_bf16_engine_same_probs_through_the_kernel(trunk, cuda_device, monkeypat
     eng = Engine("rtm", spec, params, batch_size=8, dtype=torch.bfloat16, device=cuda_device)
     frames = np.random.default_rng(8).integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)
     ck.reset_launches()
-    with trace.recording():
-        fused = eng.run(frames)
+    fused = eng.run(frames)
     assert ck.LAUNCHES["bn_epilogue"] == 2 * FULL_DEPTH_SITES
-    assert trace.counters()["resnet.epilogue_fused"] == 2 * FULL_DEPTH_SITES
-    assert "resnet.epilogue_plain" not in trace.counters()
     monkeypatch.setattr(ck, "bn_epilogue", ck.bn_epilogue_plain)
     plain = eng.run(frames)
     assert ck.LAUNCHES["bn_epilogue"] == 2 * FULL_DEPTH_SITES
@@ -438,12 +447,11 @@ def test_gradient_route_runs_the_kernel_on_card(trunk, dtype, cuda_device, monke
             monkeypatch.setattr(ck, "bn_epilogue", ck.bn_epilogue_plain)
         ck.reset_launches()
         a = a0.clone().requires_grad_()
-        with trace.recording(), torch.enable_grad():
+        with torch.enable_grad():
             feats = resnet.apply_truncated_from_stem(params, a, 8)
             feats.float().square().mean().backward()
-        runs.append((feats.detach(), a.grad, trace.counters(), ck.LAUNCHES["bn_epilogue"]))
-    (f_got, g_got, counts, launches), (f_want, g_want, _, plain_launches) = runs
-    assert counts == {"resnet.epilogue_fused": FULL_DEPTH_SITES}
+        runs.append((feats.detach(), a.grad, ck.LAUNCHES["bn_epilogue"]))
+    (f_got, g_got, launches), (f_want, g_want, plain_launches) = runs
     assert launches == FULL_DEPTH_SITES and plain_launches == 0
     assert torch.equal(f_got, f_want)
     assert torch.equal(g_got, g_want)

@@ -28,6 +28,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import cuda_kernels as ck
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import goldens as tgoldens
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream as tstream
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TASKS = {"A": ["a0", "a1", "a2"], "B": ["b0", "b1"]}
 SMALL = dict(truncate_layer=5, attn_token_dim=32)  # tests/test_explain_stream.py:378

@@ -28,6 +28,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import kalman as tkalman
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import goldens as tgoldens
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream as tstream
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(ndf=8, patch_size=64, patch_div=3, gram_channels=16, d_model=32,
              transformer_layers=1, transformer_heads=2, norm="batch")

@@ -43,6 +43,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads import stream as tstream
 
 from tests.test_torch_rtm import _leaves, _q8_close
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 PROB_TOL = 5e-3  # PERF.md section 2: the bf16 limit in probability

@@ -28,6 +28,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import (
     trace,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TASKS = {"A": ["a0", "a1", "a2"], "B": ["b0", "b1"]}
 HPARAMS = {
@@ -119,10 +120,7 @@ def test_engine_run_records_each_batch_under_the_profiler(engines, family, scan)
     assert all(r.device_ms == r.host_ms > 0 for r in forwards)  # CPU: device time is host time
     waits = [r for r in recs if r.name == "engine.wait"]
     assert [w.link for w in waits] == ids and all(w.parent is None for w in waits)
-    want = {"engine.rows": 10, "engine.pad_rows": 2}
-    if family == "rtm":  # the stem's norm and layer1's 3 x 3, each batch; the CPU's plain version
-        want["resnet.epilogue_plain"] = 3 * 10
-    assert trace.counters() == want
+    assert trace.counters() == {"engine.rows": 10, "engine.pad_rows": 2}
     names = {e.name for e in prof.events()}
     assert {"engine.batch", "engine.wait", *ENGINE_SPANS} <= names
     summ = trace.summary()
@@ -232,7 +230,7 @@ def test_pm_forward_records_trunk_heads_and_each_norm():
     assert tr.parent is None and hd.parent is None and tr.end_ns <= hd.start_ns
     assert all(tr.start_ns <= r.start_ns <= r.end_ns <= tr.end_ns for r in norms)
     assert all(r.device_ms == r.host_ms > 0 for r in (tr, hd, *norms))  # CPU: host time
-    assert trace.counters() == {"trunk.norm_plain": 5}
+    assert trace.counters() == {}
 
 
 def test_pm_forward_records_nothing_with_the_tracer_off(monkeypatch):

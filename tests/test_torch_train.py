@@ -47,6 +47,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import (
     train as ttrain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(ndf=8, patch_size=16, patch_div=2, gram_channels=16, d_model=32,
             transformer_layers=1, transformer_heads=2, norm="batch")

@@ -42,6 +42,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.workloads.embed import (
     hdbscan_clustering,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TSNE_KL_REL = 5e-2  # scikit-learn's own KL moves by up to 3.9 % under a 1e-7 input perturbation
 TRUST_TOL = 0.01

@@ -50,6 +50,7 @@ from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detectio
 )
 
 from tools.make_synth_dataset import make as make_synth
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TINY_HPARAMS = dict(
     ndf=8, patch_size=16, patch_div=2, gram_channels=16, d_model=32,
