@@ -325,6 +325,18 @@ Phases, each of which raises on failure:
     (device time, and each one's peak memory over the resident state),
     with 5 launches a batch and ``Engine.run``'s probabilities within 1e-5
     of the plain chain's.
+28. the Engine's upload (``upload_phase``), staged through its pinned
+    two-slot ring on a copy stream against the direct pageable upload (the
+    engine with its ring taken out, the upload before the ring), on phase
+    26 (b)'s bf16 RTM engine at batch 128 and phase 27 (b)'s float32 PM
+    engine at batch 256, over calls of 2,048 frames (a 1,024-frame pool
+    twice, as the benchmark's cells): ``Engine.run``'s probabilities and
+    predictions bit for bit the direct upload's; calls in turns (direct,
+    staged, staged, direct; three rounds) in images per second; from one
+    profiled call of each, the device trace's host-to-device copy time a
+    batch and the share of each copy that kernels overlap (the first copy
+    of a call apart); from one recorded call, ``engine.staged``,
+    ``engine.stage_wait`` and the host time of ``engine.stage`` a batch.
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
@@ -5073,6 +5085,149 @@ def instance_norm_phase(card: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the Engine's upload through its pinned staging ring
+# ---------------------------------------------------------------------------
+
+UPLOAD_POOL, UPLOAD_FRAMES = 1024, 2048  # the benchmark's inference calls
+
+
+@contextlib.contextmanager
+def direct_upload(eng):
+    """The engine with its staging ring taken out: host frames go up as
+    ``torch.as_tensor(frames).to(device)``, pageable, on the compute stream."""
+    ring, eng._ring = eng._ring, None
+    try:
+        yield
+    finally:
+        eng._ring = ring
+
+
+def copy_overlap(events) -> tuple:
+    """(host-to-device copy ms of each call's batches, the share of each
+    copy's time that a kernel ran beside it) from ``prof.events()``."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for e in events:
+        if getattr(e, "device_type", None) != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        r = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy HtoD"):
+            copies.append(r)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(r)
+    busy = []
+    for a, b in sorted(kernels):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    shares = [sum(max(0.0, min(b, t) - max(a, s)) for a, b in busy) / max(t - s, 1e-9)
+              for s, t in sorted(copies)]
+    return [(t - s) / 1e3 for s, t in sorted(copies)], shares
+
+
+def upload_ab(label: str, eng, frames, card: str) -> dict:
+    """Phase 28 on one engine: bit for bit, in turns, the device trace and
+    the tracer's counts of the staged upload against the direct one."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.utils import trace
+
+    batches = -(-len(frames) // eng.batch_size)
+    staged = eng.run(frames)
+    with direct_upload(eng):
+        direct = eng.run(frames)
+    if not all(np.array_equal(staged[k], direct[k]) for k in ("probs", "preds")):
+        raise AssertionError(f"[28] {label}: the staged upload's answers are not the direct upload's")
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(frames)
+        return len(frames) / (time.perf_counter() - t0)
+
+    def call_direct():
+        with direct_upload(eng):
+            return call()
+
+    rates = {"direct": [], "staged": []}
+    for _ in range(3):
+        rates["direct"].append(call_direct())
+        rates["staged"] += [call(), call()]
+        rates["direct"].append(call_direct())
+    with trace.recording():
+        eng.run(frames)
+    counts = trace.counters()
+    stage_ms = [r.host_ms for r in trace.records() if r.name == "engine.stage"]
+    traced = {}
+    for side, fn in (("direct", call_direct), ("staged", call)):
+        fn()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        traced[side] = copy_overlap(prof.events())
+    if counts.get("engine.staged") != batches:
+        raise AssertionError(f"[28] {label}: engine.staged {counts.get('engine.staged')}, want {batches}")
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    h2d = {k: sum(v[0]) / batches for k, v in traced.items()}
+    later = {k: v[1][1:] for k, v in traced.items()}
+    print(f"[28] {label}: {len(frames)} frames a call, {batches} batches; answers bit for bit the direct "
+          f"upload's; in turns (direct, staged, staged, direct; 3 rounds): direct "
+          f"{[round(r, 1) for r in rates['direct']]} img/s (median {med['direct']:,.1f}), staged "
+          f"{[round(r, 1) for r in rates['staged']]} (median {med['staged']:,.1f}, "
+          f"{(med['staged'] / med['direct'] - 1) * 100:+.1f} %) | {card}")
+    print(f"[28] {label}: device trace of one call a side: host-to-device copy a batch direct "
+          f"{h2d['direct']:.3f} ms, staged {h2d['staged']:.3f} ms ({len(traced['staged'][0])} copies); "
+          f"share of each copy after the call's first that kernels overlap: direct "
+          f"{statistics.mean(later['direct'] or [0.0]):.3f} (min {min(later['direct'] or [0.0]):.3f}), staged "
+          f"{statistics.mean(later['staged'] or [0.0]):.3f} (min {min(later['staged'] or [0.0]):.3f}); "
+          f"first copy {traced['staged'][1][0] if traced['staged'][1] else 0.0:.3f}; one recorded call: "
+          f"engine.staged {counts.get('engine.staged', 0)}, engine.stage_wait "
+          f"{counts.get('engine.stage_wait', 0)}, engine.stage host {statistics.mean(stage_ms):.3f} ms a batch "
+          f"(min {min(stage_ms):.3f}, max {max(stage_ms):.3f}) | {card}")
+    return {"img_s": med, "h2d_ms": h2d, "overlap": {k: statistics.mean(v or [0.0]) for k, v in later.items()},
+            "staged": counts.get("engine.staged", 0), "stage_wait": counts.get("engine.stage_wait", 0),
+            "stage_ms": statistics.mean(stage_ms)}
+
+
+def upload_phase(card: str) -> dict:
+    """Phase 28: the Engine's staged upload against the direct one on phase
+    26 (b)'s RTM and phase 27 (b)'s PM engines (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.engine import executor
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import pm, rtm
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    config.enable_parity_precision()
+    pool = np.random.default_rng(28).integers(0, 256, (UPLOAD_POOL, 224, 224, 3), dtype=np.uint8)
+    frames = pool[np.arange(UPLOAD_FRAMES) % UPLOAD_POOL]
+    del pool
+    tasks = config.load_tasks(config.default_tasks_path())
+    out = {}
+    spec = rtm.build_spec(tasks, {})
+    eng = executor.Engine("rtm", spec, random_rtm_params(spec, 26), batch_size=EPI_BATCH,
+                          dtype=torch.bfloat16, device=dev)
+    out["rtm_bf16"] = upload_ab(f"bf16 RTM engine at batch {EPI_BATCH}", eng, frames, card)
+    del eng
+    spec = pm.build_spec(tasks, {})
+    eng = executor.Engine("pm", spec, pm.init(torch.Generator().manual_seed(27), spec), batch_size=BATCH,
+                          device=dev)
+    out["pm_f32"] = upload_ab(f"float32 PM engine at batch {BATCH}", eng, frames, card)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[28] upload phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5393,6 +5548,7 @@ def main() -> int:
     kernels += hdbscan_phase(card)
     kernels.append(bn_epilogue_phase(card))
     kernels.append(instance_norm_phase(card))
+    upload_phase(card)
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

@@ -4,7 +4,10 @@ One engine serves every batch workload: ``run(images_uint8)`` takes uint8
 NHWC frames (any N), pads the tail batch to the engine's batch size, runs
 the forward on the device, and returns host numpy probs / preds / logits.
 Images cross to the device as uint8 and are normalized there (folded into
-the stem kernel on the PMG path).  ``dtype=torch.bfloat16`` runs the
+the stem kernel on the PMG path); from host memory to a CUDA engine they go
+through the engine's pinned staging ring on a copy stream of its own
+(``wire.StagingRing``), so that one batch's copy runs under the forward of
+the batch before it.  ``dtype=torch.bfloat16`` runs the
 forward in bf16 on a cast copy of the params, as the JAX package's
 ``Engine(dtype=jnp.bfloat16)`` does.
 """
@@ -24,7 +27,7 @@ from ..ops.preprocess import normalize_uint8
 from ..parallel.mesh import Mesh
 from ..utils import trace
 from .checkpoint import to_device
-from .wire import pad_batch, to_host_async, validate_and_pack, wait_host
+from .wire import StagingRing, pad_batch, to_host_async, validate_and_pack, wait_host
 
 _UNBATCHED = ("loss_per_task", "count_per_task")
 
@@ -122,6 +125,7 @@ class Engine:
         self.capture = tuple(capture)
         self._mod = get_family(family)
         self._mask = torch.as_tensor(class_mask(self.tasks), device=self.device)
+        self._ring = StagingRing(self.device) if self.device.type == "cuda" else None
         self.pack_k = None
         if packed != "off" and family == "pmg" and self._mod.supports_packed_input(spec):
             self.pack_k = spec.plan[0].kernel
@@ -174,15 +178,28 @@ class Engine:
 
     def _upload(self, images, labels: Optional[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
         """uint8 images [..., H, W, C] and their labels [..., T] (IGNORE
-        when None) on the device."""
+        when None) on the device: host images on a CUDA engine through the
+        staging ring (call :meth:`_release` once their forward is
+        enqueued), anything else as it is."""
         with trace.span("engine.upload"):
-            x = torch.as_tensor(images).to(self.device, non_blocking=True)
-            if labels is None:
+            if self._ring is None or (torch.is_tensor(images) and images.is_cuda):
+                x = torch.as_tensor(images).to(self.device, non_blocking=True)
+                y = None if labels is None else torch.as_tensor(labels).to(self.device,
+                                                                           non_blocking=True)
+            elif labels is None:
+                (x,), y = self._ring.stage([images]), None
+            else:
+                x, y = self._ring.stage([images, labels])
+            if y is None:
                 y = torch.full(x.shape[:-3] + (len(self.tasks),), IGNORE_INDEX,
                                dtype=torch.int32, device=self.device)
-            else:
-                y = torch.as_tensor(labels).to(self.device, non_blocking=True)
         return x, y
+
+    def _release(self) -> None:
+        """The forward of what :meth:`_upload` staged is enqueued: the
+        ring's slots may be copied over behind it."""
+        if self._ring is not None:
+            self._ring.release()
 
     def _local(self, images, labels, dim: int):
         """This rank's rows (along ``dim``) of host images and labels."""
@@ -207,7 +224,9 @@ class Engine:
     def step(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
         """One forward on exactly one batch of uint8 images (numpy or a
         tensor); results stay on the device."""
-        return self._gather(self._step(*self._upload(*self._local(images, labels, 0))), 0)
+        out = self._step(*self._upload(*self._local(images, labels, 0)))
+        self._release()
+        return self._gather(out, 0)
 
     @torch.inference_mode()
     def step_scan(self, images, labels: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
@@ -217,6 +236,7 @@ class Engine:
         ``[k, T]``), and equal k calls of :meth:`step` bit for bit."""
         x, y = self._upload(*self._local(images, labels, 1))
         outs = [self._step(x[i], y[i]) for i in range(x.shape[0])]
+        self._release()
         return self._gather({key: torch.stack([o[key] for o in outs]) for key in outs[0]}, 1)
 
     def warmup(self, img_size: int = 224) -> None:
