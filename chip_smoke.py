@@ -337,6 +337,26 @@ Phases, each of which raises on failure:
     batch and the share of each copy that kernels overlap (the first copy
     of a call apart); from one recorded call, ``engine.staged``,
     ``engine.stage_wait`` and the host time of ``engine.stage`` a batch.
+29. the RTM trunk's train-mode batch norm (``bn_train_phase``): (a) every
+    distinct site of the train-mode trunk at batch 128, in float32 and in
+    bf16 (the norm and its ReLU, the identity or the downsample branch's
+    norm, then the ReLU), forward and backward: the kernels against the
+    chain in float64, its gradients under the kernels' own ReLU mask (1e-5
+    of each tensor's largest value in float32, one bf16 rounding in bf16;
+    at most 1e-5 of the outputs on the other side of the ReLU; the float32
+    chain's own gap printed beside), two calls the same bits, and the
+    device time of a forward and backward for the kernels, the present
+    chain (``bn_train_plain``) and the library
+    (``F.batch_norm(training=True)``, the sum, ``torch.relu``) beside the
+    byte bound (each input and output once), summed over the 49 sites;
+    (b) one step of the RTM train step the cell runs
+    (``train.make_train_step("rtm")``: trunk, heads, loss and AdamW) at
+    batch 128 in float32, after a first, with its ``bn_train`` launches
+    (102 forward, 98 backward); (c) where the gitignored
+    ``_archive/parent/`` holds a parent commit's port, the RTM train step
+    (batch 128, float32, TF32 off, seeded weights and images) of the
+    parent and of this tree in turns, each in its own process: device time
+    a step, peak memory and the first steps' losses, and their gap.
 
 ``--profile`` also prints, for phases 15-17 and 20 (c), each step's device kernels,
 kernel time and table of device time by kernel, in phase 14 K1's bf16
@@ -5228,6 +5248,254 @@ def upload_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the RTM trunk's train-mode batch norm
+# ---------------------------------------------------------------------------
+
+BNT_BATCH = 128  # the benchmark's train batch
+BNT_STEPS = 10  # timed steps of (c), after 3 untimed
+# run in a process of its own from a checkout's root: that checkout's RTM
+# train step at batch 128 in float32 (phase 29 (c)), as JSON
+TRAIN_AB = """
+import json, os, statistics, sys
+sys.path.insert(0, os.getcwd())
+import torch
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import rtm
+from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import train
+config.enable_parity_precision()
+dev = torch.device("cuda", 0)
+spec = rtm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+init_fn, step_fn = train.make_train_step("rtm", spec, device=dev, dropout_rate=0.0)
+state = init_fn(29)
+g = torch.Generator(dev).manual_seed(29)
+x = torch.randn((BATCH, 224, 224, 3), generator=g, device=dev)
+y = torch.stack([torch.randint(0, k, (BATCH,), generator=g, device=dev) for k in spec.tasks.num_classes], 1)
+losses = []
+for _ in range(3):
+    state, loss = step_fn(state, x, y)
+    losses.append(float(loss))
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+times = []
+for _ in range(STEPS):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, loss = step_fn(state, x, y)
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+print(json.dumps({"ms": statistics.median(times), "losses": losses, "peak": torch.cuda.max_memory_allocated(),
+                  "requested": torch.cuda.memory_stats()["requested_bytes.all.peak"]}))
+"""
+
+
+def bn_train_site(kind: str, shape, dtype, gen, dev):
+    """(x, norm, other, other's norm, dy) of one train-mode site: seeded
+    conv-output-like values (mean 0.5, spread 2), norm vectors of x's type
+    and float32 running statistics; ReLU outputs as the identity."""
+    import torch
+
+    def act():
+        return (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+
+    def norm():
+        c = shape[1]
+        return {"scale": (torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0).to(dtype),
+                "bias": (torch.randn(c, generator=gen, device=dev) * 0.3).to(dtype),
+                "mean": torch.randn(c, generator=gen, device=dev) * 0.3,
+                "var": torch.rand(c, generator=gen, device=dev) + 0.2}
+
+    x, p = act(), norm()
+    other = p_other = None
+    if kind == "identity":
+        other = torch.relu(act())
+    elif kind == "downsample":
+        other, p_other = act(), norm()
+    return x, p, other, p_other, torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def library_site(x, p, relu, other=None, p_other=None):
+    """The library's train-mode site: ``F.batch_norm(training=True)`` (cuDNN),
+    the sum, ``torch.relu``; running statistics moved in copies of x's type."""
+    import torch
+    import torch.nn.functional as F
+
+    def bn(t, q):
+        return F.batch_norm(t, q["mean"].to(t.dtype, copy=True), q["var"].to(t.dtype, copy=True),
+                            q["scale"], q["bias"], training=True, momentum=0.1, eps=1e-5)
+
+    y = bn(x, p)
+    if other is not None:
+        y = y + (other if p_other is None else bn(other, p_other))
+    return (torch.relu(y) if relu else y), None, None
+
+
+def site_grads(fn, x, p, other, p_other, dy, relu=True):
+    """A site's forward and backward -> (y, every gradient): x, p's scale
+    and bias, then other's and p_other's where the site has them."""
+    import torch
+
+    leaves = [x, p["scale"], p["bias"]] + ([] if other is None else [other]) + (
+        [] if p_other is None else [p_other["scale"], p_other["bias"]])
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    q = {**p, "scale": leaves[1], "bias": leaves[2]}
+    o = None if other is None else leaves[3]
+    qo = None if p_other is None else {**p_other, "scale": leaves[-2], "bias": leaves[-1]}
+    with torch.enable_grad():
+        y = fn(leaves[0], q, relu, o, qo)[0]
+        return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+
+def bn_train_phase(card: str) -> dict:
+    """Phase 29: the ``bn_train`` kernels on the RTM train-mode trunk (see
+    the module docstring) -> its entry of the kernels line."""
+    import torch
+
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch import config
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.models import resnet, rtm
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from heuristic_style_transfer_for_real_time_efficient_weather_attribute_detection_tpu_torch.parallel import train
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    config.enable_parity_precision()
+    gen = torch.Generator(dev).manual_seed(29)
+    counts = trunk_site_counts()
+    versions = {"kernel": ck.bn_train, "chain": ck.bn_train_plain, "library": library_site}
+
+    # -- (a) each site, forward and backward: the chain's values, times -----
+    def sites(dtype):
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+        sums = dict.fromkeys((*versions, "bound"), 0.0)
+        rows, err, chain_err = [], 0.0, 0.0
+        for (kind, c, h), n in counts.items():
+            shape = (BNT_BATCH, c, h, h)
+            x, p, other, p_other, dy = bn_train_site(kind, shape, dtype, gen, dev)
+            ck.reset_launches()
+            y, grads = site_grads(ck.bn_train, x, p, other, p_other, dy)
+            torch.cuda.synchronize()
+            launches = (ck.LAUNCHES["bn_train"], ck.LAUNCHES["bn_train_backward"])
+            if launches != ((3 if kind == "downsample" else 2), 2):
+                raise AssertionError(f"bn_train {kind} {shape}: launches {launches}")
+            y2, grads2 = site_grads(ck.bn_train, x, p, other, p_other, dy)
+            if not (torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
+                raise AssertionError(f"bn_train {kind} {shape} {dtype}: two calls differ")
+            del y2, grads2
+            # the truth: the chain in float64 on the same values (the float32
+            # chain's sums of 1.6 M values a channel stray ~1e-4 themselves);
+            # its gradients for dy masked by the output under test's ReLU: a
+            # value within a rounding of zero may take the ReLU on either
+            # side, and one such value moves its channel's dscale and dbias by
+            # a whole dy times its normalized value
+            def chain_in(dt, mask=None):
+                up = {k: v.to(dt) for k, v in p.items()}
+                up_o = None if p_other is None else {k: v.to(dt) for k, v in p_other.items()}
+                g = dy.to(dt) if mask is None else torch.where(mask > 0, dy.to(dt), 0.0)
+                return site_grads(ck.bn_train_plain, x.to(dt), up, None if other is None else other.to(dt),
+                                  up_o, g, relu=mask is None)
+
+            def worst(y_, grads_, yw):
+                flips = int(((y_.double() > 0) != (yw > 0)).sum())
+                if flips > 1e-5 * yw.numel():
+                    raise AssertionError(f"bn_train {kind} {shape} {dtype}: {flips} ReLUs differ")
+                gw = chain_in(torch.float64, y_)[1]
+                return [float((got.double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                        for got, ref in [(y_, yw)] + list(zip(grads_, gw))]
+
+            truth = chain_in(torch.float64)[0]
+            gaps = worst(y, grads, truth)
+            chain_gap = max(worst(*chain_in(torch.float32), truth))
+            for what, rel, t in zip(["y"] + [f"gradient {i}" for i in range(len(grads))], gaps,
+                                    [tol] + [2 * tol] * len(grads)):
+                if rel > t:
+                    raise AssertionError(f"bn_train {kind} {shape} {dtype} {what}: {rel:.3e} from the "
+                                         f"float64 chain, over {t} (the float32 chain: {chain_gap:.3e})")
+            err, chain_err = max(err, *gaps), max(chain_err, chain_gap)
+            del truth, y, grads
+            times = {name: device_ms(lambda f=f: site_grads(f, x, p, other, p_other, dy), reps=5, rounds=3)
+                     for name, f in versions.items()}
+            # the function's least traffic: forward x (and other) in, y out;
+            # backward dy and x (and other) in, the ReLU's mask recomputed from
+            # them and the forward's statistics, dx (and other's) out
+            passes = {"relu": 2 + 3, "identity": 3 + 5, "downsample": 3 + 5}[kind]
+            b_ms, _ = bound_ms(passes * x.numel() * x.element_size(), 0.0)
+            rows.append(f"{kind} C {c} {h}x{h} (x{n}): kernel {times['kernel']:.3f} ms, chain "
+                        f"{times['chain']:.3f}, library {times['library']:.3f}, bound {b_ms:.3f}")
+            for key, v in (*times.items(), ("bound", b_ms)):
+                sums[key] += n * v
+            del x, other, dy
+        return rows, sums, err, chain_err
+
+    out = {}
+    for dtype, label in ((torch.float32, "float32"), (torch.bfloat16, "bf16")):
+        rows, sums, err, chain_err = sites(dtype)
+        out[label] = (sums, err)
+        print(f"[29] (a) bn_train {label} batch {BNT_BATCH}, every train-mode site forward and backward "
+              f"against the chain in float64: largest gap {err:.2e} of each tensor's largest value (the "
+              f"float32 chain's {chain_err:.2e}), two calls the same bits; a site's forward and backward "
+              "(median of 3 rounds of 5, CUDA events): "
+              + "; ".join(rows) + f" | {card}")
+        print(f"[29] (a) one {label} batch-{BNT_BATCH} train-mode trunk's 49 sites, forward and backward: "
+              f"kernel {sums['kernel']:.3f} ms, chain {sums['chain']:.3f} ms, library {sums['library']:.3f} ms, "
+              f"bound {sums['bound']:.3f} ms ({sums['bound'] / sums['kernel'] * 100:.0f} % of 3.35 TB/s) "
+              f"| {card}")
+
+    # -- (b) the cell's own train step: every site on the kernels ------------
+    spec = rtm.build_spec(config.load_tasks(config.default_tasks_path()), {})
+    init_fn, step_fn = train.make_train_step("rtm", spec, device=dev, dropout_rate=0.0)
+    state = init_fn(29)
+    x = torch.randn((BNT_BATCH, 224, 224, 3), generator=gen, device=dev)
+    y = torch.stack([torch.randint(0, k, (BNT_BATCH,), generator=gen, device=dev)
+                     for k in spec.tasks.num_classes], 1)
+    state, _ = step_fn(state, x, y)  # the first step makes AdamW's moments
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    state, loss = step_fn(state, x, y)
+    torch.cuda.synchronize()
+    launches = (ck.LAUNCHES["bn_train"], ck.LAUNCHES["bn_train_backward"])
+    if launches != (2 * EPI_SITES + len(resnet.STAGES), 2 * EPI_SITES):
+        raise AssertionError(f"RTM train step: bn_train launches {launches}, want (102, 98)")
+    print(f"[29] (b) one RTM train step (train.make_train_step('rtm'): trunk, heads, loss, AdamW), float32 "
+          f"batch {BNT_BATCH}: bn_train launches {launches[0]} forward, {launches[1]} backward; loss "
+          f"{float(loss):.6f}")
+    del state, x, y, loss, init_fn, step_fn
+    torch.cuda.empty_cache()
+
+    # -- (c) the whole train step against the parent's, in turns -------------
+    if os.path.isdir(PARENT):
+        script = TRAIN_AB.replace("BATCH", str(BNT_BATCH)).replace("STEPS", str(BNT_STEPS))
+        runs = []
+        for root in (PARENT, ".", ".", PARENT):
+            res = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True, text=True,
+                                 timeout=900, check=True)
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        p1, c1, c2, p2 = runs
+        gap = max(abs(a - b) / abs(b) for a, b in zip(c1["losses"], p1["losses"]))
+        print(f"[29] (c) RTM train step, float32 batch {BNT_BATCH}, the parent's port ({PARENT}) against this "
+              f"tree in turns: device {p1['ms']:.2f} / {p2['ms']:.2f} -> {c1['ms']:.2f} / {c2['ms']:.2f} ms a "
+              f"step (median of {BNT_STEPS}); peak memory {p1['peak']} -> {c1['peak']} B allocated, "
+              f"{p1['requested']} -> {c1['requested']} B requested; losses of the first "
+              f"3 steps {p1['losses']} -> {c1['losses']}, largest relative gap {gap:.2e} | {card}")
+        out["step"] = {"parent_ms": [p1["ms"], p2["ms"]], "ms": [c1["ms"], c2["ms"]], "loss_gap": gap,
+                       "peak": [p1["peak"], c1["peak"]], "requested": [p1["requested"], c1["requested"]]}
+    print(f"[29] train-mode norm phase took {time.perf_counter() - t_phase:.1f} s")
+    sums, err = out["float32"]
+    return {
+        "name": "bn_train", "route": "cuda", "source": f"{PORT}/csrc/bn_train.cu",
+        "replaces": "none: no TPU kernel; XLA fuses the JAX train step's norms, residual sums and ReLUs "
+                    "around each convolution",
+        "launches": {"forward": launches[0], "backward": launches[1]}, "max_rel_err": err,
+        "ms": sums["kernel"], "plain_ms": sums["chain"], "library_ms": sums["library"],
+        "bound_ms": sums["bound"], "bound_by": "bytes",
+        "shape": f"the 49 sites of a float32 batch-{BNT_BATCH} train-mode trunk, forward and backward, summed",
+        "bf16_ms": {k: out["bf16"][0][k] for k in (*versions, "bound")},
+        "step_ms": out.get("step"),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5549,6 +5817,7 @@ def main() -> int:
     kernels.append(bn_epilogue_phase(card))
     kernels.append(instance_norm_phase(card))
     upload_phase(card)
+    kernels.append(bn_train_phase(card))
     # each kernel's launches on the evaluation paths of phase 18 (K2's
     # float32 and bf16 modes count under one wrapper, split by path here)
     for k in kernels:

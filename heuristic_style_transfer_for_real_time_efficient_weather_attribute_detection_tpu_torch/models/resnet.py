@@ -11,11 +11,14 @@ batch statistics.  Param tree, as in the JAX package:
 
 The public functions take and return NHWC, with HWIO conv weights.  Inside,
 the trunk runs NCHW through ``F.conv2d``: the activation is permuted once at
-the trunk's entry and once at its exit.  In inference mode each norm, with
-the residual sum and the ReLU that follow it, is one call of
+the trunk's entry and once at its exit.  Each norm, with the residual sum
+and the ReLU that follow it, is one call, 49 a full-depth forward (the
+downsample branch's norm rides in its block's last call): in inference mode
 ``cuda_kernels.bn_epilogue`` (its kernel on the card, its plain version on
-the CPU), 49 a full-depth forward.  The private ``_apply_block`` and
-``_apply_children`` work on NCHW.  Compare with the float32 reference only
+the CPU), in train mode ``cuda_kernels.bn_train`` (two steps forward and
+two backward on the contiguous NCHW conv output: its kernels on the card,
+their plain versions on the CPU).  The private ``_apply_block``, ``_apply_block_train``
+and ``_apply_children`` work on NCHW.  Compare with the float32 reference only
 with TF32 off (``config.enable_parity_precision``): cuDNN's float32
 convolutions default to TF32.  A bf16 tree runs in bf16 under the JAX
 package's rule (``ops.nn.conv2d_nchw``).
@@ -30,7 +33,6 @@ import torch.nn.functional as F
 
 from ..ops import cuda_kernels
 from ..ops.nn import conv2d_nchw, init_batch_norm, init_conv
-from ..ops.norms import train_batch_norm
 
 # (num_blocks, planes) per stage; expansion 4 (ResNet-50).
 STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256), (3, 512))
@@ -156,47 +158,46 @@ def apply_truncated_from_stem(
 # ---------------------------------------------------------------------------
 
 
-def _bn_train(x: torch.Tensor, p: Dict[str, torch.Tensor], shard=None):
-    """Train-mode batch norm on NCHW -> (y, norm params with new running
-    statistics): ``norms.train_batch_norm`` on the NHWC view, whose output
-    keeps x's memory layout, so y comes back contiguous NCHW."""
-    y, new_p = train_batch_norm(x.permute(0, 2, 3, 1), p, shard)
-    return y.permute(0, 3, 1, 2), new_p
-
-
 def _apply_block_train(p: Dict[str, Any], x: torch.Tensor, stride: int, shard=None):
     """One bottleneck block in train mode, NCHW -> (y, block params with new
-    running statistics)."""
+    running statistics): three ``cuda_kernels.bn_train`` calls, the last
+    with the identity or, in a downsample block, with the downsample
+    convolution's output under its own norm."""
     new_p = dict(p)
-    identity = x
-    h, new_p["bn1"] = _bn_train(_conv(x, p["conv1"]), p["bn1"], shard)
-    h, new_p["bn2"] = _bn_train(_conv(torch.relu(h), p["conv2"], stride=stride, padding=1),
-                                p["bn2"], shard)
-    h, new_p["bn3"] = _bn_train(_conv(torch.relu(h), p["conv3"]), p["bn3"], shard)
+    h, new_p["bn1"], _ = cuda_kernels.bn_train(_conv(x, p["conv1"]), p["bn1"], shard=shard)
+    h, new_p["bn2"], _ = cuda_kernels.bn_train(_conv(h, p["conv2"], stride=stride, padding=1),
+                                               p["bn2"], shard=shard)
+    h = _conv(h, p["conv3"])
     if "downsample" in p:
-        identity, ds_bn = _bn_train(_conv(x, p["downsample"]["conv"], stride=stride),
-                                    p["downsample"]["bn"], shard)
-        new_p["downsample"] = {"conv": p["downsample"]["conv"], "bn": ds_bn}
-    return torch.relu(h + identity), new_p
+        ds = p["downsample"]
+        y, new_p["bn3"], ds_bn = cuda_kernels.bn_train(
+            h, p["bn3"], other=_conv(x, ds["conv"], stride=stride), p_other=ds["bn"], shard=shard)
+        new_p["downsample"] = {"conv": ds["conv"], "bn": ds_bn}
+        return y, new_p
+    y, new_p["bn3"], _ = cuda_kernels.bn_train(h, p["bn3"], other=x, shard=shard)
+    return y, new_p
 
 
 def apply_truncated_train(
     params: Dict[str, Any], x: torch.Tensor, truncate_after_layer: int, shard=None
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Train-mode truncated forward, NHWC -> (features, params with new
-    batch-norm running statistics; the weights are the same tensors).
-    Every batch norm takes the global batch's statistics with a ``shard``
-    (``norms.batch_norm_train``)."""
+    batch-norm running statistics; the weights are the same tensors).  Each
+    norm site is one ``cuda_kernels.bn_train`` call (the stem's norm with
+    its ReLU); with a ``shard`` every norm takes the global batch's
+    statistics."""
     n = max(1, min(truncate_after_layer, len(CHILDREN)))
+    children = CHILDREN[:n]
     new_params = dict(params)
     x = _nchw(x)
-    for child in CHILDREN[:n]:
+    for i, child in enumerate(children):
         if child == "conv1":
             x = _conv(x, params["conv1"], stride=2, padding=3)
         elif child == "bn1":
-            x, new_params["bn1"] = _bn_train(x, params["bn1"], shard)
+            x, new_params["bn1"], _ = cuda_kernels.bn_train(
+                x, params["bn1"], relu=children[i + 1:i + 2] == ("relu",), shard=shard)
         elif child == "relu":
-            x = torch.relu(x)
+            pass  # bn1's call applied it
         elif child == "maxpool":
             x = F.max_pool2d(x, 3, 2, 1)
         else:

@@ -31,7 +31,14 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 - ``instance_norm_leaky`` (``csrc/instance_norm_leaky.cu``) replaces no TPU
   kernel either: XLA fuses the PM trunk's instance norm and LeakyReLU into
   each convolution's output, and this kernel is the eager chain's passes as
-  one (``models/trunk.py``).
+  one (``models/trunk.py``);
+- ``bn_train`` (``csrc/bn_train.cu``) replaces no TPU kernel either: XLA
+  fuses the ResNet trunk's train-mode batch norm, residual sum and ReLU,
+  and their gradients, around each convolution, and these four kernels are
+  each site's eager passes as two forward (statistics, apply) and two
+  backward (the gradient's sums, the gradients) (``models/resnet.py``);
+  its operator's CPU implementation runs the same steps, each as its plain
+  version.
 
 The sources are compiled for ``sm_90a`` by ``nvcc`` at first use, one
 process per source started together, and linked into one shared library
@@ -44,8 +51,8 @@ missing ``nvcc``, a failed build or a refused launch is an error, never a
 fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
 
 K1, K2 and K5, the kernels of the batch path, the RTM trunk's
-``bn_epilogue`` and the PM trunk's ``instance_norm_leaky`` are registered
-kernels: :func:`_register` makes each an operator
+``bn_epilogue`` and ``bn_train`` and the PM trunk's ``instance_norm_leaky``
+are registered kernels: :func:`_register` makes each an operator
 (``torch.library.custom_op`` in the ``wadt_torch`` namespace, e.g.
 ``torch.ops.wadt_torch.patch_gram``) and gives its wrapper one call rule.
 Eager on the card the wrapper launches the kernel itself; a CPU tensor or a
@@ -56,9 +63,9 @@ name and launches the kernels when it runs.  Importing this module
 registers them.  All but K2 also carry gradients (``patch_gram_backward``,
 ``gram_proj_backward``, ``bn_epilogue_backward``,
 ``instance_norm_leaky_backward``: plain PyTorch, as the JAX package
-differentiates them by XLA autodiff outside its kernels), so the training
-path and Grad-CAM run their forwards through the kernels and autograd
-through them.
+differentiates them by XLA autodiff outside its kernels; ``bn_train``'s
+backward is two kernels of its own), so the training path and Grad-CAM run
+their forwards through the kernels and autograd through them.
 """
 
 from __future__ import annotations
@@ -80,14 +87,14 @@ from ..config import IMAGENET_MEAN, IMAGENET_STD
 from .attention import stacked_task_heads, task_query_pool, transformer_encoder
 from .gram import split_patches
 from .nn import cast_tree, leaky_relu
-from .norms import EPS, batch_norm_affine, instance_norm
+from .norms import EPS, batch_norm_affine, instance_norm, train_batch_norm
 from .preprocess import s2d_pack
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "_build")
 _SOURCES = ("patch_gram.cu", "stem.cu", "trunk_gram.cu", "head.cu", "int8_matvec.cu",
             "gram_proj.cu", "tsne_repulsion.cu", "hdbscan.cu", "bn_epilogue.cu",
-            "instance_norm_leaky.cu")
+            "instance_norm_leaky.cu", "bn_train.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -97,7 +104,7 @@ _HEAD_CHUNK_ROWS = 256  # token_proj rows per block of csrc/head.cu's first laun
 LAUNCHES: Dict[str, int] = {
     "patch_gram": 0, "stem": 0, "fused_trunk_gram": 0, "fused_head": 0, "dequant_matvec": 0,
     "gram_proj": 0, "tsne_repulsion": 0, "hdbscan_core": 0, "hdbscan_mst": 0, "bn_epilogue": 0,
-    "instance_norm_leaky": 0,
+    "instance_norm_leaky": 0, "bn_train": 0, "bn_train_backward": 0,
 }
 
 _lib = None
@@ -201,6 +208,15 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         lib.wadt_bn_epilogue.restype = i32
         lib.wadt_instance_norm_leaky.argtypes = [ptr] * 6 + [i32] * 3 + [ctypes.c_float, i32, ptr]
         lib.wadt_instance_norm_leaky.restype = i32
+        lib.wadt_bn_train_stats.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
+        lib.wadt_bn_train_stats.restype = i32
+        f64 = ctypes.c_double
+        lib.wadt_bn_train_apply.argtypes = [ptr] * 17 + [i32] * 4 + [f64] + [i32] * 4 + [ptr]
+        lib.wadt_bn_train_apply.restype = i32
+        lib.wadt_bn_train_grad_stats.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.wadt_bn_train_grad_stats.restype = i32
+        lib.wadt_bn_train_grad_apply.argtypes = [ptr] * 12 + [i32] * 4 + [f64] + [i32] * 4 + [ptr]
+        lib.wadt_bn_train_grad_apply.restype = i32
         _lib = lib
         return lib
 
@@ -1799,6 +1815,376 @@ def _inl_grad(ctx, dy):
 
 _instance_norm_leaky = _register("instance_norm_leaky", _inl_launch, _inl_cpu, _inl_fake,
                                  _inl_setup, _inl_grad)
+
+
+# ---------------------------------------------------------------------------
+# The ResNet trunk's train-mode batch norm (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+_BN_TRAIN_RUN = 16384  # values of one channel a block of csrc/bn_train.cu's reductions sums
+_BN_MOMENTUM = 0.1  # norms.update_running_stats' momentum, csrc/bn_train.cu's kMomentum
+
+
+def bn_train_splits(n: int, hw: int) -> int:
+    """Runs of at most ~16 K values that ``csrc/bn_train.cu``'s reductions
+    cut each channel's n * hw values into, one block a (channel, run): at
+    batch 128, 98 runs for the stem's 112x112 planes, one for layer4's 7x7."""
+    return max(1, -(-n * hw // _BN_TRAIN_RUN))
+
+
+def _bn_count(x: torch.Tensor, shard=None) -> int:
+    """Values each channel of NCHW x reduces: N*H*W, the global batch's
+    with a ``shard`` (``norms._count``)."""
+    return x.shape[2] * x.shape[3] * (x.shape[0] if shard is None else shard.total)
+
+
+def _chain_norm(x: torch.Tensor, p: Dict[str, torch.Tensor], shard=None):
+    """``norms.train_batch_norm`` of NCHW x on its NHWC view (the output
+    keeps x's memory, so y comes back contiguous NCHW) -> (y, new p)."""
+    y, new_p = train_batch_norm(x.permute(0, 2, 3, 1), p, shard)
+    return y.permute(0, 3, 1, 2), new_p
+
+
+def bn_train_plain(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
+                   other: Optional[torch.Tensor] = None,
+                   p_other: Optional[Dict[str, torch.Tensor]] = None, shard=None):
+    """Plain PyTorch train-mode batch norm of NCHW x on batch statistics
+    (the global batch's with a ``shard``), plus ``other`` (the residual
+    identity) or, with ``p_other``, plus ``other`` under its own train-mode
+    norm (the downsample branch), then the ReLU if ``relu`` -> (y, p with
+    new running statistics, p_other with new ones or None).  The eager
+    chain that :func:`bn_train` replaced, each step one PyTorch operation:
+    ``norms.train_batch_norm`` on the NHWC view, the sum, ``torch.relu``;
+    the reference the tests and ``chip_smoke.py`` hold it to."""
+    if p_other is not None and other is None:
+        raise ValueError("bn_train: a second norm needs the tensor it normalizes")
+    y, new_p = _chain_norm(x, p, shard)
+    new_o = None
+    if other is not None:
+        if p_other is not None:
+            other, new_o = _chain_norm(other, p_other, shard)
+        y = y + other
+    return (torch.relu(y) if relu else y), new_p, new_o
+
+
+def bn_train(x: torch.Tensor, p: Dict[str, torch.Tensor], relu: bool = True,
+             other: Optional[torch.Tensor] = None,
+             p_other: Optional[Dict[str, torch.Tensor]] = None, shard=None):
+    """:func:`bn_train_plain`, forward and backward, as two steps each way
+    -> (y, p with new running statistics, p_other's or None).
+
+    Replaces no TPU kernel: the JAX package leaves each train-mode norm of
+    the ResNet trunk, and what follows it, to XLA's fusion.  One route on
+    both devices: the statistics' sums, then one pass for y, the batch
+    statistics and the new running ones; backward the gradient's sums, then
+    one pass for the gradients (:func:`_bn_train_forward`,
+    :func:`_bn_train_grads`).  Each step is its kernel in
+    ``csrc/bn_train.cu`` on a CUDA tensor and its plain version
+    (``bn_train_*_plain``) on a CPU one.  The kernels take contiguous NCHW
+    float32 or bf16 tensors with ``other`` and the norms' scale and bias of
+    x's type and running statistics [C] of float32 or x's type (others
+    raise).  Without a ``shard`` it is the registered kernel
+    ``wadt_torch::bn_train`` (:func:`_register`'s rule).  With a ``shard``
+    (``parallel.mesh.RowShard``) the statistics and the gradient's sums are
+    the global batch's: ``shard.all_reduce`` runs between each pair of
+    steps (:class:`_BnTrainSplit`).  The new running statistics carry no
+    gradient and keep their params' type.
+    """
+    _require_cpu_or_cuda(x, "bn_train")
+    if p_other is not None and other is None:
+        raise ValueError("bn_train: a second norm needs the tensor it normalizes")
+    second = (None,) * 4 if p_other is None else tuple(p_other[k] for k in _NORM_KEYS)
+    args = (x, *(p[k] for k in _NORM_KEYS), other, *second, relu)
+    y, _, run = _bn_train(*args) if shard is None else _BnTrainSplit.apply(shard, *args)
+    run = run.detach()
+
+    def moved(q, i):
+        return {**q, "mean": run[i].to(q["mean"].dtype), "var": run[i + 1].to(q["var"].dtype)}
+
+    return y, moved(p, 0), None if p_other is None else moved(p_other, 2)
+
+
+def _bn_train_fits(x: torch.Tensor, other: Optional[torch.Tensor], vecs, running) -> bool:
+    """:func:`_epilogue_fits` for x, ``other`` and the scales and biases;
+    each running statistic [C] of float32 or x's type on x's device."""
+    c = x.shape[1] if x.ndim == 4 else -1
+    return _epilogue_fits(x, other, vecs) and all(
+        r.dtype in (torch.float32, x.dtype) and r.device == x.device and r.ndim == 1
+        and r.shape[0] == c for r in running if r is not None)
+
+
+# -- the four steps: each the kernel on CUDA tensors, its plain version on CPU ones
+
+
+def bn_train_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """The statistics step: (sum x, sum x^2) per channel of NCHW x in
+    float64 -> [1, C, 2] (one run a channel)."""
+    xd = x.double()
+    return torch.stack([xd.sum((0, 2, 3)), xd.square().sum((0, 2, 3))], -1)[None]
+
+
+def _bn_stats(x: torch.Tensor) -> torch.Tensor:
+    """The statistics step's sums [runs, C, 2] (:func:`bn_train_splits` runs
+    on the card)."""
+    if not x.is_cuda:
+        return bn_train_stats_plain(x)
+    n, c, h, w = x.shape
+    splits = bn_train_splits(n, h * w)
+    part = torch.empty((splits, c, 2), dtype=torch.float64, device=x.device)
+    _launch("bn_train", build().wadt_bn_train_stats, x.device, x.data_ptr(), part.data_ptr(), n, c,
+            h * w, splits, int(x.dtype == torch.bfloat16))
+    return part
+
+
+def _bn_affine_plain(part: torch.Tensor, scale: torch.Tensor, count: int):
+    """(mean, variance, rstd, inv = scale * rstd) [C] in float32 from the
+    statistics' sums, as the apply kernel derives them: float64 moments,
+    rounded once, then each float32 step rounded."""
+    s = part.sum(0)
+    mean = s[:, 0] / count
+    var = s[:, 1] / count - mean.square()
+    m, v = mean.float(), torch.where(var < 0, 0.0, var).float()
+    rstd = torch.reciprocal(torch.sqrt(v + EPS))
+    return m, v, rstd, scale.float() * rstd
+
+
+def _chw(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
+
+
+def bn_train_apply_plain(x: torch.Tensor, other: Optional[torch.Tensor], parts, norms, relu: bool,
+                         count: int):
+    """The apply step: ``norms`` (scale, bias, running mean, running
+    variance) of x and, in a second entry, of ``other``; ``parts`` their
+    statistics' sums -> (y of x's type, [2k, C] float32 batch mean and
+    variance of each norm, [2k, C] float32 new running mean and variance of
+    each), in float32 with one rounding to x's type at the end."""
+    keep = float(np.float32(1.0) - np.float32(_BN_MOMENTUM))
+    bessel = float(np.float32(count / max(count - 1, 1)))
+    zs, stats, run = [], [], []
+    for t, part, (scale, bias, rmean, rvar) in zip((x, other), parts, norms):
+        m, v, _, inv = _bn_affine_plain(part, scale, count)
+        zs.append((t.float() - _chw(m)) * _chw(inv) + _chw(bias.float()))
+        stats += [m, v]
+        run += [keep * rmean.float() + _BN_MOMENTUM * m,
+                keep * rvar.float() + _BN_MOMENTUM * (v * bessel)]
+    y = zs[0]
+    if other is not None:
+        y = y + (zs[1] if len(zs) == 2 else other.float())
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype), torch.stack(stats), torch.stack(run)
+
+
+def _bn_apply(x, other, parts, norms, relu, count):
+    if not x.is_cuda:
+        return bn_train_apply_plain(x, other, parts, norms, relu, count)
+    n, c, h, w = x.shape
+    k = len(norms)
+    y = torch.empty_like(x)
+    stats = torch.empty((2 * k, c), dtype=torch.float32, device=x.device)
+    run = torch.empty((2 * k, c), dtype=torch.float32, device=x.device)
+    ptrs, keep = [], []  # keep: the float32 running statistics, alive until the launch
+    for i in range(2):
+        if i < k:
+            scale, bias, rmean, rvar = norms[i]
+            rm, rv = rmean.float().contiguous(), rvar.float().contiguous()
+            keep += [rm, rv]
+            ptrs += [parts[i].data_ptr(), scale.data_ptr(), bias.data_ptr(), rm.data_ptr(),
+                     rv.data_ptr(), stats[2 * i].data_ptr(), run[2 * i].data_ptr()]
+        else:
+            ptrs += [None] * 7
+    mode = 0 if other is None else 2 if k == 2 else 1
+    _launch("bn_train", build().wadt_bn_train_apply, x.device, x.data_ptr(),
+            None if other is None else other.data_ptr(), *ptrs, y.data_ptr(), n, c, h * w,
+            parts[0].shape[0], float(count), mode, int(relu),
+            int(x.dtype == torch.bfloat16), _sm_count(x.device))
+    return y, stats, run
+
+
+def _masked(dy: torch.Tensor, y: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The gradient past the ReLU in float32: ``threshold_backward`` on the output."""
+    g = dy.float()
+    return torch.where(y <= 0, 0.0, g) if relu else g
+
+
+def bn_train_grad_stats_plain(dy, y, x, other, stats, relu: bool) -> torch.Tensor:
+    """The gradient's sums: (sum g, sum g (x - mean)) per channel, and sum
+    g (other - mean2) with a second norm's ``other``, in float64 from
+    float32 products -> [1, C, 2 or 3]."""
+    g = _masked(dy, y, relu)
+    cols = [g, g * (x.float() - _chw(stats[0]))]
+    if other is not None:
+        cols.append(g * (other.float() - _chw(stats[2])))
+    return torch.stack([t.double().sum((0, 2, 3)) for t in cols], -1)[None]
+
+
+def _bn_grad_stats(dy, y, x, other, stats, relu):
+    if not x.is_cuda:
+        return bn_train_grad_stats_plain(dy, y, x, other, stats, relu)
+    n, c, h, w = x.shape
+    splits = bn_train_splits(n, h * w)
+    part = torch.empty((splits, c, 2 if other is None else 3), dtype=torch.float64, device=x.device)
+    _launch("bn_train_backward", build().wadt_bn_train_grad_stats, x.device, dy.data_ptr(),
+            y.data_ptr(), x.data_ptr(), None if other is None else other.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), n, c, h * w, splits, int(relu),
+            int(x.dtype == torch.bfloat16))
+    return part
+
+
+def bn_train_grad_apply_plain(dy, y, x, other, stats, scales, glob, local, relu: bool, count: int,
+                              mode: int):
+    """The gradients: dx, then ``other``'s (mode 1, an identity: the masked
+    gradient itself; mode 2, a second norm's input: its own dx) or None,
+    then each norm's (dscale, dbias) from the ``local`` sums; dx and
+    other's from the ``glob`` sums (the global batch's), in float32 with one
+    rounding to x's type."""
+    g = _masked(dy, y, relu)
+    gs, ls = glob.sum(0), local.sum(0)
+
+    def one(t, m, v, scale, col):
+        rstd = torch.reciprocal(torch.sqrt(v + EPS))
+        inv = scale.float() * rstd
+        beta = (-inv.double() * rstd * rstd * gs[:, col] / count).float()
+        delta = (-inv.double() * gs[:, 0] / count).float()
+        dt = _chw(beta) * (t.float() - _chw(m)) + (_chw(inv) * g + _chw(delta))
+        return (dt.to(x.dtype), (ls[:, col] * rstd.double()).float().to(scale.dtype),
+                ls[:, 0].float().to(scale.dtype))
+
+    dx, dscale, dbias = one(x, stats[0], stats[1], scales[0], 1)
+    if mode == 2:
+        dother, dscale2, dbias2 = one(other, stats[2], stats[3], scales[1], 2)
+        return dx, dscale, dbias, dother, dscale2, dbias2
+    return dx, dscale, dbias, (g.to(x.dtype) if mode == 1 else None), None, None
+
+
+def _bn_grad_apply(dy, y, x, other, stats, scales, glob, local, relu, count, mode):
+    if not x.is_cuda:
+        return bn_train_grad_apply_plain(dy, y, x, other, stats, scales, glob, local, relu, count,
+                                         mode)
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    dother = None if mode == 0 else torch.empty_like(x)
+    dvec = torch.empty((4 if mode == 2 else 2, c), dtype=x.dtype, device=x.device)
+    _launch("bn_train_backward", build().wadt_bn_train_grad_apply, x.device, dy.data_ptr(),
+            y.data_ptr(), x.data_ptr(), None if mode != 2 else other.data_ptr(), stats.data_ptr(),
+            scales[0].data_ptr(), None if mode != 2 else scales[1].data_ptr(), glob.data_ptr(),
+            local.data_ptr(), dx.data_ptr(), None if dother is None else dother.data_ptr(),
+            dvec.data_ptr(), n, c, h * w, glob.shape[0], float(count), mode, int(relu),
+            int(x.dtype == torch.bfloat16), _sm_count(x.device))
+    if mode == 2:
+        return dx, dvec[0], dvec[1], dother, dvec[2], dvec[3]
+    return dx, dvec[0], dvec[1], dother, None, None
+
+
+# -- the route: statistics, [all-reduce], apply; backward sums, [all-reduce], gradients
+
+
+def _bn_train_forward(x, scale, bias, rmean, rvar, other, scale2, bias2, rmean2, rvar2, relu,
+                      shard=None):
+    """The statistics step, the sums all-reduced over ``shard``'s data group
+    where given, then the apply step -> (y, [2k, C] float32 batch mean and
+    variance, then the second norm's; [2k, C] float32 new running mean and
+    variance, then the second norm's)."""
+    second = (scale2, bias2, rmean2, rvar2)
+    given = sum(t is not None for t in second)
+    if given not in (0, 4) or (given and other is None):
+        raise ValueError("bn_train: a second norm takes all four vectors and the tensor it "
+                         "normalizes")
+    if x.is_cuda and not _bn_train_fits(x, other, (scale, bias, scale2, bias2),
+                                        (rmean, rvar, rmean2, rvar2)):
+        raise ValueError(
+            "bn_train: the kernels take contiguous NCHW float32 or bf16 CUDA tensors, with other, "
+            "scale and bias [C] of x's type and device and running statistics [C] of float32 or "
+            "x's type"
+        )
+    parts = [_bn_stats(x)] + ([_bn_stats(other)] if given else [])
+    if shard is not None:
+        parts = [shard.all_reduce(t) for t in parts]
+    norms = [(scale, bias, rmean, rvar)] + ([second] if given else [])
+    return _bn_apply(x, other, parts, norms, relu, _bn_count(x, shard))
+
+
+def _bn_train_grads(dy, x, y, other, stats, scale, scale2, relu, count, shard=None):
+    """The backward: the gradient's sums, all-reduced over ``shard``'s data
+    group where given (dx reads the global sums, dscale and dbias this
+    rank's), then the gradients -> (dx, dscale, dbias, other's gradient,
+    dscale2, dbias2)."""
+    mode = 0 if other is None else 2 if scale2 is not None else 1
+    dy = dy.contiguous()
+    local = _bn_grad_stats(dy, y, x, other if mode == 2 else None, stats, relu)
+    glob = local if shard is None else shard.all_reduce(local)
+    return _bn_grad_apply(dy, y, x, other, stats, (scale, scale2), glob, local, relu, count, mode)
+
+
+# the operator's arguments that carry a gradient, in _bn_train_grads' order
+_BN_TRAIN_GRAD_ARGS = (0, 1, 2, 5, 6, 7)
+
+
+def _bn_train_setup(ctx, inputs, output) -> None:
+    x, scale, _, _, _, other, scale2, _, _, _, relu = inputs
+    y, stats, run = output
+    ctx.mark_non_differentiable(stats, run)
+    ctx.save_for_backward(x, other, y, stats, scale, scale2)
+    ctx.relu = relu
+    ctx.count = _bn_count(x)
+
+
+def _bn_train_slots(ctx, dy, needs, shard=None) -> tuple:
+    """The gradients in the operator's argument order, None where ``needs``
+    says none is needed."""
+    x, other, y, stats, scale, scale2 = ctx.saved_tensors
+    grads = _bn_train_grads(dy, x, y, other, stats, scale, scale2, ctx.relu, ctx.count, shard)
+    out = [None] * len(needs)
+    for i, g in zip(_BN_TRAIN_GRAD_ARGS, grads):
+        out[i] = g if needs[i] else None
+    return tuple(out)
+
+
+def _bn_train_grad(ctx, dy, _dstats, _drun):
+    return _bn_train_slots(ctx, dy, ctx.needs_input_grad)
+
+
+def _bn_train_launch(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, rmean: torch.Tensor,
+    rvar: torch.Tensor, other: Optional[torch.Tensor], scale2: Optional[torch.Tensor],
+    bias2: Optional[torch.Tensor], rmean2: Optional[torch.Tensor], rvar2: Optional[torch.Tensor],
+    relu: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``wadt_torch::bn_train`` on CUDA and CPU tensors alike:
+    :func:`_bn_train_forward` -> (y, batch statistics, new running statistics)."""
+    return _bn_train_forward(x, scale, bias, rmean, rvar, other, scale2, bias2, rmean2, rvar2,
+                             relu)
+
+
+def _bn_train_fake(x, scale, bias, rmean, rvar, other, scale2, bias2, rmean2, rvar2, relu):
+    rows = (2 if scale2 is None else 4, x.shape[1])
+    return (x.new_empty(x.shape), x.new_empty(rows, dtype=torch.float32),
+            x.new_empty(rows, dtype=torch.float32))
+
+
+_bn_train = _register("bn_train", _bn_train_launch, _bn_train_launch, _bn_train_fake,
+                      _bn_train_setup, _bn_train_grad)
+
+
+class _BnTrainSplit(torch.autograd.Function):
+    """The route with a mesh: the operator's forward and backward with
+    ``shard.all_reduce`` between the sums and the pass that reads them (an
+    operator cannot carry the mesh)."""
+
+    @staticmethod
+    def forward(shard, *args):
+        return _bn_train_forward(*args, shard=shard)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _bn_train_setup(ctx, inputs[1:], output)
+        ctx.shard = inputs[0]
+        ctx.count = _bn_count(inputs[1], inputs[0])
+
+    @staticmethod
+    def backward(ctx, dy, _dstats, _drun):
+        return (None, *_bn_train_slots(ctx, dy, ctx.needs_input_grad[1:], ctx.shard))
 
 
 # ---------------------------------------------------------------------------

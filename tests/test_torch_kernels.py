@@ -7,6 +7,8 @@ The kernels themselves run only on a CUDA card: ``test_kernel_matches_plain_on_c
 holds them against their plain versions there and skips elsewhere.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -336,11 +338,54 @@ def _instance_norm_leaky_call():
     return ck.instance_norm_leaky, (x, p, 0.2), ck.instance_norm_leaky_plain
 
 
+def _bn_train_one_rank(x, p, relu, d, pd):
+    """``bn_train`` outside its operator: the same steps, each its plain
+    version on the CPU, with a one-rank mesh whose all-reduce returns its
+    tensor."""
+    return ck.bn_train(x, p, relu, d, pd, shard=types.SimpleNamespace(
+        total=x.shape[0], all_reduce=lambda t: t))
+
+
+def _bn_train_call():
+    """The downsample site in train mode: two norms on batch statistics, the
+    sum and the ReLU -> (y, both norms with new running statistics).  On
+    the CPU the operator runs the card's steps as their plain versions."""
+    rng = np.random.RandomState(13)
+    x, d = (torch.from_numpy(rng.randn(2, 8, 5, 7).astype(np.float32)) for _ in range(2))
+
+    def norm():
+        return {k: torch.from_numpy(v.astype(np.float32)) for k, v in {
+            "scale": rng.rand(8) + 0.5, "bias": rng.randn(8), "mean": rng.randn(8),
+            "var": rng.rand(8) + 0.5}.items()}
+
+    return ck.bn_train, (x, norm(), True, d, norm()), _bn_train_one_rank
+
+
+def _bn_train_backward_call():
+    """The same site's gradients of x, the second norm's input and each
+    norm's scale and bias: autograd through the operator's backward."""
+    _, (x, p, relu, d, pd), _ = _bn_train_call()
+    dy = torch.from_numpy(np.random.RandomState(14).randn(*x.shape).astype(np.float32))
+
+    def grads(fn):
+        def run(x, d, dy):
+            leaves = [t.detach().requires_grad_() for t in (x, d, p["scale"], p["bias"],
+                                                            pd["scale"], pd["bias"])]
+            q = {**p, "scale": leaves[2], "bias": leaves[3]}
+            qd = {**pd, "scale": leaves[4], "bias": leaves[5]}
+            with torch.enable_grad():
+                return torch.autograd.grad(fn(leaves[0], q, relu, leaves[1], qd)[0], leaves, dy)
+        return run
+
+    return grads(ck.bn_train), (x, d, dy), grads(_bn_train_one_rank)
+
+
 CASES = [_gram_call, _stem_call, _trunk_gram_call, _head_call, _dequant_call, _gram_proj_call,
          _tsne_repulsion_call, _hdbscan_core_call, _hdbscan_mst_call, _bn_epilogue_call,
-         _instance_norm_leaky_call]
+         _instance_norm_leaky_call, _bn_train_call, _bn_train_backward_call]
 CASE_IDS = ["patch_gram", "stem", "fused_trunk_gram", "fused_head", "dequant_matvec", "gram_proj",
-            "tsne_repulsion", "hdbscan_core", "hdbscan_mst", "bn_epilogue", "instance_norm_leaky"]
+            "tsne_repulsion", "hdbscan_core", "hdbscan_mst", "bn_epilogue", "instance_norm_leaky",
+            "bn_train", "bn_train_backward"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
